@@ -1,0 +1,111 @@
+"""Build and load the port's CUDA kernels.
+
+Every ``csrc/*.cu`` file is compiled by ``nvcc`` for Hopper (``sm_90a``) into
+one shared library with a plain C interface, loaded with ``ctypes``. Building
+this way takes seconds; ``torch.utils.cpp_extension.load`` compiles PyTorch's
+headers and takes minutes. The library goes to ``build/vangan_torch/`` at the
+root of the checkout (git-ignored), named by a hash of the sources, so an edit
+rebuilds it and an unchanged checkout reuses it. Any build or load failure
+raises: there is no fallback.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+from typing import Optional
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "vangan_torch"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC"]
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_SIGNATURES = {
+    # x, w, bias, y, dtype, B, Ci, Co, X, Y, Z, Xo, Yo, Zo, kx, ky, kz,
+    # sx, sy, sz, px, py, pz, reflect, stream
+    "vg_conv3d_fwd": [_P, _P, _P, _P] + [_I] * 20 + [_P],
+    # x, gamma, beta, y, partial, ab, dtype, BC, C, N, nsplit, eps, act,
+    # alpha, vec, stream
+    "vg_instnorm_fwd": [_P] * 6 + [_I, _I, _I, ctypes.c_longlong, _I, ctypes.c_float,
+                                   _I, ctypes.c_float, _I, _P],
+}
+
+_lib: Optional[ctypes.CDLL] = None
+
+
+def _nvcc() -> str:
+    for cand in (shutil.which("nvcc"),
+                 os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc")):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit "
+                       "(put nvcc on PATH or set CUDA_HOME)")
+
+
+def sources() -> list:
+    return sorted(CSRC.glob("*.cu"))
+
+
+def library_path() -> Path:
+    h = hashlib.sha256()
+    for src in sources():
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"libvangan_kernels_{h.hexdigest()[:12]}.so"
+
+
+def build(verbose: bool = False) -> Path:
+    """Compile the kernels unless an up-to-date library exists; return its path.
+
+    ``verbose`` adds ``-Xptxas -v`` and prints nvcc's report (registers,
+    shared memory and spills of each kernel).
+    """
+    out = library_path()
+    if out.exists() and not verbose:
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    cmd = [_nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []), "-o", tmp,
+           *map(str, sources())]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
+                           f"{proc.stdout}\n{proc.stderr}")
+    if verbose:
+        print(proc.stdout + proc.stderr)
+    os.replace(tmp, out)
+    return out
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library (built at first use)."""
+    global _lib
+    if _lib is None:
+        lib = ctypes.CDLL(str(build()))
+        for name, argtypes in _SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        lib.vg_error_string.argtypes = [ctypes.c_int]
+        lib.vg_error_string.restype = ctypes.c_char_p
+        _lib = lib
+    return _lib
+
+
+def check(status: int, name: str) -> None:
+    """Raise if a C entry point reported a refused argument or a CUDA error."""
+    if status == 1000:
+        raise ValueError(f"{name}: arguments outside what the kernel takes")
+    if status != 0:
+        msg = library().vg_error_string(status).decode()
+        raise RuntimeError(f"{name}: CUDA error {status} ({msg})")
