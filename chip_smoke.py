@@ -8,26 +8,42 @@ Phases, each of which raises on failure:
 0. the card (nvidia-smi name and power limit); CUDA must be available;
 1. build the CUDA kernels from vangan_torch/ops/csrc with nvcc (sm_90a);
 2. the conv3d kernel against its plain version (F.conv3d) at every conv shape
-   the full-width gen_IS gives it at 128^3, batch 1, in float32 (TF32 off,
-   max |err| <= 1e-4 * max |y|) and bfloat16 (<= 2e-2 * max |y|), with CUDA
-   event times (median of 5) of both;
+   the full-width gen_IS (17 kernel convs) and disc_I (1: conv0) give it at
+   128^3, batch 1, in float32 (TF32 off, max |err| <= 1e-4 * max |y|) and
+   bfloat16 (<= 2e-2 * max |y|), with CUDA event times (median of 5) of both;
 3. the InstanceNorm kernel against its plain version at every (C, size) of
-   the path, for each activation, with the same tolerances and timing;
-4. gen_IS (f=16, 4 levels) on a batch of 8 x 128^3 from seeded weights: one
+   the two networks (28 and 4 norms), for each activation, with the same
+   tolerances and timing;
+4. the soft-skeleton kernel against its plain version (morphology.soft_skel)
+   at the test step's shape, 3 x 128^3, 15 iterations, on the min-max
+   normalised tanh of seeded noise and on a binary volume touching every
+   face: bit-exact (max |diff| == 0); CUDA event times (median of 5);
+5. gen_IS (f=16, 4 levels) on a batch of 8 x 128^3 from seeded weights: one
    bf16 call must launch the conv kernel 17 times and the IN kernel 28 times;
    in f32 the kernel path must match the plain path (max |diff| <= 1e-3 on
    the tanh outputs); in bf16 the kernel path must be no further from the f32
    plain result than the bf16 plain path is (2x on the mean, 3x on the max,
    see ``bf16_vs_reference``); ms per bf16 batch of both paths;
-5. the main path: ``python -m vangan_torch predict`` (through cli.main) on a
-   seeded 256^3 volume with weights saved from seeded init, stride 64, uniform
-   blend, padFactor 0.25; the TIFF must be (256, 256, 256, 1) z-x-y-c, finite,
-   in [0, 255], every kernel must have launched once per gen_IS batch, and
-   the volume must pass the bf16 check of phase 4 against plain-path stitches
-   of the same input.
+6. the evaluation path: ``VanGan.distributed_test_step`` at full width (four
+   networks from seeded init, a seeded batch of 3 x 128^3, bf16): one step
+   must launch the conv kernel 4 x 17 + 4 x 1 times, the IN kernel
+   4 x 28 + 4 x 4 times and the skeleton kernel 2 x 16 times; all ten losses
+   finite; in f32 each loss of the kernel path within 1e-3 relative of the
+   plain path's; in bf16 each within max(3 |plain bf16 - f32|, 1e-3 |f32|)
+   of the f32 plain loss; ms per step of both paths, in turns, and peak
+   device memory;
+7. the serving path: ``python -m vangan_torch predict`` (through cli.main) on
+   a seeded 256^3 volume with weights saved from seeded init, stride 64,
+   uniform blend, padFactor 0.25; the TIFF must be (256, 256, 256, 1)
+   z-x-y-c, finite, in [0, 255], every kernel must have launched once per
+   gen_IS batch, and the volume must pass the bf16 check of phase 5 against
+   plain-path stitches of the same input.
 
-Then one JSON line of the kernels and, last, the ok line. Without CUDA, or
-outside the repository, it exits non-zero before printing either.
+Then one JSON line of the kernels (launches counted in one test step of
+phase 6, the path that runs all three; ms summed over one gen_IS forward at
+batch 1 for the conv and IN kernels, one skeleton for soft_skel_fwd) and,
+last, the ok line. Without CUDA, or outside the repository, it exits non-zero
+before printing either.
 """
 
 import json
@@ -45,10 +61,14 @@ N = 128          # patch edge (SUBVOL_PATCH_SIZE)
 BATCH = 8        # stitcher_batch
 VOLUME = 256     # predict phase volume edge
 STRIDE = 64
+STEP_BATCH = 3   # test step batch (BATCH_SIZE x N_DEVICES of the default config)
+SKEL_ITERS = 15  # cldice_iters
 SEED = 0
 DEVICE = "cuda"
 CONV_PATH_CALLS = 17  # kernel convs per gen_IS call (max(Ci, Co) < 128)
 IN_PATH_CALLS = 28    # InstanceNorms per gen_IS call
+DISC_CONV_CALLS = 1   # kernel convs per disc call (conv0; the wider ones take cuDNN)
+DISC_IN_CALLS = 4     # InstanceNorms per disc call
 
 
 def require(cond, msg):
@@ -78,7 +98,7 @@ def errs(got, want):
 
 def path_shapes(model):
     """The (name, module, input shape) of every conv and InstanceNorm of one
-    gen_IS call at N^3, batch 1, recorded on the plain path."""
+    call of ``model`` at N^3, batch 1, recorded on the plain path."""
     from vangan_torch.models.layers import ConvND, InstanceNorm
 
     seen, hooks = [], []
@@ -95,7 +115,7 @@ def path_shapes(model):
     return seen
 
 
-def check_convs(shapes, tol):
+def check_convs(net, shapes, expected, tol):
     from vangan_torch.models.layers import KERNEL_MAX_CHANNELS, ConvND
     from vangan_torch.ops.conv3d import conv3d, conv3d_plain, norm_padding
 
@@ -106,8 +126,8 @@ def check_convs(shapes, tol):
                    m.bias is not None, shape[2:])
             groups.setdefault(key, []).append(name)
     n_calls = sum(len(v) for v in groups.values())
-    require(n_calls == CONV_PATH_CALLS, f"{n_calls} kernel convs on the path, "
-            f"expected {CONV_PATH_CALLS}")
+    require(n_calls == expected, f"{n_calls} kernel convs in a {net} call, "
+            f"expected {expected}")
     g = torch.Generator(device=DEVICE).manual_seed(SEED)
     rows = []
     for (wshape, stride, padding, pad_mode, has_bias, dims), names in groups.items():
@@ -117,7 +137,8 @@ def check_convs(shapes, tol):
         w = torch.randn(wshape, device=DEVICE, generator=g) * math.sqrt(2.0 / (ci * 27))
         b = torch.randn(co, device=DEVICE, generator=g) * 0.1 if has_bias else None
         pads = norm_padding(m.padding, m.kernel_size, stride, dims)
-        row = {"convs": names, "w": list(wshape), "stride": list(stride), "in": list(dims)}
+        row = {"net": net, "convs": names, "w": list(wshape), "stride": list(stride),
+               "in": list(dims)}
         for dtype in (torch.float32, torch.bfloat16):
             x = x32.to(dtype)
             with torch.inference_mode():
@@ -137,7 +158,7 @@ def check_convs(shapes, tol):
     return rows
 
 
-def check_instnorms(shapes, tol):
+def check_instnorms(net, shapes, expected, tol):
     from vangan_torch.models.layers import InstanceNorm
     from vangan_torch.ops.instnorm import instance_norm_act, instance_norm_act_plain
 
@@ -146,8 +167,8 @@ def check_instnorms(shapes, tol):
         if isinstance(m, InstanceNorm):
             groups.setdefault((shape[1], shape[2:]), []).append((name, m.act))
     n_calls = sum(len(v) for v in groups.values())
-    require(n_calls == IN_PATH_CALLS, f"{n_calls} InstanceNorms on the path, "
-            f"expected {IN_PATH_CALLS}")
+    require(n_calls == expected, f"{n_calls} InstanceNorms in a {net} call, "
+            f"expected {expected}")
     g = torch.Generator(device=DEVICE).manual_seed(SEED + 1)
     rows = []
     for (c, dims), uses in groups.items():
@@ -155,7 +176,7 @@ def check_instnorms(shapes, tol):
         gamma = torch.randn(c, device=DEVICE, generator=g) * 0.5 + 1
         beta = torch.randn(c, device=DEVICE, generator=g) * 0.2
         for act in ("none", "relu", "leaky_relu"):
-            row = {"c": c, "in": list(dims), "act": act,
+            row = {"net": net, "c": c, "in": list(dims), "act": act,
                    "uses": [n for n, a in uses if a == act]}
             for dtype in (torch.float32, torch.bfloat16):
                 x = x32.to(dtype)
@@ -189,6 +210,35 @@ def bf16_vs_reference(k16, p16, ref, what):
     require(res["kernel_vs_ref_mean"] <= 2 * res["plain_vs_ref_mean"]
             and res["kernel_vs_ref_max"] <= 3 * res["plain_vs_ref_max"],
             f"{what}: bf16 kernel path too far from the f32 reference: {res}")
+    return res
+
+
+def check_skeleton(skel_ops):
+    from vangan_torch.ops import morphology
+    from vangan_torch.ops.norms import min_max_norm
+
+    shape = (STEP_BATCH, N, N, N, 1)
+    g = torch.Generator(device=DEVICE).manual_seed(SEED + 3)
+    noise = torch.randn(shape, device=DEVICE, generator=g)
+    vessels = (torch.rand(shape, device=DEVICE, generator=g) > 0.7).float()
+    for face in (vessels[:, 0], vessels[:, -1], vessels[:, :, 0], vessels[:, :, -1],
+                 vessels[:, :, :, 0], vessels[:, :, :, -1]):
+        face[..., :N // 2, :] = 1.0  # a structure on every face
+    inputs = {"tanh_noise": min_max_norm(torch.tanh(noise), axis=(1, 2, 3, 4)),
+              "binary_faces": vessels}
+    res = {"shape": list(shape), "iters": SKEL_ITERS}
+    with torch.inference_mode():
+        for tag, x in inputs.items():
+            got = skel_ops.soft_skel(x, SKEL_ITERS)
+            want = morphology.soft_skel(x, SKEL_ITERS)
+            torch.cuda.synchronize()
+            err = float((got - want).abs().max())
+            require(got.shape == want.shape and err == 0.0,
+                    f"soft_skel kernel vs plain on {tag}: max |diff| {err:.3e}")
+            res[f"{tag}_max_abs_err"] = err
+            res[f"{tag}_ms"] = cuda_ms(lambda: skel_ops.soft_skel(x, SKEL_ITERS))
+            res[f"{tag}_plain_ms"] = cuda_ms(lambda: morphology.soft_skel(x, SKEL_ITERS))
+    print("soft_skel", json.dumps(res))
     return res
 
 
@@ -232,6 +282,68 @@ def check_generator(model, conv_ops, in_ops):
                 "plain_ms_per_batch": float(np.median(times["plain"])),
                 "conv_launches_per_call": counts[0], "in_launches_per_call": counts[1]})
     print("generator", json.dumps(res))
+    return res
+
+
+def check_test_step(conv_ops, in_ops, skel_ops):
+    from vangan_torch.config import VanGanConfig
+    from vangan_torch.vangan import VanGan
+
+    cfg = VanGanConfig(SUBVOL_PATCH_SIZE=(N, N, N), BATCH_SIZE=STEP_BATCH,
+                       cldice_iters=SKEL_ITERS)
+    gan = VanGan(cfg, device=DEVICE)
+    rng = np.random.default_rng(SEED + 4)
+    shape = (STEP_BATCH, N, N, N, 1)
+    real_I = torch.from_numpy(rng.uniform(-1, 1, shape).astype(np.float32)).to(DEVICE)
+    seg = rng.uniform(size=shape) > 0.7
+    real_S = torch.from_numpy(np.where(seg, 1.0, -1.0).astype(np.float32)).to(DEVICE)
+
+    def run(kernels, dtype):
+        gan.set_use_kernels(kernels)
+        for net in gan.nets.values():
+            net.dtype = dtype
+        out = gan.distributed_test_step(real_I, real_S)
+        torch.cuda.synchronize()
+        return {k: float(v) for k, v in out.items()}
+
+    conv_ops.launches = in_ops.launches = skel_ops.launches = 0
+    k16 = run(True, torch.bfloat16)
+    launches = {"conv3d_fwd": conv_ops.launches, "instnorm_fwd": in_ops.launches,
+                "soft_skel_fwd": skel_ops.launches}
+    want = {"conv3d_fwd": 4 * CONV_PATH_CALLS + 4 * DISC_CONV_CALLS,
+            "instnorm_fwd": 4 * IN_PATH_CALLS + 4 * DISC_IN_CALLS,
+            "soft_skel_fwd": 2 * (SKEL_ITERS + 1)}
+    require(launches == want, f"one test step launched {launches}, expected {want}")
+    require(len(k16) == 10 and all(math.isfinite(v) for v in k16.values()),
+            f"test step losses not all finite: {k16}")
+    p16 = run(False, torch.bfloat16)
+    k32 = run(True, torch.float32)
+    ref = run(False, torch.float32)  # TF32 off: the f32 reference
+    losses = {}
+    for key, r in ref.items():
+        f32_rel = abs(k32[key] - r) / max(abs(r), 1e-30)
+        require(f32_rel <= 1e-3, f"test step {key}: f32 kernel {k32[key]} vs plain {r}")
+        bound = max(3 * abs(p16[key] - r), 1e-3 * abs(r))
+        require(abs(k16[key] - r) <= bound,
+                f"test step {key}: bf16 kernel {k16[key]}, bf16 plain {p16[key]}, f32 {r}")
+        losses[key] = {"f32_plain": r, "f32_kernel_rel": f32_rel, "bf16_kernel": k16[key],
+                       "bf16_plain": p16[key]}
+
+    times, peak = {"kernel": [], "plain": []}, {}
+    for path in ("plain", "kernel", "kernel", "plain", "plain", "kernel"):  # in turns
+        gan.set_use_kernels(path == "kernel")
+        for net in gan.nets.values():
+            net.dtype = torch.bfloat16
+        torch.cuda.reset_peak_memory_stats()
+        times[path].append(cuda_ms(lambda: gan.distributed_test_step(real_I, real_S), reps=1))
+        peak[path] = torch.cuda.max_memory_allocated() / 2**30
+    gan.set_use_kernels(True)
+    res = {"batch": list(shape), "launches": launches, "losses": losses,
+           "kernel_ms_per_step": float(np.median(times["kernel"])),
+           "plain_ms_per_step": float(np.median(times["plain"])),
+           "kernel_ms_all": times["kernel"], "plain_ms_all": times["plain"],
+           "kernel_peak_gib": peak["kernel"], "plain_peak_gib": peak["plain"]}
+    print("test_step", json.dumps(res))
     return res
 
 
@@ -306,10 +418,11 @@ def main() -> int:
     print(smi.stdout.strip().splitlines()[0])
 
     from vangan_torch.config import VanGanConfig
-    from vangan_torch.models.factory import build_generator
+    from vangan_torch.models.factory import build_discriminator, build_generator
     from vangan_torch.ops import build
     from vangan_torch.ops import conv3d as conv_ops
     from vangan_torch.ops import instnorm as in_ops
+    from vangan_torch.ops import skeleton as skel_ops
 
     t0 = time.perf_counter()
     build.build(verbose=True)
@@ -319,15 +432,22 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     tol = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
-    model = build_generator("resUnet", VanGanConfig(),
-                            generator=torch.Generator().manual_seed(SEED)).to(DEVICE).eval()
-    shapes = path_shapes(model)
-    conv_rows = check_convs(shapes, tol)
-    in_rows = check_instnorms(shapes, tol)
+    g = torch.Generator().manual_seed(SEED)
+    model = build_generator("resUnet", VanGanConfig(), generator=g).to(DEVICE).eval()
+    disc = build_discriminator(VanGanConfig(), generator=g).to(DEVICE).eval()
+    shapes, disc_shapes = path_shapes(model), path_shapes(disc)
+    conv_rows = check_convs("gen_IS", shapes, CONV_PATH_CALLS, tol)
+    disc_conv_rows = check_convs("disc_I", disc_shapes, DISC_CONV_CALLS, tol)
+    in_rows = check_instnorms("gen_IS", shapes, IN_PATH_CALLS, tol)
+    disc_in_rows = check_instnorms("disc_I", disc_shapes, DISC_IN_CALLS, tol)
+    del disc
+    skel = check_skeleton(skel_ops)
     check_generator(model, conv_ops, in_ops)
     del model
     torch.cuda.empty_cache()
-    predict = check_predict(conv_ops, in_ops)
+    step = check_test_step(conv_ops, in_ops, skel_ops)
+    torch.cuda.empty_cache()
+    check_predict(conv_ops, in_ops)
 
     require("jax" not in sys.modules and "vangan_tpu" not in sys.modules,
             "the port imported JAX or the JAX package")
@@ -339,15 +459,21 @@ def main() -> int:
     kernels = [
         {"name": "conv3d_fwd", "route": "cuda", "source": "vangan_torch/ops/csrc/conv3d_fwd.cu",
          "replaces": "vangan_tpu/ops/pallas/conv3d.py:577",
-         "launches": predict["launches"]["conv3d_fwd"],
-         "max_abs_err": max(r["bf16_abs_err"] for r in conv_rows),
+         "launches": step["launches"]["conv3d_fwd"],
+         "max_abs_err": max(r["bf16_abs_err"] for r in conv_rows + disc_conv_rows),
          "ms": conv_ms, "plain_ms": conv_plain_ms},
         {"name": "instnorm_fwd", "route": "cuda",
          "source": "vangan_torch/ops/csrc/instnorm_fwd.cu",
          "replaces": "vangan_tpu/ops/pallas/instnorm.py:309",
-         "launches": predict["launches"]["instnorm_fwd"],
-         "max_abs_err": max(r["bf16_abs_err"] for r in in_rows),
+         "launches": step["launches"]["instnorm_fwd"],
+         "max_abs_err": max(r["bf16_abs_err"] for r in in_rows + disc_in_rows),
          "ms": in_ms, "plain_ms": in_plain_ms},
+        {"name": "soft_skel_fwd", "route": "cuda",
+         "source": "vangan_torch/ops/csrc/skeleton_fwd.cu",
+         "replaces": "vangan_tpu/ops/pallas/skeleton.py:185",
+         "launches": step["launches"]["soft_skel_fwd"],
+         "max_abs_err": max(skel["tanh_noise_max_abs_err"], skel["binary_faces_max_abs_err"]),
+         "ms": skel["tanh_noise_ms"], "plain_ms": skel["tanh_noise_plain_ms"]},
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

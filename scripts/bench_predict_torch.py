@@ -35,6 +35,8 @@ from vangan_torch.vangan import VanGan  # noqa: E402
 FAMILIES = (  # (family, substrings of the device kernel name), first match wins
     ("conv3d_fwd (ours)", ("conv3d_fwd_kernel",)),
     ("instnorm_fwd (ours)", ("in_stats_kernel", "in_affine_kernel", "in_apply_kernel")),
+    ("soft_skel_fwd (ours)", ("skel_round_kernel",)),
+    ("pooling", ("max_pool", "pool3d")),
     ("library conv (cuDNN)", ("cudnn", "conv", "xmma", "gemm", "implicit")),
     ("upsample", ("upsample",)),
     ("concat / copy", ("cat", "copy", "Memcpy", "Memset")),

@@ -1,15 +1,16 @@
 #!/usr/bin/env python3
-"""Convert the generators of a vangan_tpu checkpoint into a vangan_torch weights file.
+"""Convert the four networks of a vangan_tpu checkpoint into a vangan_torch weights file.
 
     python scripts/flax_ckpt_to_torch.py --config cfg.yaml --epoch N \\
         [--output-dir DIR] [--out FILE]
 
 Reads ``<output_dir>/checkpoints/checkpoint_e<N>`` (the orbax checkpoint of a
-``vangan_tpu`` VanGanState), maps the ``gen_IS`` and ``gen_SI`` parameter
-trees with ``vangan_torch.weights.flax_to_torch`` into the port's generators
-built from the same config, and writes ``<output_dir>/checkpoints/torch_e<N>.pt``
-(or ``--out``), which ``python -m vangan_torch predict --epoch N`` (or
-``--weights FILE``) serves. Needs both JAX (orbax) and torch.
+``vangan_tpu`` VanGanState), maps the ``gen_IS``, ``gen_SI``, ``disc_I`` and
+``disc_S`` parameter trees with ``vangan_torch.weights.load_flax_networks``
+into the port's networks built from the same config, and writes
+``<output_dir>/checkpoints/torch_e<N>.pt`` (or ``--out``), which
+``python -m vangan_torch predict --epoch N`` (or ``--weights FILE``) serves
+and ``VanGan.load_weights`` evaluates. Needs both JAX (orbax) and torch.
 """
 
 from __future__ import annotations
@@ -23,7 +24,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 from vangan_torch.config import VanGanConfig  # noqa: E402
 from vangan_torch.vangan import VanGan  # noqa: E402
-from vangan_torch.weights import load_flax_params  # noqa: E402
+from vangan_torch.weights import load_flax_networks  # noqa: E402
 
 
 def convert(cfg: VanGanConfig, epoch: int, out: Optional[str] = None) -> str:
@@ -36,8 +37,7 @@ def convert(cfg: VanGanConfig, epoch: int, out: Optional[str] = None) -> str:
         raise FileNotFoundError(f"no checkpoint at {path}")
     stored = ocp.StandardCheckpointer().restore(path)
     gan = VanGan(cfg, device="cpu")
-    load_flax_params(gan.gen_IS, stored["params"]["gen_IS"])
-    load_flax_params(gan.gen_SI, stored["params"]["gen_SI"])
+    load_flax_networks(gan, stored["params"])
     out = out or gan.weights_path(epoch)
     gan.save_weights(out)
     return out

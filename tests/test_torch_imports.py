@@ -24,7 +24,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "import sys\n"
         "import vangan_torch, vangan_torch.cli, vangan_torch.vangan, vangan_torch.weights\n"
         "import vangan_torch.inference, vangan_torch.models, vangan_torch.ops.build\n"
-        "import vangan_torch.ops.conv3d, vangan_torch.ops.instnorm\n"
+        "import vangan_torch.ops.conv3d, vangan_torch.ops.instnorm, vangan_torch.ops.skeleton\n"
+        "import vangan_torch.ops.ssim, vangan_torch.ops.norms, vangan_torch.losses\n"
+        "import vangan_torch.models.discriminator, vangan_torch.training.step\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'vangan_tpu'))\n"
         "assert not bad, bad\n"

@@ -8,7 +8,9 @@ unaligned planes); ``chip_smoke.py`` checks the predict path's own shapes.
 
 Tolerances, relative to the plain output's max |y|: float32 (TF32 off in the
 plain conv) 1e-4 — f32 sums in another order; bfloat16 2e-2 — the two sides
-round the f32 result to bf16 at different points (about 2^-8 relative).
+round the f32 result to bf16 at different points (about 2^-8 relative). The
+skeleton kernel is bit-exact: min and max are exact and every other op is
+rounded once on both sides.
 """
 
 import numpy as np
@@ -17,6 +19,8 @@ import torch
 
 from vangan_torch.ops import conv3d as conv_ops
 from vangan_torch.ops import instnorm as in_ops
+from vangan_torch.ops import morphology
+from vangan_torch.ops import skeleton as skel_ops
 from vangan_torch.ops.conv3d import conv3d, conv3d_plain, norm_padding, norm_stride
 
 pytestmark = pytest.mark.gpu
@@ -50,6 +54,8 @@ def _rel_err(got, want):
     ((3, 3, 3), 2, "same", "zeros", 6, 5, True, (9, 7, 11)),
     ((3, 1, 2), (1, 2, 1), "same", "zeros", 3, 18, True, (7, 8, 9)),
     ((3, 3, 3), 1, ((2, 2),) * 3, "reflect", 4, 4, False, (3, 2, 4)),
+    # the discriminator's conv0 (1 -> 64 at 128^3 on the path), cut in size
+    ((4, 4, 4), 2, ((1, 1),) * 3, "reflect", 1, 64, False, (18, 16, 20)),
 ])
 def test_conv3d_kernel_matches_plain(cuda, dtype, k, stride, padding, pad_mode, ci, co,
                                      bias, dims):
@@ -70,7 +76,8 @@ def test_conv3d_kernel_matches_plain(cuda, dtype, k, stride, padding, pad_mode, 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("act", ["none", "relu", "leaky_relu"])
-@pytest.mark.parametrize("shape", [(2, 3, 5, 7, 9), (1, 16, 8, 8, 16), (2, 1, 40, 40, 40)])
+@pytest.mark.parametrize("shape", [(2, 3, 5, 7, 9), (1, 16, 8, 8, 16), (2, 1, 40, 40, 40),
+                                   (2, 512, 6, 5, 7)])  # the discriminator's down2
 def test_instnorm_kernel_matches_plain(cuda, dtype, act, shape):
     g = torch.Generator().manual_seed(1)
     x = (torch.randn(*shape, generator=g) * 2 + 0.5).to(cuda, dtype)
@@ -104,3 +111,32 @@ def test_kernels_refuse_autograd(cuda):
         conv3d(x, w)
     with pytest.raises(RuntimeError, match="forward only"):
         in_ops.instance_norm_act(x, torch.ones(2, device=cuda), torch.zeros(2, device=cuda))
+    with pytest.raises(RuntimeError, match="forward only"):
+        skel_ops.soft_skel(torch.rand(1, 4, 4, 4, 1, device=cuda, requires_grad=True), 2)
+
+
+def _faces_volume(rng, shape):
+    """Binary data with random structures on every face and three faces full."""
+    v = (rng.uniform(size=shape) > 0.7).astype(np.float32)
+    v[:, 0] = 1.0
+    v[:, :, -1] = 1.0
+    v[:, :, :, 0] = 1.0
+    return v
+
+
+@pytest.mark.parametrize("iters", [0, 1, 15])
+@pytest.mark.parametrize("dims", [(1, 1, 1), (2, 5, 17), (33, 2, 5), (5, 33, 1), (17, 17, 33),
+                                  (1, 33, 2)])
+def test_soft_skel_kernel_bit_exact(cuda, dims, iters):
+    rng = np.random.default_rng(3)
+    for data in (_faces_volume(rng, (2, *dims, 1)),
+                 rng.uniform(size=(2, *dims, 1)).astype(np.float32)):
+        x = torch.from_numpy(data).to(cuda)
+        before = skel_ops.launches
+        with torch.inference_mode():
+            got = skel_ops.soft_skel(x, iters)
+            want = morphology.soft_skel(x, iters)
+        torch.cuda.synchronize()
+        assert skel_ops.launches == before + iters + 1
+        assert got.shape == want.shape == x.shape
+        assert float((got - want).abs().max()) == 0.0

@@ -95,7 +95,8 @@ def test_incomplete_stitch_is_uint8_and_matches_jax(rng, generators, tmp_path):
 
 def _tiny_cfg(tmp_path):
     cfg = VanGanConfig(output_dir=str(tmp_path / "run"), SUBVOL_PATCH_SIZE=(16, 16, 16),
-                       gen_filters=2, compute_dtype="float32", stitcher_batch=4, seed=3)
+                       gen_filters=2, disc_filters=4, compute_dtype="float32", stitcher_batch=4,
+                       seed=3)
     cfg.to_yaml(str(tmp_path / "cfg.yaml"))
     return cfg
 
@@ -144,18 +145,22 @@ def test_cli_refuses_raw_tiff_and_reports_missing_epoch(tmp_path, capsys):
 
 
 def test_checkpoint_converter_serves_jax_generators(rng, tmp_path):
-    """scripts/flax_ckpt_to_torch.py reads the generators out of an orbax
-    checkpoint with the VanGanState layout (params/gen_IS, params/gen_SI) and
-    the port then computes what flax computes."""
+    """scripts/flax_ckpt_to_torch.py reads the four networks out of an orbax
+    checkpoint with the VanGanState layout (params/gen_IS, ..., params/disc_S)
+    and the port then computes what flax computes."""
     cfg = _tiny_cfg(tmp_path)
     from vangan_tpu.config import VanGanConfig as JaxConfig
+    from vangan_tpu.models.factory import build_discriminator as jax_build_disc
     from vangan_tpu.models.factory import build_generator as jax_build
 
-    jcfg = JaxConfig(gen_filters=2, compute_dtype="float32", layout="NXCYZ")
+    jcfg = JaxConfig(gen_filters=2, disc_filters=4, compute_dtype="float32", layout="NXCYZ")
     x = rng.uniform(-1, 1, size=(2, 16, 16, 16, 1)).astype(np.float32)
     models, params = {}, {}
-    for i, name in enumerate(("gen_IS", "gen_SI")):
-        models[name] = jax_build("resUnet", jcfg, role="i2s" if name == "gen_IS" else "s2i")
+    for i, name in enumerate(("gen_IS", "gen_SI", "disc_I", "disc_S")):
+        if name.startswith("gen"):
+            models[name] = jax_build("resUnet", jcfg, role="i2s" if name == "gen_IS" else "s2i")
+        else:
+            models[name] = jax_build_disc(jcfg)
         params[name] = models[name].init(jax.random.PRNGKey(i), jnp.asarray(x))["params"]
     ckpt = os.path.join(cfg.output_dir, "checkpoints", "checkpoint_e4")
     ocp.StandardCheckpointer().save(ckpt, {"params": params, "step": np.int32(0)})
@@ -172,7 +177,13 @@ def test_checkpoint_converter_serves_jax_generators(rng, tmp_path):
         want = np.asarray(models[name].apply({"params": params[name]}, jnp.asarray(x)))
         got = getattr(gan, f"{name}_batched")(torch.from_numpy(x)).numpy()
         np.testing.assert_allclose(got, want, atol=1e-4, rtol=0)
-        back = torch_to_flax(getattr(gan, name).state_dict())
+    for name in ("gen_IS", "gen_SI", "disc_I", "disc_S"):
+        if name.startswith("disc"):
+            want = np.asarray(models[name].apply({"params": params[name]}, jnp.asarray(x)))
+            with torch.inference_mode():
+                got = gan.nets[name](torch.from_numpy(x)).numpy()
+            np.testing.assert_allclose(got, want, atol=1e-4, rtol=0)
+        back = torch_to_flax(gan.nets[name].state_dict())
         for (_, a), (_, b) in zip(jax.tree_util.tree_leaves_with_path(params[name]),
                                   jax.tree_util.tree_leaves_with_path(back)):
             np.testing.assert_array_equal(np.asarray(a), b)

@@ -1,4 +1,4 @@
-"""Model factory: the generator configurations of ``vangan_tpu.models.factory``."""
+"""Model factory: the network configurations of ``vangan_tpu.models.factory``."""
 
 from __future__ import annotations
 
@@ -6,6 +6,7 @@ from typing import Optional
 
 import torch
 
+from vangan_torch.models.discriminator import PatchGANDiscriminator3D
 from vangan_torch.models.resunet import ResUNet3D
 
 
@@ -28,3 +29,15 @@ def build_generator(kind: str, cfg, role: str = "i2s",
             f"generator {kind!r} is not ported yet "
             "(ROADMAP.md Queue 1, other families and modes)")
     raise ValueError(f"Generator type not recognised: {kind!r}")
+
+
+def build_discriminator(cfg, generator: Optional[torch.Generator] = None
+                        ) -> PatchGANDiscriminator3D:
+    """PatchGAN discriminator with the VanGan defaults (vangan.py:167-192):
+    input and layer noise of σ ``cfg.layer_noise``, spatial dropout 0.2, no
+    spectral norm; parameters are drawn from ``generator``."""
+    return PatchGANDiscriminator3D(
+        filters=cfg.disc_filters, use_dropout=True, dropout_rate=0.2,
+        wasserstein=cfg.wasserstein, use_SN=False, use_input_noise=True,
+        use_layer_noise=True, noise_std=cfg.layer_noise, dtype=compute_dtype(cfg),
+        generator=generator)

@@ -1,4 +1,4 @@
-"""torch building blocks of the ResU-Net generator.
+"""torch building blocks of the ResU-Net generator and the PatchGAN discriminator.
 
 Counterparts of ``vangan_tpu.models.layers`` on torch's ``(B, C, X, Y, Z)``
 layout. Submodules carry the flax names (``conv``, ``norm_act.inorm``,
@@ -41,6 +41,18 @@ def he_normal_(t: torch.Tensor, fan_in: int,
 
 def uniform_pads(p: int) -> Tuple[Tuple[int, int], ...]:
     return ((p, p),) * 3
+
+
+class KernelSwitch:
+    """``set_use_kernels`` for a network of ``ConvND`` / ``InstanceNorm`` layers."""
+
+    def set_use_kernels(self, enabled: bool):
+        """Route every conv and InstanceNorm through the hand-written kernels
+        (True, the default) or through the plain torch versions (False)."""
+        for m in self.modules():
+            if hasattr(m, "use_kernels"):
+                m.use_kernels = enabled
+        return self
 
 
 class ConvND(nn.Module):
@@ -163,3 +175,85 @@ class ResUNetResidualBlock(nn.Module):
 def upsample_nearest(x: torch.Tensor, factor: int = 2) -> torch.Tensor:
     """Keras UpSampling3D (nearest-neighbour repeat) on (B, C, X, Y, Z)."""
     return F.interpolate(x, scale_factor=factor, mode="nearest")
+
+
+def _need_generator(generator: Optional[torch.Generator], what: str) -> torch.Generator:
+    if generator is None:
+        raise ValueError(f"{what} in training draws from an explicit torch.Generator; "
+                         "pass generator=")
+    return generator
+
+
+class GaussianNoise(nn.Module):
+    """Additive Gaussian noise, active only in training (layers.py:308-327).
+
+    σ is given on each call (the epoch schedule of the discriminator noise);
+    ``stddev`` is the default. In eval, or at σ = 0, it returns ``x`` itself.
+    """
+
+    def __init__(self, stddev: float = 0.1):
+        super().__init__()
+        self.stddev = stddev
+
+    def forward(self, x: torch.Tensor, train: bool = False, stddev: Optional[float] = None,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        std = self.stddev if stddev is None else stddev
+        if not train or std == 0:
+            return x
+        noise = torch.randn(x.shape, dtype=x.dtype, device=x.device,
+                            generator=_need_generator(generator, "GaussianNoise"))
+        return x + std * noise
+
+
+def spatial_dropout(x: torch.Tensor, rate: float, train: bool = False,
+                    generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """Keras SpatialDropout3D on (B, C, X, Y, Z) (layers.py:330-335): in
+    training each (b, c) channel is dropped whole with probability ``rate``
+    and kept ones are scaled by 1 / (1 - rate), as flax ``nn.Dropout`` with the
+    spatial axes broadcast does."""
+    if not train or rate == 0:
+        return x
+    keep = 1.0 - rate
+    u = torch.rand((*x.shape[:2], 1, 1, 1), device=x.device,
+                   generator=_need_generator(generator, "spatial_dropout"))
+    return torch.where(u < keep, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+class DiscDownsample(nn.Module):
+    """PatchGAN downsample block (layers.py:524-576, no spectral norm): layer
+    noise, a 4^3 conv without bias — stride 2 on a reflect pad of 1
+    (``padding='valid'``) or stride 1 TF SAME with zeros (``'same'``, pads
+    (1, 2)) — then InstanceNorm + LeakyReLU 0.2 and spatial dropout.
+
+    The reflect pad is folded into the conv, so the noise is drawn on the
+    unpadded tensor: the order of the JAX package's default layout (NXCYZ, see
+    its ConvND divergence note). In eval both orders are the same function.
+    """
+
+    def __init__(self, in_channels: int, filters: int, kernel_size: int = 4,
+                 strides: int = 2, padding: str = "valid", use_dropout: bool = True,
+                 dropout_rate: float = 0.2, use_layer_noise: bool = False,
+                 noise_std: float = 0.1, leaky_slope: float = 0.2,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        if padding == "valid":
+            pad, pad_mode = uniform_pads(1), "reflect"
+        elif padding == "same":
+            pad, pad_mode = "same", "zeros"
+        else:
+            raise ValueError(f"padding must be 'valid' or 'same', got {padding!r}")
+        self.use_dropout = use_dropout
+        self.dropout_rate = dropout_rate
+        self.noise = GaussianNoise(noise_std) if use_layer_noise else None
+        self.conv = ConvND(in_channels, filters, kernel_size, strides, padding=pad,
+                           pad_mode=pad_mode, use_bias=False, generator=generator)
+        self.inorm = InstanceNorm(filters, act="leaky_relu", leaky_slope=leaky_slope)
+
+    def forward(self, x: torch.Tensor, train: bool = False, noise_std: Optional[float] = None,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        if self.noise is not None:
+            x = self.noise(x, train, noise_std, generator)
+        x = self.inorm(self.conv(x))
+        if self.use_dropout:
+            x = spatial_dropout(x, self.dropout_rate, train, generator)
+        return x

@@ -19,6 +19,7 @@ import torch.nn as nn
 
 from vangan_torch.models.layers import (
     ConvND,
+    KernelSwitch,
     PreActConvBlock,
     ResUNetResidualBlock,
     Stem,
@@ -26,7 +27,7 @@ from vangan_torch.models.layers import (
 )
 
 
-class ResUNet3D(nn.Module):
+class ResUNet3D(KernelSwitch, nn.Module):
     def __init__(self, filters: int = 16, num_layers: int = 4,
                  upsample_mode: str = "simple", use_attention_gate: bool = False,
                  dtype: torch.dtype = torch.float32,
@@ -52,14 +53,6 @@ class ResUNet3D(nn.Module):
         for d in reversed(range(num_layers)):
             setattr(self, f"dec{d}", ResUNetResidualBlock(f[d + 1] + f[d], f[d], generator=g))
         self.head = ConvND(f[0], 1, 1, 1, padding="same", use_bias=True, generator=g)
-
-    def set_use_kernels(self, enabled: bool) -> "ResUNet3D":
-        """Route every conv and InstanceNorm through the hand-written kernels
-        (True, the default) or through the plain torch versions (False)."""
-        for m in self.modules():
-            if hasattr(m, "use_kernels"):
-                m.use_kernels = enabled
-        return self
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b, X, Y, Z, c = x.shape

@@ -1,9 +1,10 @@
 """Build and load the port's CUDA kernels.
 
-Every ``csrc/*.cu`` file is compiled by ``nvcc`` for Hopper (``sm_90a``) into
-one shared library with a plain C interface, loaded with ``ctypes``. Building
-this way takes seconds; ``torch.utils.cpp_extension.load`` compiles PyTorch's
-headers and takes minutes. The library goes to ``build/vangan_torch/`` at the
+Every ``csrc/*.cu`` file is compiled by its own ``nvcc`` for Hopper
+(``sm_90a``), all at once, and the objects are linked into one shared library
+with a plain C interface, loaded with ``ctypes``. Building this way takes
+seconds; ``torch.utils.cpp_extension.load`` compiles PyTorch's headers and
+takes minutes. The library goes to ``build/vangan_torch/`` at the
 root of the checkout (git-ignored), named by a hash of the sources, so an edit
 rebuilds it and an unchanged checkout reuses it. Any build or load failure
 raises: there is no fallback.
@@ -23,7 +24,7 @@ from typing import Optional
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "vangan_torch"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC"]
+              "-Xcompiler", "-fPIC"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -35,6 +36,8 @@ _SIGNATURES = {
     # alpha, vec, stream
     "vg_instnorm_fwd": [_P] * 6 + [_I, _I, _I, ctypes.c_longlong, _I, ctypes.c_float,
                                    _I, ctypes.c_float, _I, _P],
+    # img, skel, img_next, B, X, Y, Z, first, stream
+    "vg_skeleton_round_fwd": [_P] * 3 + [_I] * 5 + [_P],
 }
 
 _lib: Optional[ctypes.CDLL] = None
@@ -62,6 +65,17 @@ def library_path() -> Path:
     return BUILD_DIR / f"libvangan_kernels_{h.hexdigest()[:12]}.so"
 
 
+def _run_all(cmds: list) -> list:
+    """Run the commands in parallel; wait for all; raise if any failed."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    outs = [p.communicate()[0] for p in procs]
+    for cmd, p, out in zip(cmds, procs, outs):
+        if p.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({p.returncode}):\n{' '.join(cmd)}\n{out}")
+    return outs
+
+
 def build(verbose: bool = False) -> Path:
     """Compile the kernels unless an up-to-date library exists; return its path.
 
@@ -72,18 +86,17 @@ def build(verbose: bool = False) -> Path:
     if out.exists() and not verbose:
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []), "-o", tmp,
-           *map(str, sources())]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
-                           f"{proc.stdout}\n{proc.stderr}")
-    if verbose:
-        print(proc.stdout + proc.stderr)
-    os.replace(tmp, out)
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = [os.path.join(tmp, src.stem + ".o") for src in sources()]
+        reports = _run_all([[nvcc, *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
+                             "-c", "-o", obj, str(src)]
+                            for src, obj in zip(sources(), objs)])
+        lib = os.path.join(tmp, out.name)
+        _run_all([[nvcc, "-shared", "-o", lib, *objs]])
+        if verbose:
+            print("".join(reports))
+        os.replace(lib, out)
     return out
 
 

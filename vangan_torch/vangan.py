@@ -1,32 +1,67 @@
-"""The serving side of the ``VanGan`` facade: both generators on one device.
+"""The ``VanGan`` facade of the port: the four networks on one device.
 
-Counterpart of the inference surface of ``vangan_tpu.vangan.VanGan``
-(``gen_IS_batched``, ``gen_SI_batched``, weights by epoch). The
-discriminators, optimizers and train step come with the training slice.
+Counterpart of ``vangan_tpu.vangan.VanGan`` and its free ``train`` loop
+(vangan.py:20-550) as far as the port goes: serving (``gen_IS_batched``,
+``gen_SI_batched``, weights by epoch) and evaluation
+(``distributed_test_step``, ``train(..., training=False)``). The train step
+and the optimizers are not ported yet (ROADMAP.md Queue 1, train-step slice).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import os
+from typing import Dict, Iterable, Optional, Tuple
 
+import numpy as np
 import torch
 
 from vangan_torch.config import VanGanConfig
-from vangan_torch.models.factory import build_generator
+from vangan_torch.losses import LossScales
+from vangan_torch.models.factory import build_discriminator, build_generator
+from vangan_torch.training import step
+from vangan_torch.training.state import NETWORKS
+
+
+def append_dict(dict1: dict, dict2: dict) -> dict:
+    """Accumulate per-step loss dicts into lists (utils.py:319-350)."""
+    for key, value in dict2.items():
+        dict1.setdefault(key, []).append(value)
+    return dict1
 
 
 class VanGan:
-    """gen_IS (imaging -> segmentation) and gen_SI (segmentation -> imaging)
-    on ``device``, initialised from ``cfg.seed``."""
+    """gen_IS (imaging -> segmentation), gen_SI (segmentation -> imaging),
+    disc_I and disc_S on ``device``, initialised from ``cfg.seed``, or the
+    networks of ``models`` (a dict keyed by ``NETWORKS``)."""
 
-    def __init__(self, cfg: VanGanConfig, device="cpu"):
+    def __init__(self, cfg: VanGanConfig, device="cpu",
+                 models: Optional[Dict[str, torch.nn.Module]] = None):
         self.cfg = cfg
         self.device = torch.device(device)
-        g = torch.Generator().manual_seed(cfg.seed)
-        self.gen_IS = build_generator(cfg.gen_i2s, cfg, role="i2s", generator=g)
-        self.gen_SI = build_generator(cfg.gen_s2i, cfg, role="s2i", generator=g)
-        self.gen_IS.to(self.device).eval()
-        self.gen_SI.to(self.device).eval()
+        if models is None:
+            g = torch.Generator().manual_seed(cfg.seed)
+            models = {"gen_IS": build_generator(cfg.gen_i2s, cfg, role="i2s", generator=g),
+                      "gen_SI": build_generator(cfg.gen_s2i, cfg, role="s2i", generator=g),
+                      "disc_I": build_discriminator(cfg, generator=g),
+                      "disc_S": build_discriminator(cfg, generator=g)}
+        self.nets = {name: models[name].to(self.device).eval() for name in NETWORKS}
+        self.scales = LossScales.from_config(cfg)
+        # noise and dropout draws of the train step
+        self.generator = torch.Generator(device=self.device).manual_seed(cfg.seed + 1)
+
+    gen_IS = property(lambda self: self.nets["gen_IS"])
+    gen_SI = property(lambda self: self.nets["gen_SI"])
+    disc_I = property(lambda self: self.nets["disc_I"])
+    disc_S = property(lambda self: self.nets["disc_S"])
+
+    def set_use_kernels(self, enabled: bool) -> None:
+        """Every network's convs and InstanceNorms, and the clDice skeleton, on
+        the hand-written kernels (True, the default) or on the plain torch
+        versions (False)."""
+        for net in self.nets.values():
+            net.set_use_kernels(enabled)
+        self.scales = dataclasses.replace(self.scales, use_pallas_skeleton=enabled)
 
     def gen_IS_batched(self, x: torch.Tensor) -> torch.Tensor:
         """gen_IS on a (B, X, Y, Z, 1) batch on the device; float32 out."""
@@ -38,16 +73,68 @@ class VanGan:
         with torch.inference_mode():
             return self.gen_SI(x)
 
+    def distributed_test_step(self, real_I, real_S) -> Dict[str, torch.Tensor]:
+        """The losses of one (B, X, Y, Z, 1) imaging and segmentation batch
+        (numpy or torch), without gradients: a dict of 0-d tensors on the device."""
+        x = torch.as_tensor(real_I, dtype=torch.float32).to(self.device)
+        y = torch.as_tensor(real_S, dtype=torch.float32).to(self.device)
+        return step.test_step(self.nets, self.cfg, self.scales, x, y)
+
     def weights_path(self, epoch: int) -> str:
         """Where weights of ``epoch`` live: ``<output_dir>/checkpoints/torch_e{epoch}.pt``."""
         return os.path.join(self.cfg.output_dir, "checkpoints", f"torch_e{epoch}.pt")
 
     def save_weights(self, path: str) -> None:
         os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
-        torch.save({"gen_IS": self.gen_IS.state_dict(), "gen_SI": self.gen_SI.state_dict()},
-                   path)
+        torch.save({name: net.state_dict() for name, net in self.nets.items()}, path)
 
     def load_weights(self, path: str) -> None:
+        """Load each network the file holds (strictly); both generators are
+        required, so a generators-only file loads for serving."""
         state = torch.load(path, map_location=self.device, weights_only=True)
-        self.gen_IS.load_state_dict(state["gen_IS"], strict=True)
-        self.gen_SI.load_state_dict(state["gen_SI"], strict=True)
+        missing = [n for n in ("gen_IS", "gen_SI") if n not in state]
+        if missing:
+            raise KeyError(f"{path} holds no {', '.join(missing)}")
+        for name, net in self.nets.items():
+            if name in state:
+                net.load_state_dict(state[name], strict=True)
+
+
+def train(ds: Iterable[Tuple[np.ndarray, np.ndarray]], gan: VanGan, summary, epoch: int,
+          steps: Optional[int] = None, desc: Optional[str] = None, training: bool = False,
+          noise_std: float = 0.0) -> Dict[str, list]:
+    """One epoch of evaluation (vangan.py:510-550): the test step on each
+    batch of ``ds`` (at most ``steps``), then ``summary.scalar(key, mean,
+    epoch=, training=)`` for each loss; returns the per-step values by key.
+    Results stay on the device and are fetched 32 steps at a time."""
+    if training:
+        raise NotImplementedError("train(..., training=True): the train step is not "
+                                  "ported yet (ROADMAP.md Queue 1, train-step slice)")
+    results: Dict[str, list] = {}
+    pending: list = []
+
+    def drain() -> None:
+        if pending:
+            keys = list(pending[0])
+            rows = torch.stack([torch.stack([r[k] for k in keys]) for r in pending])
+            for row in rows.cpu().tolist():  # one device-to-host copy per chunk
+                append_dict(results, dict(zip(keys, row)))
+            pending.clear()
+
+    cntr = 0
+    iterator = iter(ds)  # a shared iterator: take no batch beyond ``steps``
+    while steps is None or cntr < steps:
+        try:
+            x, y = next(iterator)
+        except StopIteration:
+            break
+        cntr += 1
+        pending.append(gan.distributed_test_step(x, y))
+        if len(pending) >= 32:
+            drain()
+    drain()
+    if desc:
+        print(f"{desc}: {cntr} steps")
+    for key, value in results.items():
+        summary.scalar(key, float(np.mean(value)), epoch=epoch, training=training)
+    return results

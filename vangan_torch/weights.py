@@ -1,4 +1,4 @@
-"""Map generator parameters between a flax tree and a torch ``state_dict``.
+"""Map network parameters between a flax tree and a torch ``state_dict``.
 
 The torch modules carry the flax module names, so the mapping is a rename of
 the leaf and a transpose of conv kernels:
@@ -14,6 +14,8 @@ from typing import Dict, Mapping
 
 import numpy as np
 import torch
+
+from vangan_torch.training.state import NETWORKS
 
 
 def _flatten(tree: Mapping, prefix=()) -> Dict[tuple, np.ndarray]:
@@ -68,3 +70,11 @@ def load_flax_params(model: torch.nn.Module, params: Mapping) -> torch.nn.Module
     parameter of the same shape, and vice versa (``strict`` loading)."""
     model.load_state_dict(flax_to_torch(params), strict=True)
     return model
+
+
+def load_flax_networks(gan, params: Mapping) -> None:
+    """Copy the four-network ``params`` of the JAX package (``{gen_IS, gen_SI,
+    disc_I, disc_S}``, as ``make_step_fns(...).init(rng).params`` or a
+    checkpoint's ``params`` holds them) into the networks of a ``VanGan``."""
+    for name in NETWORKS:
+        load_flax_params(gan.nets[name], params[name])
