@@ -27,6 +27,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "import vangan_torch.ops.conv3d, vangan_torch.ops.instnorm, vangan_torch.ops.skeleton\n"
         "import vangan_torch.ops.ssim, vangan_torch.ops.norms, vangan_torch.losses\n"
         "import vangan_torch.models.discriminator, vangan_torch.training.step\n"
+        "import vangan_torch.training.optimizers, vangan_torch.training.state\n"
+        "import vangan_torch.device\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'vangan_tpu'))\n"
         "assert not bad, bad\n"
@@ -49,6 +51,28 @@ def test_predict_without_cuda_exits_nonzero(no_cuda, tmp_path):
     assert proc.returncode != 0
     assert "CUDA is not available" in proc.stderr and "--device cpu" in proc.stderr
     assert not (tmp_path / "out").exists()
+
+
+def test_entry_points_default_to_cuda_and_raise_without_it(no_cuda):
+    """VanGan and stitch_subvolumes run on the card unless asked for the CPU;
+    without CUDA they raise, naming device="cpu", and do not fall back."""
+    import inspect
+
+    import numpy as np
+
+    from vangan_torch.config import VanGanConfig
+    from vangan_torch.inference.stitcher import stitch_subvolumes
+    from vangan_torch.vangan import VanGan
+
+    assert inspect.signature(VanGan).parameters["device"].default == "cuda"
+    assert inspect.signature(stitch_subvolumes).parameters["device"].default == "cuda"
+    cfg = VanGanConfig(gen_filters=2, disc_filters=2)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        VanGan(cfg)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        stitch_subvolumes(lambda x: x, np.zeros((16, 16, 16, 1), np.float32),
+                          (1, 16, 16, 16, 1), stride=(16, 16, 16), save=False)
+    assert VanGan(cfg, device="cpu").device.type == "cpu"
 
 
 def test_chip_smoke_without_cuda_exits_nonzero_with_no_result(no_cuda):

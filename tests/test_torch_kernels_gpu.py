@@ -1,4 +1,5 @@
-"""The port's CUDA kernels against their plain torch versions, on the card.
+"""The port's CUDA kernels (forward and backward) against their plain torch
+versions, on the card.
 
 These need an NVIDIA GPU and nvcc (marker ``gpu``); without a card each test
 skips. They import torch and the port only, so they also run on a machine
@@ -104,15 +105,98 @@ def test_instnorm_kernel_large_offset(cuda):
     np.testing.assert_allclose(got.numpy(), want.numpy(), atol=1e-3)
 
 
-def test_kernels_refuse_autograd(cuda):
-    x = torch.randn(1, 2, 4, 4, 4, device=cuda, requires_grad=True)
-    w = torch.randn(2, 2, 3, 3, 3, device=cuda)
-    with pytest.raises(RuntimeError, match="forward only"):
-        conv3d(x, w)
-    with pytest.raises(RuntimeError, match="forward only"):
-        in_ops.instance_norm_act(x, torch.ones(2, device=cuda), torch.zeros(2, device=cuda))
-    with pytest.raises(RuntimeError, match="forward only"):
-        skel_ops.soft_skel(torch.rand(1, 4, 4, 4, 1, device=cuda, requires_grad=True), 2)
+CONV_CASES = [
+    ((3, 3, 3), 1, ((1, 1),) * 3, "reflect", 5, 7, True, (9, 10, 11)),
+    ((3, 3, 3), 2, ((1, 1),) * 3, "reflect", 16, 32, False, (12, 9, 13)),
+    ((4, 4, 4), 2, ((1, 1),) * 3, "zeros", 1, 20, False, (10, 12, 9)),
+    ((1, 1, 1), 1, "same", "zeros", 48, 16, False, (8, 8, 8)),
+    ((1, 1, 1), 2, "same", "zeros", 16, 32, False, (9, 8, 7)),
+    ((1, 1, 1), 1, "same", "zeros", 16, 1, True, (6, 7, 8)),
+    ((3, 3, 3), 2, "same", "zeros", 6, 5, True, (9, 7, 11)),
+    ((4, 4, 4), 1, "same", "zeros", 3, 4, False, (7, 6, 9)),  # TF SAME pads (1, 2)
+    ((3, 1, 2), (1, 2, 1), "same", "zeros", 3, 18, True, (7, 8, 9)),
+    ((3, 3, 3), 1, ((2, 2),) * 3, "reflect", 4, 4, False, (3, 2, 4)),
+    # the discriminator's conv0 (1 -> 64 at 128^3 on the path), cut in size
+    ((4, 4, 4), 2, ((1, 1),) * 3, "reflect", 1, 64, False, (18, 16, 20)),
+    ((3, 3, 3), 1, ((1, 1),) * 3, "reflect", 96, 32, False, (6, 5, 7)),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("k,stride,padding,pad_mode,ci,co,bias,dims", CONV_CASES)
+def test_conv3d_grad_kernels_match_plain(cuda, dtype, k, stride, padding, pad_mode, ci, co,
+                                         bias, dims):
+    """dx (the forward kernel per stride parity) and dW (conv3d_wgrad.cu)
+    through the autograd Function, against conv3d_dgrad_plain /
+    conv3d_wgrad_plain; dx rel 1e-4 (f32) / 2e-2 (bf16), dW 1e-3 / 2e-2:
+    dW sums over every voxel in another order."""
+    g = torch.Generator().manual_seed(0)
+    x = torch.randn(2, ci, *dims, generator=g).to(cuda, dtype).requires_grad_()
+    w = (torch.randn(co, ci, *k, generator=g) * 0.3).to(cuda).requires_grad_()
+    b = torch.randn(co, generator=g).to(cuda).requires_grad_() if bias else None
+    s = norm_stride(stride)
+    pads = norm_padding(padding, k, s, dims)
+    y = conv3d(x, w, b, stride, padding, pad_mode)
+    gy = torch.randn(y.shape, generator=g).to(cuda, dtype)
+    before = (conv_ops.dgrad_launches, conv_ops.wgrad_launches)
+    y.backward(gy)
+    torch.cuda.synchronize()
+    n_parities = int(np.prod([sum(len(range(p, kk, ss)) > 0 for p in range(ss))
+                              for kk, ss in zip(k, s)]))
+    assert (conv_ops.dgrad_launches, conv_ops.wgrad_launches) == \
+        (before[0] + n_parities, before[1] + 1)
+    dx = conv_ops.conv3d_dgrad_plain(gy, w.detach(), x.shape, s, pads, pad_mode)
+    dw = conv_ops.conv3d_wgrad_plain(x.detach(), gy, w.shape, s, pads, pad_mode)
+    assert x.grad.dtype == dtype and w.grad.dtype == torch.float32
+    assert _rel_err(x.grad, dx) <= TOL[dtype]
+    assert _rel_err(w.grad, dw) <= (1e-3 if dtype == torch.float32 else 2e-2)
+    if bias:
+        torch.testing.assert_close(b.grad, gy.float().sum((0, 2, 3, 4)))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("act", ["none", "relu", "leaky_relu"])
+@pytest.mark.parametrize("shape", [(2, 3, 5, 7, 9), (1, 16, 8, 8, 16), (2, 1, 40, 40, 40),
+                                   (2, 512, 6, 5, 7)])
+def test_instnorm_backward_kernel_matches_plain(cuda, dtype, act, shape):
+    """dx, dgamma, dbeta against instance_norm_act_bwd_plain, rel 1e-4 (f32) /
+    2e-2 (bf16) of each reference's max."""
+    g = torch.Generator().manual_seed(4)
+    x = (torch.randn(*shape, generator=g) * 2 + 0.5).to(cuda, dtype).requires_grad_()
+    gamma = (torch.randn(shape[1], generator=g) * 0.5 + 1).to(cuda).requires_grad_()
+    beta = (torch.randn(shape[1], generator=g) * 0.2).to(cuda).requires_grad_()
+    gy = torch.randn(*shape, generator=g).to(cuda, dtype)
+    y = in_ops.instance_norm_act(x, gamma, beta, 1e-3, act, 0.2)
+    before = in_ops.bwd_launches
+    y.backward(gy)
+    torch.cuda.synchronize()
+    assert in_ops.bwd_launches == before + 1
+    want = in_ops.instance_norm_act_bwd_plain(x.detach(), gy, gamma.detach(), beta.detach(),
+                                              1e-3, act, 0.2)
+    assert x.grad.dtype == dtype
+    for got, ref in zip((x.grad, gamma.grad, beta.grad), want):
+        assert _rel_err(got, ref) <= TOL[dtype]
+
+
+@pytest.mark.parametrize("iters", [0, 1, 4])
+@pytest.mark.parametrize("dims", [(1, 1, 1), (2, 5, 17), (33, 2, 5), (17, 17, 33)])
+def test_soft_skel_backward_kernel_matches_autograd(cuda, dims, iters):
+    """On distinct values, where any tie rule gives the same input gradient:
+    max |diff| <= 1e-5 * max |g| against autograd of morphology.soft_skel."""
+    rng = np.random.default_rng(5)
+    n = int(np.prod(dims)) * 2
+    data = (rng.permutation(n).reshape(2, *dims, 1) / n).astype(np.float32)
+    x = torch.from_numpy(data).to(cuda).requires_grad_()
+    xp = torch.from_numpy(data).to(cuda).requires_grad_()
+    gy = torch.from_numpy(rng.normal(size=data.shape).astype(np.float32)).to(cuda)
+    before = (skel_ops.launches, skel_ops.bwd_launches)
+    skel_ops.soft_skel(x, iters).backward(gy)
+    torch.cuda.synchronize()
+    assert (skel_ops.launches, skel_ops.bwd_launches) == \
+        (before[0] + iters + 1, before[1] + iters + 1)
+    morphology.soft_skel(xp, iters).backward(gy)
+    scale = float(xp.grad.abs().max())
+    assert float((x.grad - xp.grad).abs().max()) <= 1e-5 * max(scale, 1e-30)
 
 
 def _faces_volume(rng, shape):

@@ -85,7 +85,8 @@ def test_incomplete_stitch_is_uint8_and_matches_jax(rng, generators, tmp_path):
     kw = dict(subvol_size=(1, 16, 16, 16, 1), stride=(8, 4, 16), complete=False,
               batch_size=8, name="t", epoch=2)
     want = jax_stitcher.stitch_subvolumes(jax_gen, img, save=False, **kw)
-    got = stitcher.stitch_subvolumes(torch_gen, img, model_path=str(tmp_path), **kw)
+    got = stitcher.stitch_subvolumes(torch_gen, img, model_path=str(tmp_path), device="cpu",
+                                     **kw)
     assert got.dtype == np.uint8 and got.shape == img.shape
     # uint8 truncation of values within 1e-2 can differ by one grey level
     assert np.abs(got.astype(int) - want.astype(int)).max() <= 1
@@ -108,7 +109,7 @@ def test_cli_predict_cpu_writes_reference_layout(rng, tmp_path, fake_imaging):
     vol = (rng.normal(size=(20, 18, 17, 1)) * 10 + 50).astype(np.float32)
     np.save(tmp_path / "in" / "v.npy", vol)
     weights = str(tmp_path / "w.pt")
-    VanGan(cfg).save_weights(weights)
+    VanGan(cfg, device="cpu").save_weights(weights)
     cli.main(["predict", "--config", str(tmp_path / "cfg.yaml"), "--input",
               str(tmp_path / "in"), "--output", str(tmp_path / "out"), "--weights", weights,
               "--stride", "8", "8", "8", "--device", "cpu",
@@ -121,11 +122,12 @@ def test_cli_predict_cpu_writes_reference_layout(rng, tmp_path, fake_imaging):
     assert ours.shape == (17, 20, 18, 1)
     assert np.isfinite(ours).all() and ours.min() == 0.0 and ours.max() == 255.0
 
-    gan = VanGan(cfg)
+    gan = VanGan(cfg, device="cpu")
     gan.load_weights(weights)
     direct = stitcher.stitch_subvolumes(
         gan.gen_SI_batched if fake_imaging else gan.gen_IS_batched, vol, cfg.subvol_size,
-        stride=(8, 8, 8), complete=True, save=False, process_img=fake_imaging, batch_size=4)
+        stride=(8, 8, 8), complete=True, save=False, process_img=fake_imaging, batch_size=4,
+        device="cpu")
     np.testing.assert_array_equal(ours, np.transpose(direct, (2, 0, 1, 3)))
 
 
@@ -141,7 +143,7 @@ def test_cli_refuses_raw_tiff_and_reports_missing_epoch(tmp_path, capsys):
               str(tmp_path / "empty"), "--output", str(tmp_path / "o"), "--epoch", "9",
               "--device", "cpu"])
     out = capsys.readouterr().out
-    assert VanGan(cfg).weights_path(9) in out and "Checkpoint not found" in out
+    assert VanGan(cfg, device="cpu").weights_path(9) in out and "Checkpoint not found" in out
 
 
 def test_checkpoint_converter_serves_jax_generators(rng, tmp_path):
@@ -171,7 +173,7 @@ def test_checkpoint_converter_serves_jax_generators(rng, tmp_path):
          "--config", str(tmp_path / "cfg.yaml"), "--epoch", "4"],
         capture_output=True, text=True, timeout=300, env={**os.environ, "JAX_PLATFORMS": "cpu"})
     assert proc.returncode == 0, proc.stderr
-    gan = VanGan(cfg)
+    gan = VanGan(cfg, device="cpu")
     gan.load_weights(gan.weights_path(4))
     for name in ("gen_IS", "gen_SI"):
         want = np.asarray(models[name].apply({"params": params[name]}, jnp.asarray(x)))

@@ -51,7 +51,7 @@ def _torch_gan(jax_cfg, params):
     models = {"gen_IS": ResUNet3D(4, 2), "gen_SI": ResUNet3D(4, 2),
               "disc_I": PatchGANDiscriminator3D(**DISC),
               "disc_S": PatchGANDiscriminator3D(**DISC)}
-    gan = VanGan(cfg, models=models)
+    gan = VanGan(cfg, device="cpu", models=models)
     load_flax_networks(gan, params)
     return gan
 
@@ -109,14 +109,15 @@ def test_train_evaluates_each_batch_and_summarises():
     for name, value, epoch, training in summary.calls:
         assert (epoch, training) == (4, False)
         np.testing.assert_allclose(value, want[name], rtol=1e-4)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        train(iter([(real_I, real_S)]), gan, summary, epoch=0, training=True)
+    stepped = train(iter([(real_I, real_S)]), gan, summary, epoch=0, training=True,
+                    noise_std=0.1)
+    assert gan.state.step == 1 and all(len(v) == 1 for v in stepped.values())
 
 
 def test_weights_round_trip_and_generators_only_file(tmp_path):
     cfg = VanGanConfig(gen_filters=2, disc_filters=2, SUBVOL_PATCH_SIZE=(16, 16, 16))
-    a = VanGan(cfg)
-    b = VanGan(VanGanConfig(gen_filters=2, disc_filters=2, seed=1))
+    a = VanGan(cfg, device="cpu")
+    b = VanGan(VanGanConfig(gen_filters=2, disc_filters=2, seed=1), device="cpu")
     a.save_weights(str(tmp_path / "all.pt"))
     b.load_weights(str(tmp_path / "all.pt"))
     for name in a.nets:
@@ -126,7 +127,7 @@ def test_weights_round_trip_and_generators_only_file(tmp_path):
     # a generators-only file (the predict slice's format) still loads
     torch.save({"gen_IS": a.gen_IS.state_dict(), "gen_SI": a.gen_SI.state_dict()},
                tmp_path / "gens.pt")
-    c = VanGan(VanGanConfig(gen_filters=2, disc_filters=2, seed=2))
+    c = VanGan(VanGanConfig(gen_filters=2, disc_filters=2, seed=2), device="cpu")
     disc_before = {k: v.clone() for k, v in c.disc_I.state_dict().items()}
     c.load_weights(str(tmp_path / "gens.pt"))
     assert all(torch.equal(v, a.gen_IS.state_dict()[k]) for k, v in c.gen_IS.state_dict().items())

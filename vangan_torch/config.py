@@ -19,8 +19,12 @@ import yaml
 class VanGanConfig:
     output_dir: str = "./VG_Output"
     N_DEVICES: int = 1
+    EPOCHS: int = 200
     BATCH_SIZE: int = 3  # per-device batch
     GLOBAL_BATCH_SIZE: Optional[int] = None  # derived: N_DEVICES * BATCH_SIZE
+    INITIAL_LR: float = 2e-4
+    INITIATE_LR_DECAY: Optional[float] = None  # derived: 0.5 * EPOCHS
+    NO_NOISE: Optional[int] = None  # derived: EPOCHS (epoch when disc noise hits 0)
     DIMENSIONS: int = 3
     SUBVOL_PATCH_SIZE: Tuple[int, ...] = (128, 128, 128)
 
@@ -40,6 +44,8 @@ class VanGanConfig:
     identity_loss_IS_type: str = "cldice"
     identity_loss_SI_type: str = "mae"
     layer_noise: float = 0.1  # discriminator noise sigma
+    ncritic: int = 5  # generator update every ncritic steps (WGAN only)
+    train_steps: Optional[int] = None  # steps per epoch of the LR schedule, if known
 
     gen_filters: int = 16
     disc_filters: int = 64
@@ -54,6 +60,10 @@ class VanGanConfig:
     def __post_init__(self) -> None:
         if self.GLOBAL_BATCH_SIZE is None:
             self.GLOBAL_BATCH_SIZE = self.N_DEVICES * self.BATCH_SIZE
+        if self.INITIATE_LR_DECAY is None:
+            self.INITIATE_LR_DECAY = 0.5 * self.EPOCHS
+        if self.NO_NOISE is None:
+            self.NO_NOISE = self.EPOCHS
         if self.cldice_groups is None:
             self.cldice_groups = self.N_DEVICES
         self.SUBVOL_PATCH_SIZE = tuple(self.SUBVOL_PATCH_SIZE)
@@ -69,6 +79,18 @@ class VanGanConfig:
         """The stitcher's ``(GB, kx, ky, kz, C)`` patch spec (the reference's
         INPUT_IMG_SIZE convention; the stitcher reads kx, ky, kz)."""
         return (self.stitcher_batch, *self.SUBVOL_PATCH_SIZE[:3], 1)
+
+    def decay_start_step(self, steps_per_epoch: int) -> int:
+        return int(self.INITIATE_LR_DECAY * steps_per_epoch)
+
+    def total_steps(self, steps_per_epoch: int) -> int:
+        return int(self.EPOCHS * steps_per_epoch)
+
+    def noise_std_at_epoch(self, epoch: int) -> float:
+        """σ(epoch) of the discriminator noise (custom_callback.py:399-424):
+        linear from ``layer_noise`` to 0 at epoch NO_NOISE, clamped at 0."""
+        decay_rate = 1.0 if self.NO_NOISE == 0 else epoch / self.NO_NOISE
+        return max(0.0, self.layer_noise * (1.0 - decay_rate))
 
     @classmethod
     def from_dict(cls, d: dict) -> "VanGanConfig":

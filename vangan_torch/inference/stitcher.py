@@ -28,6 +28,7 @@ import numpy as np
 import torch
 
 from vangan_torch.data.preprocess import write_tiff
+from vangan_torch.device import resolve_device
 
 
 def _axis_origins(length: int, k: int, stride: int) -> List[int]:
@@ -97,11 +98,12 @@ def stitch_subvolumes(
     batch_size: int = 8,
     save: bool = True,
     blend: str = "uniform",
-    device="cpu",
+    device="cuda",
 ) -> np.ndarray:
     """Predict a full (X, Y, Z, C) volume by strided sliding-window stitching.
 
-    ``gen`` maps a float32 batch ``(B, kx, ky, kz, C)`` on ``device`` to
+    ``gen`` maps a float32 batch ``(B, kx, ky, kz, C)`` on ``device`` (the
+    card unless ``device="cpu"``; without CUDA a CUDA device raises) to
     predictions of the same shape. ``subvol_size`` follows the reference
     convention ``(GB, kx, ky, kz, C)``. Returns the stitched volume and, with
     ``save``, writes it as a (z, x, y, c) TIFF.
@@ -114,7 +116,7 @@ def stitch_subvolumes(
                                   "(ROADMAP.md Queue 1, other families and modes)")
     if img.ndim != 4:
         raise ValueError(f"expected an (X, Y, Z, C) volume, got shape {img.shape}")
-    device = torch.device(device)
+    device = resolve_device(device)
 
     oimgshape = img.shape
     xspacing = yspacing = zspacing = 0

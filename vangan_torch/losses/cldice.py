@@ -15,9 +15,10 @@ from vangan_torch.ops import morphology, skeleton
 
 def _skel(img: torch.Tensor, iters: int, use_kernel: bool = False, needs_grad: bool = True
           ) -> torch.Tensor:
-    """Soft skeleton; ``use_kernel`` takes ``ops.skeleton`` (the CUDA kernel on
-    a CUDA tensor), else the plain version. ``needs_grad=False`` marks data
-    (ground truth): its gradient is stopped."""
+    """Soft skeleton; ``use_kernel`` takes ``ops.skeleton`` (the CUDA kernels,
+    forward and backward, on a CUDA tensor), else the plain version.
+    ``needs_grad=False`` marks data (ground truth): its gradient is stopped,
+    and the kernel path keeps no residuals for it."""
     if not needs_grad:
         img = img.detach()
     if use_kernel:

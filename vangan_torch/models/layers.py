@@ -10,8 +10,9 @@ its statistics in float32.
 
 Each ``ConvND`` and ``InstanceNorm`` has a ``use_kernels`` switch: True (the
 default) sends the op to the hand-written kernels where the JAX package sends
-it to Pallas (convs with ``max(Ci, Co) < 128``; every InstanceNorm); False runs
-the plain torch version everywhere, for comparing the two on the card.
+it to Pallas (convs with ``max(Ci, Co) < 128``; every InstanceNorm), forward
+and, where a gradient is needed, backward; False runs the plain torch version
+and its autograd everywhere, for comparing the two on the card.
 """
 
 from __future__ import annotations

@@ -32,12 +32,21 @@ _SIGNATURES = {
     # x, w, bias, y, dtype, B, Ci, Co, X, Y, Z, Xo, Yo, Zo, kx, ky, kz,
     # sx, sy, sz, px, py, pz, reflect, stream
     "vg_conv3d_fwd": [_P, _P, _P, _P] + [_I] * 20 + [_P],
+    # x, g, dw, dtype, B, Ci, Co, X, Y, Z, Xo, Yo, Zo, kx, ky, kz, sx, sy, sz,
+    # px, py, pz, reflect, stream
+    "vg_conv3d_wgrad": [_P, _P, _P] + [_I] * 20 + [_P],
     # x, gamma, beta, y, partial, ab, dtype, BC, C, N, nsplit, eps, act,
     # alpha, vec, stream
     "vg_instnorm_fwd": [_P] * 6 + [_I, _I, _I, ctypes.c_longlong, _I, ctypes.c_float,
                                    _I, ctypes.c_float, _I, _P],
-    # img, skel, img_next, B, X, Y, Z, first, stream
-    "vg_skeleton_round_fwd": [_P] * 3 + [_I] * 5 + [_P],
+    # x, g, ab, partial, sums, dx, dtype, BC, N, nsplit, act, alpha, vec, stream
+    "vg_instnorm_bwd": [_P] * 6 + [_I, _I, ctypes.c_longlong, _I, _I, ctypes.c_float, _I,
+                                   _P],
+    # img, skel_prev, skel_out, img_next, B, X, Y, Z, first, stream
+    "vg_skeleton_round_fwd": [_P] * 4 + [_I] * 5 + [_P],
+    # img, e, skel_prev, d_e_next, d_skel, d_img, d_skel_prev, d_e, d_v,
+    # B, X, Y, Z, first, stream
+    "vg_skeleton_round_bwd": [_P] * 9 + [_I] * 5 + [_P],
 }
 
 _lib: Optional[ctypes.CDLL] = None

@@ -180,6 +180,7 @@ void dispatch(const void* x, const void* w, const void* bias, void* y, int B, in
   launch<T, KK>(x, w, bias, y, B, Ci, Co, X, Y, Z, Xo, Yo, Zo, kx, ky, kz, sx, sy, \
                 sz, px, py, pz, reflect, s)
   if (cubic && kx == 1) VG_LAUNCH(1);
+  else if (cubic && kx == 2) VG_LAUNCH(2);  // the parity sub-kernels of conv3d_dgrad
   else if (cubic && kx == 3) VG_LAUNCH(3);
   else if (cubic && kx == 4) VG_LAUNCH(4);
   else VG_LAUNCH(0);

@@ -11,9 +11,12 @@
 // pass 1 splits each plane over `nsplit` blocks that each write a partial
 // (n, mean, M2), a tiny pass merges the partials per plane (Chan's parallel
 // Welford merge, immune to the E[x^2]-mean^2 cancellation when mean >> std)
-// into (mean, a = gamma*rsqrt(var+eps), beta), and pass 3 writes
+// into (mean, a = gamma*inv, beta, inv = rsqrt(var+eps)), and pass 3 writes
 // act((x - mean)*a + beta) in the input dtype. Centring before scaling keeps
-// f32 precision when mean >> std. Statistics and the affine are f32.
+// f32 precision when mean >> std. Statistics and the affine are f32. The
+// four per-plane values stay with the caller for the backward
+// (instnorm_bwd.cu), which needs inv itself: a = gamma*inv cannot give it
+// back where gamma = 0.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -113,7 +116,7 @@ in_stats_kernel(const T* __restrict__ x, float* __restrict__ partial, long long 
   }
 }
 
-// Pass 2: one thread per (b, c) plane. ab[bc*3 + {0,1,2}] = mean, a, beta.
+// Pass 2: one thread per (b, c) plane. ab[bc*4 + {0,1,2,3}] = mean, a, beta, inv.
 __global__ void in_affine_kernel(const float* __restrict__ partial,
                                  const float* __restrict__ gamma,
                                  const float* __restrict__ beta, float* __restrict__ ab,
@@ -126,10 +129,11 @@ __global__ void in_affine_kernel(const float* __restrict__ partial,
     chan_merge(n, mean, m2, q[0], q[1], q[2]);
   }
   const float var = fmaxf(m2 / n, 0.f);
-  const float a = gamma[bc % C] * rsqrtf(var + eps);
-  ab[3 * bc] = mean;
-  ab[3 * bc + 1] = a;
-  ab[3 * bc + 2] = beta[bc % C];
+  const float inv = rsqrtf(var + eps);
+  ab[4 * bc] = mean;
+  ab[4 * bc + 1] = gamma[bc % C] * inv;
+  ab[4 * bc + 2] = beta[bc % C];
+  ab[4 * bc + 3] = inv;
 }
 
 // Pass 3: grid (B*C, nsplit). y = act((x - mean)*a + beta); act 0 none,
@@ -142,7 +146,7 @@ in_apply_kernel(const T* __restrict__ x, const float* __restrict__ ab, T* __rest
   const long long bc = blockIdx.x;
   long long lo, hi;
   chunk_range(N, nsplit, V, s, lo, hi);
-  const float m = ab[3 * bc], a = ab[3 * bc + 1], b = ab[3 * bc + 2];
+  const float m = ab[4 * bc], a = ab[4 * bc + 1], b = ab[4 * bc + 2];
   const T* p = x + bc * N;
   T* q = y + bc * N;
   for (long long i = lo + (long long)threadIdx.x * V; i < hi; i += (long long)THREADS * V) {
@@ -176,7 +180,8 @@ void run(const void* x, const float* gamma, const float* beta, void* y, float* p
 
 // C entry point, bound with ctypes. x and y (B, C, X, Y, Z) contiguous in one
 // dtype (0 = float32, 1 = bfloat16), N = X*Y*Z; gamma, beta (C,) f32;
-// partial (B*C*nsplit*3,) and ab (B*C*3,) f32 scratch. vec = 1 when N is a
+// partial (B*C*nsplit*3,) f32 scratch and ab (B*C*4,) f32 out (mean, a, beta,
+// inv per plane, for the backward). vec = 1 when N is a
 // multiple of 16 bytes of elements and x, y are 16-byte aligned, else 0.
 // Returns cudaGetLastError() after the launches; 1000 for a bad argument.
 extern "C" int vg_instnorm_fwd(const void* x, const float* gamma, const float* beta,

@@ -18,9 +18,13 @@
 // 8x8x32 output tile of img with a halo of 2 in shared memory (+inf outside
 // the volume, so it never wins a min), erodes the tile with a halo of 1 into
 // a second shared array (-inf outside the volume, so the dilation ignores
-// it), then takes the 3^3 max and updates skel in place. e goes to a second
-// buffer (the caller ping-pongs two), because neighbouring blocks still read
-// img. Halo reads come from L2. Fusing rounds is later work.
+// it), then takes the 3^3 max and writes skel. skel_prev and skel_out may be
+// one buffer (each voxel is read, then written, by one thread): the
+// forward-only path updates skel in place; the differentiated path writes
+// each round's skel to a new buffer, since the backward (skeleton_bwd.cu)
+// reads every round's input skel. e goes to another buffer (the forward-only
+// caller ping-pongs two), because neighbouring blocks still read img. Halo
+// reads come from L2. Fusing rounds is later work.
 //
 // Exactness: min and max are exact and each arithmetic op is rounded on its
 // own (__fsub_rn / __fmul_rn / __fadd_rn keep nvcc from contracting the
@@ -43,7 +47,7 @@ __device__ __forceinline__ bool inside(int x, int y, int z, int X, int Y, int Z)
 
 // grid (ceil(Z/TZ), ceil(Y/TY), B*ceil(X/TX)).
 __global__ void __launch_bounds__(THREADS)
-skel_round_kernel(const float* __restrict__ img, float* __restrict__ skel,
+skel_round_kernel(const float* __restrict__ img, const float* skel_prev, float* skel_out,
                   float* __restrict__ img_next, int X, int Y, int Z, int tiles_x, int first) {
   __shared__ float s_img[IX][IY][IZ];
   __shared__ float s_ero[EX][EY][EZ];
@@ -92,28 +96,32 @@ skel_round_kernel(const float* __restrict__ img, float* __restrict__ skel,
     const long long idx = base + ((long long)gx * Y + gy) * Z + gz;
     float s = delta;
     if (!first) {
-      s = skel[idx];
+      s = skel_prev[idx];
       s = __fadd_rn(s, fmaxf(__fsub_rn(delta, __fmul_rn(s, delta)), 0.f));
     }
-    skel[idx] = s;
+    skel_out[idx] = s;
     if (img_next != nullptr) img_next[idx] = s_ero[lx + 1][ly + 1][lz + 1];
   }
 }
 
 }  // namespace
 
-// C entry point, bound with ctypes: one round. img, skel, img_next are
-// (B, X, Y, Z) float32, contiguous; img_next may be null (the last round) and
-// must not alias img. first = 1 writes skel = delta without reading skel.
-// Returns cudaGetLastError() after the launch; 1000 for a bad argument.
-extern "C" int vg_skeleton_round_fwd(const float* img, float* skel, float* img_next, int B,
-                                     int X, int Y, int Z, int first, void* stream) {
-  if (B < 1 || X < 1 || Y < 1 || Z < 1 || img == img_next) return 1000;
+// C entry point, bound with ctypes: one round. img, skel_prev, skel_out,
+// img_next are (B, X, Y, Z) float32, contiguous; skel_out may alias
+// skel_prev; img_next may be null (not wanted) and must not alias img.
+// first = 1 writes skel_out = delta without reading skel_prev (which may then
+// be null). Returns cudaGetLastError() after the launch; 1000 for a bad
+// argument.
+extern "C" int vg_skeleton_round_fwd(const float* img, const float* skel_prev, float* skel_out,
+                                     float* img_next, int B, int X, int Y, int Z, int first,
+                                     void* stream) {
+  if (B < 1 || X < 1 || Y < 1 || Z < 1 || img == img_next || skel_out == nullptr) return 1000;
+  if (!first && skel_prev == nullptr) return 1000;
   const int tiles_x = (X + TX - 1) / TX, tiles_y = (Y + TY - 1) / TY;
   const int tiles_z = (Z + TZ - 1) / TZ;
   if ((long long)B * tiles_x > 65535 || tiles_y > 65535) return 1000;
   const dim3 grid(tiles_z, tiles_y, B * tiles_x);
   skel_round_kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      img, skel, img_next, X, Y, Z, tiles_x, first);
+      img, skel_prev, skel_out, img_next, X, Y, Z, tiles_x, first);
   return (int)cudaGetLastError();
 }

@@ -5,6 +5,8 @@ torch's ``F.pad(mode='reflect')`` refuses a pad as wide as the axis, which
 1-voxel level of a small U-Net. Reflect padding here is an index gather with
 numpy's rule for any width. There is no 'symmetric' mode: the stitcher pads
 its volume on the host with ``np.pad`` before the single upload.
+``pad3d_grad`` is its gradient: the cotangent of the padded tensor folded back
+onto the unpadded one, as ``jnp.pad``'s vjp folds it in the JAX package.
 """
 
 from __future__ import annotations
@@ -42,3 +44,26 @@ def pad3d(x: torch.Tensor, pads: Sequence[Tuple[int, int]], mode: str = "zeros")
         if lo or hi:
             x = x.index_select(axis, reflect_index(x.shape[axis], lo, hi, x.device))
     return x
+
+
+def pad3d_grad(dxp: torch.Tensor, pads: Sequence[Tuple[int, int]],
+               mode: str = "zeros") -> torch.Tensor:
+    """The gradient of ``pad3d``: the cotangent ``dxp`` of the padded tensor
+    folded back onto the unpadded axes. 'zeros' drops the pad; 'reflect' adds
+    each padded position into the voxel it copies (the same index map)."""
+    if not any(lo or hi for lo, hi in pads):
+        return dxp
+    if mode == "zeros":
+        (lx, hx), (ly, hy), (lz, hz) = pads
+        X, Y, Z = dxp.shape[2:]
+        return dxp[:, :, lx:X - hx, ly:Y - hy, lz:Z - hz]
+    if mode != "reflect":
+        raise ValueError(f"pad mode must be 'zeros' or 'reflect', got {mode!r}")
+    for axis, (lo, hi) in zip((2, 3, 4), pads):
+        if lo or hi:
+            n = dxp.shape[axis] - lo - hi
+            shape = list(dxp.shape)
+            shape[axis] = n
+            dxp = dxp.new_zeros(shape).index_add_(axis, reflect_index(n, lo, hi, dxp.device),
+                                                  dxp)
+    return dxp

@@ -2,9 +2,10 @@
 
 Counterpart of ``vangan_tpu.vangan.VanGan`` and its free ``train`` loop
 (vangan.py:20-550) as far as the port goes: serving (``gen_IS_batched``,
-``gen_SI_batched``, weights by epoch) and evaluation
-(``distributed_test_step``, ``train(..., training=False)``). The train step
-and the optimizers are not ported yet (ROADMAP.md Queue 1, train-step slice).
+``gen_SI_batched``, weights by epoch), training (``distributed_train_step``,
+``train(..., training=True)``) and evaluation (``distributed_test_step``,
+``train(..., training=False)``). The data feed, checkpoints of the optimizer
+state and the epoch loop are not ported yet (ROADMAP.md Queue 1).
 """
 
 from __future__ import annotations
@@ -17,10 +18,11 @@ import numpy as np
 import torch
 
 from vangan_torch.config import VanGanConfig
+from vangan_torch.device import resolve_device
 from vangan_torch.losses import LossScales
 from vangan_torch.models.factory import build_discriminator, build_generator
 from vangan_torch.training import step
-from vangan_torch.training.state import NETWORKS
+from vangan_torch.training.state import NETWORKS, make_train_state
 
 
 def append_dict(dict1: dict, dict2: dict) -> dict:
@@ -32,13 +34,18 @@ def append_dict(dict1: dict, dict2: dict) -> dict:
 
 class VanGan:
     """gen_IS (imaging -> segmentation), gen_SI (segmentation -> imaging),
-    disc_I and disc_S on ``device``, initialised from ``cfg.seed``, or the
-    networks of ``models`` (a dict keyed by ``NETWORKS``)."""
+    disc_I and disc_S on ``device`` (the card unless ``device="cpu"``; without
+    CUDA a CUDA device raises), initialised from ``cfg.seed``, or the networks
+    of ``models`` (a dict keyed by ``NETWORKS``), with one optimizer each whose
+    LR schedule counts ``steps_per_epoch`` (default ``cfg.train_steps``, else
+    1) steps to an epoch."""
 
-    def __init__(self, cfg: VanGanConfig, device="cpu",
-                 models: Optional[Dict[str, torch.nn.Module]] = None):
+    def __init__(self, cfg: VanGanConfig, device="cuda",
+                 models: Optional[Dict[str, torch.nn.Module]] = None,
+                 steps_per_epoch: Optional[int] = None):
         self.cfg = cfg
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
+        self.steps_per_epoch = steps_per_epoch or cfg.train_steps or 1
         if models is None:
             g = torch.Generator().manual_seed(cfg.seed)
             models = {"gen_IS": build_generator(cfg.gen_i2s, cfg, role="i2s", generator=g),
@@ -47,6 +54,7 @@ class VanGan:
                       "disc_S": build_discriminator(cfg, generator=g)}
         self.nets = {name: models[name].to(self.device).eval() for name in NETWORKS}
         self.scales = LossScales.from_config(cfg)
+        self.state = make_train_state(self.nets, cfg, self.steps_per_epoch)
         # noise and dropout draws of the train step
         self.generator = torch.Generator(device=self.device).manual_seed(cfg.seed + 1)
 
@@ -72,6 +80,17 @@ class VanGan:
         """gen_SI on a (B, X, Y, Z, 1) batch on the device; float32 out."""
         with torch.inference_mode():
             return self.gen_SI(x)
+
+    def distributed_train_step(self, real_I, real_S, noise_std: float,
+                               update_gen: bool) -> Dict[str, torch.Tensor]:
+        """One optimisation step of the four networks on a (B, X, Y, Z, 1)
+        imaging and segmentation batch (numpy or torch), discriminator noise
+        σ ``noise_std``, the generators updated only with ``update_gen``:
+        the losses as a dict of 0-d tensors on the device."""
+        x = torch.as_tensor(real_I, dtype=torch.float32).to(self.device)
+        y = torch.as_tensor(real_S, dtype=torch.float32).to(self.device)
+        return step.train_step(self.nets, self.cfg, self.scales, self.state, x, y,
+                               float(noise_std), bool(update_gen), self.generator)
 
     def distributed_test_step(self, real_I, real_S) -> Dict[str, torch.Tensor]:
         """The losses of one (B, X, Y, Z, 1) imaging and segmentation batch
@@ -103,13 +122,13 @@ class VanGan:
 def train(ds: Iterable[Tuple[np.ndarray, np.ndarray]], gan: VanGan, summary, epoch: int,
           steps: Optional[int] = None, desc: Optional[str] = None, training: bool = False,
           noise_std: float = 0.0) -> Dict[str, list]:
-    """One epoch of evaluation (vangan.py:510-550): the test step on each
-    batch of ``ds`` (at most ``steps``), then ``summary.scalar(key, mean,
-    epoch=, training=)`` for each loss; returns the per-step values by key.
-    Results stay on the device and are fetched 32 steps at a time."""
-    if training:
-        raise NotImplementedError("train(..., training=True): the train step is not "
-                                  "ported yet (ROADMAP.md Queue 1, train-step slice)")
+    """One epoch (vangan.py:510-550): on each batch of ``ds`` (at most
+    ``steps``) the train step with noise σ ``noise_std`` (``training``) or
+    the test step, then ``summary.scalar(key, mean, epoch=, training=)`` for
+    each loss; returns the per-step values by key. Results stay on the device
+    and are fetched 32 steps at a time. Every step updates the generators:
+    the ncritic bookkeeping of vangan.py:535-544 acts only on the WGAN path,
+    which the config refuses."""
     results: Dict[str, list] = {}
     pending: list = []
 
@@ -129,7 +148,10 @@ def train(ds: Iterable[Tuple[np.ndarray, np.ndarray]], gan: VanGan, summary, epo
         except StopIteration:
             break
         cntr += 1
-        pending.append(gan.distributed_test_step(x, y))
+        if training:
+            pending.append(gan.distributed_train_step(x, y, noise_std, True))
+        else:
+            pending.append(gan.distributed_test_step(x, y))
         if len(pending) >= 32:
             drain()
     drain()
