@@ -15,7 +15,12 @@ Phases, each of which raises on failure:
    float32 (TF32 off; y and dx within 1e-4 * max |ref|, dW within 1e-3, its
    sums run over up to 2 M voxels in another order) and bfloat16 (2e-2),
    with CUDA event times (median of 5) of the kernel, the plain version and
-   the library call;
+   the library call; each row names the bf16 plan (``conv_plan``: the
+   route, tensor-core or thin CUDA-core body, and the Co tile, split and
+   workspace) of K1, each K2 parity and K3, and the achieved TFLOP/s (FLOPs
+   / kernel ms) of the kernel and the library call; the bf16 K3 must give
+   bit-identical dW in two runs; a shape that takes the thin body is also
+   run and timed on the tensor-core body, the evidence for the choice;
 3. the InstanceNorm kernels against their plain versions at every (C, size)
    of the two networks (28 and 4 norms), batch 3, for each activation: the
    forward (K4) and the backward (K5: dx, dgamma, dbeta against autograd of
@@ -187,6 +192,23 @@ def conv_work(co, ci, k, out_dims, in_dims, batch, esize=2):
             esize * (ci * batch * math.prod(in_dims) + co * ci * taps + co * n_out))
 
 
+def plans(ci, co, k, stride, pads, dims, out_dims):
+    """The bf16 plans (route and tiles) of K1, each K2 parity and K3 of a conv."""
+    from vangan_torch.ops import conv3d as C
+
+    keys = ("route", "co_tile", "co_tiles", "tap_warps", "tap_groups", "split",
+            "workspace_bytes", "pad_share")
+    brief = lambda p: {k_: getattr(p, k_) for k_ in keys}  # noqa: E731
+    bf16 = torch.bfloat16
+    return {"brick": list(C.BRICK), "ci_chunk": C.CI_CHUNK,
+            "fwd": brief(C.conv_plan("fwd", ci, co, k, stride, out_dims, bf16, STEP_BATCH)),
+            "dgrad": [dict(brief(C.conv_plan("fwd", co, ci, e, (1, 1, 1), n, bf16, STEP_BATCH)),
+                           k=list(e)) for _, e, n in C.dgrad_parities(
+                               k, stride, C.padded_dims(dims, pads))],
+            "wgrad": brief(C.conv_plan("wgrad", ci, co, k, stride, out_dims, bf16,
+                                       STEP_BATCH))}
+
+
 def check_convs(net, shapes, expected, tol):
     """K1 (forward), K2 (dgrad) and K3 (wgrad) at each conv shape of ``net``."""
     from vangan_torch.models.layers import KERNEL_MAX_CHANNELS, ConvND
@@ -254,9 +276,30 @@ def check_convs(net, shapes, expected, tol):
                     row[f"{op}_{tag}_abs_err"], row[f"{op}_{tag}_rel_err"] = abs_err, rel
                     require(rel <= limit, f"conv {op} {names} {dtype}: rel err {rel:.3e} "
                             f"> {limit}")
+                    if op == "wgrad" and dtype == torch.bfloat16:
+                        # split-K in a fixed order: the same bits every run
+                        require(torch.equal(got, kern()), f"conv wgrad {names}: dW differs "
+                                "between two runs on the same inputs")
+                        row["wgrad_bf16_bit_identical"] = True
                     row[f"{op}_{tag}_ms"] = cuda_ms(kern)
                     row[f"{op}_{tag}_plain_ms"] = cuda_ms(plain)
                     row[f"{op}_{tag}_library_ms"] = cuda_ms(library)
+                    row[f"{op}_{tag}_tflops"] = flops / row[f"{op}_{tag}_ms"] / 1e9
+                    row[f"{op}_{tag}_library_tflops"] = flops / row[f"{op}_{tag}_library_ms"] / 1e9
+                row["plan"] = plans(ci, co, m.kernel_size, stride, pads, dims, out_dims)
+                if dtype == torch.bfloat16 and row["plan"]["fwd"]["route"] == "thin":
+                    # the tensor-core body on the same shape, Ci padded to
+                    # 16: what the thin shapes' choice of body rests on
+                    mma = C.conv_plan("fwd", ci, co, m.kernel_size, stride, out_dims, dtype,
+                                      STEP_BATCH, thin_max_ci=0)
+                    if mma.route == "mma":
+                        run = lambda: C._launch_fwd(x, w, b, stride, [lo for lo, _ in pads],  # noqa: E731
+                                                    pad_mode == "reflect", out_dims, "conv3d",
+                                                    plan=mma)
+                        _, rel = errs(run(), C.conv3d_plain(x, w, b, stride, pads, pad_mode))
+                        require(rel <= tol[dtype], f"conv fwd {names} on the tensor-core "
+                                f"body: rel err {rel:.3e}")
+                        row["fwd_bf16_mma_body_ms"] = cuda_ms(run)
         rows.append(row)
         print("conv", json.dumps(row))
     return rows

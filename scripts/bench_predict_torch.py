@@ -33,8 +33,8 @@ from vangan_torch.inference.stitcher import stitch_origins, stitch_subvolumes  #
 from vangan_torch.vangan import VanGan  # noqa: E402
 
 FAMILIES = (  # (family, substrings of the device kernel name), first match wins
-    ("conv3d_fwd (ours; forward and dgrad)", ("conv3d_fwd_kernel",)),
-    ("conv3d_wgrad (ours)", ("conv3d_wgrad_kernel",)),
+    ("conv3d_fwd (ours; forward and dgrad)", ("conv3d_fwd_",)),
+    ("conv3d_wgrad (ours)", ("conv3d_wgrad_",)),
     ("instnorm_fwd (ours)", ("in_stats_kernel", "in_affine_kernel", "in_apply_kernel")),
     ("instnorm_bwd (ours)", ("in_bwd_",)),
     ("soft_skel_fwd (ours)", ("skel_round_kernel",)),

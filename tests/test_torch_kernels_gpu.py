@@ -10,6 +10,8 @@ unaligned planes); ``chip_smoke.py`` checks the predict path's own shapes.
 Tolerances, relative to the plain output's max |y|: float32 (TF32 off in the
 plain conv) 1e-4 — f32 sums in another order; bfloat16 2e-2 — the two sides
 round the f32 result to bf16 at different points (about 2^-8 relative). The
+bfloat16 convs run on the tensor-core route (``conv_plan``), float32 on the
+CUDA-core one; ``BF16_ROUTE_CASES`` hit each route and ragged edge. The
 skeleton kernel is bit-exact: min and max are exact and every other op is
 rounded once on both sides.
 """
@@ -152,6 +154,81 @@ def test_conv3d_grad_kernels_match_plain(cuda, dtype, k, stride, padding, pad_mo
     assert _rel_err(w.grad, dw) <= (1e-3 if dtype == torch.float32 else 2e-2)
     if bias:
         torch.testing.assert_close(b.grad, gy.float().sum((0, 2, 3, 4)))
+
+
+# bf16 shapes for the tensor-core and thin routes, with the route each of K1,
+# K3 and the parities of K2 takes: (k, stride, padding, pad_mode, batch, ci,
+# co, bias, dims, (fwd route, wgrad route))
+BF16_ROUTE_CASES = [
+    # Co not a multiple of 16, a ragged brick in every axis
+    ((3, 3, 3), 1, ((1, 1),) * 3, "reflect", 2, 20, 24, True, (13, 7, 9), ("mma", "mma")),
+    # Ci = 1: the forward takes the CUDA-core body, K3 pads the channels
+    ((3, 3, 3), 1, ((1, 1),) * 3, "reflect", 2, 1, 16, False, (13, 7, 9), ("thin", "mma")),
+    # Co = 1 (the head), 1^3: one 8-wide n tile, K3 splits voxels over warps
+    ((1, 1, 1), 1, "same", "zeros", 3, 16, 1, True, (13, 7, 9), ("mma", "mma")),
+    # 2^3 kernels, as the 4^3 stride-2 convs' parity sub-kernels
+    ((2, 2, 2), 1, ((1, 0),) * 3, "zeros", 2, 17, 33, False, (9, 10, 11), ("mma", "mma")),
+    # 4^3 stride 2 (the discriminator's conv0 with more channels): 2 tap groups
+    ((4, 4, 4), 2, ((1, 1),) * 3, "reflect", 2, 18, 40, False, (18, 16, 20), ("mma", "mma")),
+    # reflect pads wider than 1, a reflect wider than the axis
+    ((3, 3, 3), 1, ((3, 3), (2, 2), (1, 1)), "reflect", 2, 32, 16, False, (5, 3, 12),
+     ("mma", "mma")),
+    # stride 2 with a 1^3 kernel: the halo keeps every other position
+    ((1, 1, 1), 2, "same", "zeros", 3, 48, 16, False, (13, 7, 9), ("mma", "mma")),
+    # Co = 96 in two tiles of 48, at batch 3
+    ((3, 3, 3), 2, ((1, 1),) * 3, "reflect", 3, 16, 96, False, (11, 12, 9), ("mma", "mma")),
+    # mixed kernel extents and strides
+    ((3, 1, 2), (1, 2, 1), "same", "zeros", 3, 40, 18, True, (7, 8, 9), ("mma", "mma")),
+]
+
+
+@pytest.mark.parametrize("k,stride,padding,pad_mode,batch,ci,co,bias,dims,routes",
+                         BF16_ROUTE_CASES)
+def test_conv3d_bf16_routes_match_plain(cuda, k, stride, padding, pad_mode, batch, ci, co,
+                                        bias, dims, routes):
+    """K1, K2 and K3 in bfloat16 on the route conv_plan gives each shape,
+    against the plain versions: rel 2e-2 of the reference's max (bf16
+    inputs, f32 sums in another order, one rounding of the output)."""
+    g = torch.Generator().manual_seed(7)
+    x = torch.randn(batch, ci, *dims, generator=g).to(cuda, torch.bfloat16).requires_grad_()
+    w = (torch.randn(co, ci, *k, generator=g) * 0.3).to(cuda).requires_grad_()
+    b = torch.randn(co, generator=g).to(cuda).requires_grad_() if bias else None
+    s = norm_stride(stride)
+    pads = norm_padding(padding, k, s, dims)
+    y = conv3d(x, w, b, stride, padding, pad_mode)
+    out_dims = y.shape[2:]
+    plans = [conv_ops.conv_plan(op, ci, co, k, s, out_dims, torch.bfloat16, batch)
+             for op in ("fwd", "wgrad")]
+    assert tuple(p.route for p in plans) == routes
+    with torch.inference_mode():
+        want = conv3d_plain(x.detach(), w.detach(), None if b is None else b.detach(), s, pads,
+                            pad_mode)
+    assert y.dtype == torch.bfloat16 and _rel_err(y.detach(), want) <= 2e-2
+    gy = torch.randn(y.shape, generator=g).to(cuda, torch.bfloat16)
+    y.backward(gy)
+    torch.cuda.synchronize()
+    dx = conv_ops.conv3d_dgrad_plain(gy, w.detach(), x.shape, s, pads, pad_mode)
+    dw = conv_ops.conv3d_wgrad_plain(x.detach(), gy, w.shape, s, pads, pad_mode)
+    assert _rel_err(x.grad, dx) <= 2e-2
+    assert _rel_err(w.grad, dw) <= 2e-2
+
+
+@pytest.mark.parametrize("k,stride,padding,pad_mode,batch,ci,co,bias,dims,routes",
+                         BF16_ROUTE_CASES[:3] + BF16_ROUTE_CASES[4:5])
+def test_conv3d_wgrad_bf16_is_bit_identical(cuda, k, stride, padding, pad_mode, batch, ci, co,
+                                            bias, dims, routes):
+    """K3 on the tensor cores sums its split-K partial tiles in a fixed order:
+    two runs on the same inputs give the same bits."""
+    g = torch.Generator().manual_seed(8)
+    s = norm_stride(stride)
+    pads = norm_padding(padding, k, s, dims)
+    x = torch.randn(batch, ci, *dims, generator=g).to(cuda, torch.bfloat16)
+    out_dims = [(n + lo + hi - kk) // ss + 1 for n, (lo, hi), kk, ss in zip(dims, pads, k, s)]
+    gy = torch.randn(batch, co, *out_dims, generator=g).to(cuda, torch.bfloat16)
+    first = conv_ops.conv3d_wgrad(x, gy, (co, ci, *k), s, pads, pad_mode)
+    second = conv_ops.conv3d_wgrad(x, gy, (co, ci, *k), s, pads, pad_mode)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

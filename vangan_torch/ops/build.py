@@ -5,8 +5,9 @@ Every ``csrc/*.cu`` file is compiled by its own ``nvcc`` for Hopper
 with a plain C interface, loaded with ``ctypes``. Building this way takes
 seconds; ``torch.utils.cpp_extension.load`` compiles PyTorch's headers and
 takes minutes. The library goes to ``build/vangan_torch/`` at the
-root of the checkout (git-ignored), named by a hash of the sources, so an edit
-rebuilds it and an unchanged checkout reuses it. Any build or load failure
+root of the checkout (git-ignored), named by a hash of the sources and the
+headers they share (``csrc/*.cuh``), so an edit of either rebuilds it and an
+unchanged checkout reuses it. Any build or load failure
 raises: there is no fallback.
 """
 
@@ -30,11 +31,12 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
     # x, w, bias, y, dtype, B, Ci, Co, X, Y, Z, Xo, Yo, Zo, kx, ky, kz,
-    # sx, sy, sz, px, py, pz, reflect, stream
-    "vg_conv3d_fwd": [_P, _P, _P, _P] + [_I] * 20 + [_P],
-    # x, g, dw, dtype, B, Ci, Co, X, Y, Z, Xo, Yo, Zo, kx, ky, kz, sx, sy, sz,
-    # px, py, pz, reflect, stream
-    "vg_conv3d_wgrad": [_P, _P, _P] + [_I] * 20 + [_P],
+    # sx, sy, sz, px, py, pz, reflect, route, co_tile, stream
+    "vg_conv3d_fwd": [_P, _P, _P, _P] + [_I] * 22 + [_P],
+    # x, g, dw, ws, dtype, B, Ci, Co, X, Y, Z, Xo, Yo, Zo, kx, ky, kz, sx, sy,
+    # sz, px, py, pz, reflect, route, co_tile, tap_warps, split, ws_bytes,
+    # stream
+    "vg_conv3d_wgrad": [_P, _P, _P, _P] + [_I] * 24 + [ctypes.c_longlong, _P],
     # x, gamma, beta, y, partial, ab, dtype, BC, C, N, nsplit, eps, act,
     # alpha, vec, stream
     "vg_instnorm_fwd": [_P] * 6 + [_I, _I, _I, ctypes.c_longlong, _I, ctypes.c_float,
@@ -62,12 +64,13 @@ def _nvcc() -> str:
 
 
 def sources() -> list:
+    """The files nvcc compiles, one object each."""
     return sorted(CSRC.glob("*.cu"))
 
 
 def library_path() -> Path:
     h = hashlib.sha256()
-    for src in sources():
+    for src in sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh")):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())

@@ -3,49 +3,59 @@
 // Replaces the TPU kernel vangan_tpu/ops/pallas/conv3d.py::_conv_fwd
 // (bodies _fwd_kernel / _fwd_kernel_b). That kernel exists because XLA pads
 // small channel counts to 128 TPU lanes; its z-select matmuls, lane padding
-// and slab DMA are TPU workarounds and are not carried over.
+// and slab DMA are TPU workarounds and are not carried over. The input
+// gradient (_conv_dgrad) runs this kernel once per stride parity
+// (ops/conv3d.py).
 //
-// What bounds it on the card: the generator's small-channel convs
-// (max(Ci, Co) < 128) do 27 * Ci FMAs per output voxel and channel, which at
-// 128^3 is 10-90 GFLOP per patch, so the kernel is compute-bound once input
-// reads hit L1/L2. This first version runs on the CUDA cores in f32 (no
-// tensor cores): each thread owns one output voxel and CO_T output channels,
-// so one input load feeds CO_T FMAs; the weights of a Ci-tile are staged in
-// shared memory (the full 96*27*32 f32 slab would not fit in 227 KB) and read
-// as warp-wide broadcasts. Threads of a block walk neighbouring z voxels, so
-// input loads coalesce. Padding (zero or reflect, numpy semantics for any
-// width) is an index mapping, so no padded copy of the input is made.
-// An implicit-GEMM wgmma/TMA version is later work.
+//   y[b, co, o] = sum over ci, d of x_pad[b, ci, s*o + d] * w[co, ci, d] (+ bias)
+//
+// Padding (zero or reflect, numpy semantics for any width) is an index map,
+// so no padded copy of the input is made. Two bodies; ops/conv3d.py::conv_plan
+// picks one per shape and passes it in `route`:
+//
+// route 1, tensor cores (bfloat16; the main path): an implicit GEMM with
+// M = output voxels, N = Co, K = Ci x taps, on mma.sync m16n8k16 (bf16 in,
+// f32 accumulate). The generator's small-channel convs (max(Ci, Co) < 128)
+// do 27 Ci FMAs per output voxel and channel at up to 128^3 voxels, near the
+// card's bf16 ridge (dec0.block1 48 -> 16: ~324 FLOP per byte against ~295),
+// so the FMAs must run on the tensor cores, and the input must not be
+// re-read per tap or per Co tile. A block owns a brick of 4 x 8 x 8 output
+// voxels and a Co tile of up to 64 (every Co of the path in one or two
+// tiles) and walks Ci in chunks of 16: per chunk it copies the chunk's
+// weights (pre-arranged by the wrapper as [chunk][co tile][tap][co][16],
+// with cp.async) and the brick's input halo (through the index map,
+// transposed to voxel-major in registers; see conv3d_common.cuh) into shared
+// memory, and every tap is then an MMA over a shifted view of that halo,
+// fed by ldmatrix: the input is read once per chunk, not once per tap or Co
+// tile. Each warp owns two 16-voxel row tiles and the whole Co tile. The
+// halo staging is not double-buffered (its transpose goes through
+// registers); two blocks per SM overlap one's staging with the other's
+// MMAs. mma.sync and not wgmma: wgmma wants 64-row tiles of A in swizzled
+// shared memory described by a descriptor, which the halo's shifted
+// per-tap views are not, and mma.sync's rate (hundreds of TFLOP/s) is not
+// what bounds these shapes, the halo staging is.
+//
+// route 0, CUDA cores (float32, and bfloat16 shapes the tensor-core route
+// does not take: Ci <= 3, where a 16-channel k-step would be mostly padding,
+// or more than 64 taps): each thread owns one output voxel and CO_T output
+// channels, so one input load feeds CO_T f32 FMAs; the weights of a Ci-tile
+// are staged in shared memory and read as warp-wide broadcasts. The float32
+// route stays on exact f32 arithmetic (no TF32).
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+#include "conv3d_common.cuh"
 
 namespace {
+
+using vg::KMAX;
+using vg::map_index;
+using vg::to_f;
+using vg::from_f;
 
 constexpr int CO_T = 16;      // output channels per thread
 constexpr int THREADS = 128;  // output voxels per block
 constexpr int SMEM_FLOATS = 12288;  // 48 KB of staged weights
-constexpr int KMAX = 8;       // largest kernel extent per axis
-
-__device__ __forceinline__ float to_f(float v) { return v; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
-template <typename T> __device__ __forceinline__ T from_f(float v);
-template <> __device__ __forceinline__ float from_f<float>(float v) { return v; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);
-}
-
-// Coordinate i of the padded axis -> index into [0, n), or -1 for a zero pad.
-// Reflect follows numpy/jnp.pad 'reflect' for any pad width (period 2(n-1)).
-__device__ __forceinline__ int map_index(int i, int n, int reflect) {
-  if (i >= 0 && i < n) return i;
-  if (!reflect) return -1;
-  if (n == 1) return 0;
-  const int period = 2 * (n - 1);
-  i %= period;
-  if (i < 0) i += period;
-  return i < n ? i : period - i;
-}
+constexpr int MMA_MAX_CO_TILE = 64;
+constexpr size_t MAX_SMEM = 227 * 1024;
 
 // acc[j] += v * w[j] for the CO_T weights of one tap (shared-memory broadcasts).
 __device__ __forceinline__ void accumulate(float* acc, float v, const float4* wt) {
@@ -59,7 +69,8 @@ __device__ __forceinline__ void accumulate(float* acc, float v, const float4* wt
   }
 }
 
-// K > 0: a cubic K^3 kernel known at compile time; K == 0: any kx, ky, kz <= KMAX.
+// Route 0. K > 0: a cubic K^3 kernel known at compile time; K == 0: any
+// kx, ky, kz <= KMAX.
 template <typename T, int K>
 __global__ void __launch_bounds__(THREADS)
 conv3d_fwd_kernel(const T* __restrict__ x, const T* __restrict__ w,
@@ -154,10 +165,10 @@ conv3d_fwd_kernel(const T* __restrict__ x, const T* __restrict__ w,
 }
 
 template <typename T, int K>
-void launch(const void* x, const void* w, const void* bias, void* y, int B, int Ci,
-            int Co, int X, int Y, int Z, int Xo, int Yo, int Zo, int kx, int ky,
-            int kz, int sx, int sy, int sz, int px, int py, int pz, int reflect,
-            cudaStream_t stream) {
+cudaError_t launch(const void* x, const void* w, const void* bias, void* y, int B, int Ci,
+                   int Co, int X, int Y, int Z, int Xo, int Yo, int Zo, int kx, int ky,
+                   int kz, int sx, int sy, int sz, int px, int py, int pz, int reflect,
+                   cudaStream_t stream) {
   const int taps = kx * ky * kz;
   int ci_tile = SMEM_FLOATS / (taps * CO_T);
   if (ci_tile > Ci) ci_tile = Ci;
@@ -168,48 +179,204 @@ void launch(const void* x, const void* w, const void* bias, void* y, int B, int 
       static_cast<const T*>(x), static_cast<const T*>(w), static_cast<const T*>(bias),
       static_cast<T*>(y), Ci, Co, X, Y, Z, Xo, Yo, Zo, kx, ky, kz, sx, sy, sz, px, py,
       pz, reflect, ci_tile);
+  return cudaGetLastError();
 }
 
 template <typename T>
-void dispatch(const void* x, const void* w, const void* bias, void* y, int B, int Ci,
-              int Co, int X, int Y, int Z, int Xo, int Yo, int Zo, int kx, int ky,
-              int kz, int sx, int sy, int sz, int px, int py, int pz, int reflect,
-              cudaStream_t s) {
+cudaError_t dispatch(const void* x, const void* w, const void* bias, void* y, int B, int Ci,
+                     int Co, int X, int Y, int Z, int Xo, int Yo, int Zo, int kx, int ky,
+                     int kz, int sx, int sy, int sz, int px, int py, int pz, int reflect,
+                     cudaStream_t s) {
   const bool cubic = kx == ky && ky == kz;
 #define VG_LAUNCH(KK)                                                                \
-  launch<T, KK>(x, w, bias, y, B, Ci, Co, X, Y, Z, Xo, Yo, Zo, kx, ky, kz, sx, sy, \
-                sz, px, py, pz, reflect, s)
+  return launch<T, KK>(x, w, bias, y, B, Ci, Co, X, Y, Z, Xo, Yo, Zo, kx, ky, kz, sx, sy, \
+                       sz, px, py, pz, reflect, s)
   if (cubic && kx == 1) VG_LAUNCH(1);
-  else if (cubic && kx == 2) VG_LAUNCH(2);  // the parity sub-kernels of conv3d_dgrad
-  else if (cubic && kx == 3) VG_LAUNCH(3);
-  else if (cubic && kx == 4) VG_LAUNCH(4);
-  else VG_LAUNCH(0);
+  if (cubic && kx == 2) VG_LAUNCH(2);  // the parity sub-kernels of conv3d_dgrad
+  if (cubic && kx == 3) VG_LAUNCH(3);
+  if (cubic && kx == 4) VG_LAUNCH(4);
+  VG_LAUNCH(0);
 #undef VG_LAUNCH
+}
+
+// Route 1: bf16 implicit GEMM on the tensor cores (see the note at the top).
+// wt: the weights as 16-byte units [Ci/16][gridDim.y][taps][NT * 8][2],
+// zero-padded in Ci and Co; y: (B, Co, Xo, Yo, Zo).
+template <int NT>
+__global__ void __launch_bounds__(vg::MMA_THREADS, 2)
+conv3d_fwd_mma_kernel(const __nv_bfloat16* __restrict__ x, const uint4* __restrict__ wt,
+                      const __nv_bfloat16* __restrict__ bias, __nv_bfloat16* __restrict__ y,
+                      int Ci, int Co, int X, int Y, int Z, int Xo, int Yo, int Zo, int kx,
+                      int ky, int kz, int sx, int sy, int sz, int px, int py, int pz,
+                      int reflect) {
+  using namespace vg;
+  constexpr int CO_TILE = NT * 8;
+  extern __shared__ uint4 smem[];
+  const int taps = kx * ky * kz;
+  const Halo h = make_halo(kx, ky, kz, sx, sy, sz);
+  const int w_units = taps * CO_TILE * 2;
+  uint4* w_s = smem;
+  uint4* halo = smem + w_units;
+
+  const int nbz = (Zo + BRICK_Z - 1) / BRICK_Z, nby = (Yo + BRICK_Y - 1) / BRICK_Y;
+  int q = blockIdx.x;
+  const int oz0 = (q % nbz) * BRICK_Z;
+  q /= nbz;
+  const int oy0 = (q % nby) * BRICK_Y, ox0 = (q / nby) * BRICK_X;
+  const int ct = blockIdx.y, b = blockIdx.z;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int mi = lane >> 3, r = lane & 7;
+
+  // ldmatrix rows of this lane: A (voxel, channel half) of the warp's two
+  // row tiles; B (co row, channel half) of a pair of n tiles
+  int a_hv[2];
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+    a_hv[mt] = brick_halo_index((2 * warp + mt) * 16 + r + 8 * (mi & 1), h);
+  const int a_half = mi >> 1;
+  const int b_row = (mi >> 1) * 8 + r, b_half = mi & 1;
+
+  float acc[2][NT][4];
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.f;
+
+  const uint32_t halo_u = smem_u32(halo), w_u = smem_u32(w_s);
+  const long long plane = (long long)X * Y * Z;
+  const __nv_bfloat16* xb = x + (long long)b * Ci * plane;
+  const int n_chunks = (Ci + CI_CHUNK - 1) / CI_CHUNK;
+  for (int c = 0; c < n_chunks; ++c) {
+    __syncthreads();  // the previous chunk is consumed
+    const uint4* wsrc = wt + ((long long)c * gridDim.y + ct) * w_units;
+    for (int u = tid; u < w_units; u += MMA_THREADS)
+      cp_async16(w_u + swz(u >> 1, u & 1) * 16, wsrc + u);
+    cp_async_commit();
+    stage_halo(halo, xb, c * CI_CHUNK, Ci, X, Y, Z, h, ox0 * sx - px, oy0 * sy - py,
+               oz0 * sz - pz, reflect);
+    cp_async_wait_all();
+    __syncthreads();
+    int t = 0;
+    for (int dx = 0; dx < kx; ++dx)
+      for (int dy = 0; dy < ky; ++dy)
+        for (int dz = 0; dz < kz; ++dz, ++t) {
+          const int toff = (dx * h.hy + dy) * h.hz + dz;
+          uint32_t a[2][4];
+#pragma unroll
+          for (int mt = 0; mt < 2; ++mt)
+            ldsm_x4(halo_u + swz(a_hv[mt] + toff, a_half) * 16, a[mt]);
+          const int wrow = t * CO_TILE;
+#pragma unroll
+          for (int p = 0; p < NT / 2; ++p) {
+            uint32_t bb[4];
+            ldsm_x4(w_u + swz(wrow + p * 16 + b_row, b_half) * 16, bb);
+#pragma unroll
+            for (int mt = 0; mt < 2; ++mt) {
+              mma_bf16(acc[mt][2 * p], a[mt], bb[0], bb[1]);
+              mma_bf16(acc[mt][2 * p + 1], a[mt], bb[2], bb[3]);
+            }
+          }
+          if constexpr (NT & 1) {
+            uint32_t b0, b1;
+            ldsm_x2(w_u + swz(wrow + (NT - 1) * 8 + r, b_half) * 16, b0, b1);
+#pragma unroll
+            for (int mt = 0; mt < 2; ++mt) mma_bf16(acc[mt][NT - 1], a[mt], b0, b1);
+          }
+        }
+  }
+
+  // epilogue: C[m = voxel][n = co]; lane holds rows g, g + 8, columns 2q, 2q + 1
+  const long long nout = (long long)Xo * Yo * Zo;
+  const int g = lane >> 2, tq = lane & 3;
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      const int m = (2 * warp + mt) * 16 + g + 8 * hr;
+      const int ox = ox0 + m / (BRICK_Y * BRICK_Z), oy = oy0 + (m / BRICK_Z) % BRICK_Y,
+                oz = oz0 + m % BRICK_Z;
+      if (ox >= Xo || oy >= Yo || oz >= Zo) continue;
+      const long long o = ((long long)ox * Yo + oy) * Zo + oz;
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int co = ct * CO_TILE + nt * 8 + 2 * tq + e;
+          if (co >= Co) continue;
+          const float bv = bias != nullptr ? __bfloat162float(bias[co]) : 0.f;
+          y[((long long)b * Co + co) * nout + o] = __float2bfloat16(acc[mt][nt][2 * hr + e] + bv);
+        }
+    }
+}
+
+// Shared memory of the tensor-core route: the chunk's weights and the halo.
+size_t mma_smem(int kx, int ky, int kz, int sx, int sy, int sz, int co_tile) {
+  const vg::Halo h = vg::make_halo(kx, ky, kz, sx, sy, sz);
+  return ((size_t)kx * ky * kz * co_tile + (size_t)h.hx * h.hy * h.hz) * 32;
+}
+
+template <int NT>
+cudaError_t launch_mma(const void* x, const void* w, const void* bias, void* y, int B, int Ci,
+                       int Co, int X, int Y, int Z, int Xo, int Yo, int Zo, int kx, int ky,
+                       int kz, int sx, int sy, int sz, int px, int py, int pz, int reflect,
+                       cudaStream_t s) {
+  using namespace vg;
+  const size_t smem = mma_smem(kx, ky, kz, sx, sy, sz, NT * 8);
+  cudaError_t e = allow_smem(conv3d_fwd_mma_kernel<NT>, smem);
+  if (e != cudaSuccess) return e;
+  const long long bricks = (long long)((Xo + BRICK_X - 1) / BRICK_X) *
+                           ((Yo + BRICK_Y - 1) / BRICK_Y) * ((Zo + BRICK_Z - 1) / BRICK_Z);
+  const dim3 grid((unsigned)bricks, (Co + NT * 8 - 1) / (NT * 8), B);
+  conv3d_fwd_mma_kernel<NT><<<grid, MMA_THREADS, smem, s>>>(
+      static_cast<const __nv_bfloat16*>(x), static_cast<const uint4*>(w),
+      static_cast<const __nv_bfloat16*>(bias), static_cast<__nv_bfloat16*>(y), Ci, Co, X, Y,
+      Z, Xo, Yo, Zo, kx, ky, kz, sx, sy, sz, px, py, pz, reflect);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
-// C entry point, bound with ctypes. x (B,Ci,X,Y,Z), w (Co,Ci,kx,ky,kz),
-// bias (Co,) or NULL, y (B,Co,Xo,Yo,Zo), all contiguous in one dtype
-// (0 = float32, 1 = bfloat16). Returns cudaGetLastError() after the launch;
-// 1000 for an argument the kernel does not take.
+// C entry point, bound with ctypes. x (B,Ci,X,Y,Z), bias (Co,) or NULL,
+// y (B,Co,Xo,Yo,Zo), all contiguous in one dtype (0 = float32, 1 =
+// bfloat16); lo pads px, py, pz, zero (reflect = 0) or reflect (1).
+// route 0 (CUDA cores): w (Co,Ci,kx,ky,kz), co_tile ignored. route 1 (tensor
+// cores, bfloat16 only): w pre-arranged as [ceil(Ci/16)][ceil(Co/co_tile)]
+// [taps][co_tile][16] bf16, zero-padded; co_tile a multiple of 8 up to 64.
+// Returns cudaGetLastError() after the launch; 1000 for an argument the
+// kernel does not take.
 extern "C" int vg_conv3d_fwd(const void* x, const void* w, const void* bias, void* y,
                              int dtype, int B, int Ci, int Co, int X, int Y, int Z,
                              int Xo, int Yo, int Zo, int kx, int ky, int kz, int sx,
-                             int sy, int sz, int px, int py, int pz, int reflect,
-                             void* stream) {
+                             int sy, int sz, int px, int py, int pz, int reflect, int route,
+                             int co_tile, void* stream) {
   if (kx < 1 || ky < 1 || kz < 1 || kx > KMAX || ky > KMAX || kz > KMAX) return 1000;
   if (B < 1 || Ci < 1 || Co < 1 || Xo < 1 || Yo < 1 || Zo < 1) return 1000;
+  if (sx < 1 || sy < 1 || sz < 1) return 1000;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    dispatch<float>(x, w, bias, y, B, Ci, Co, X, Y, Z, Xo, Yo, Zo, kx, ky, kz, sx, sy,
-                    sz, px, py, pz, reflect, s);
-  else if (dtype == 1)
-    dispatch<__nv_bfloat16>(x, w, bias, y, B, Ci, Co, X, Y, Z, Xo, Yo, Zo, kx, ky, kz,
-                            sx, sy, sz, px, py, pz, reflect, s);
-  else
+  if (route == 0) {
+    if (dtype == 0)
+      return (int)dispatch<float>(x, w, bias, y, B, Ci, Co, X, Y, Z, Xo, Yo, Zo, kx, ky, kz,
+                                  sx, sy, sz, px, py, pz, reflect, s);
+    if (dtype == 1)
+      return (int)dispatch<__nv_bfloat16>(x, w, bias, y, B, Ci, Co, X, Y, Z, Xo, Yo, Zo, kx,
+                                          ky, kz, sx, sy, sz, px, py, pz, reflect, s);
     return 1000;
-  return (int)cudaGetLastError();
+  }
+  if (route != 1 || dtype != 1) return 1000;
+  if (co_tile < 8 || co_tile > MMA_MAX_CO_TILE || co_tile % 8 != 0) return 1000;
+  if (mma_smem(kx, ky, kz, sx, sy, sz, co_tile) > MAX_SMEM) return 1000;
+  if ((long long)((Xo + 3) / 4) * ((Yo + 7) / 8) * ((Zo + 7) / 8) >= (1LL << 31)) return 1000;
+#define VG_MMA(NT)                                                                       \
+  case NT:                                                                               \
+    return (int)launch_mma<NT>(x, w, bias, y, B, Ci, Co, X, Y, Z, Xo, Yo, Zo, kx, ky, kz, \
+                               sx, sy, sz, px, py, pz, reflect, s)
+  switch (co_tile / 8) {
+    VG_MMA(1); VG_MMA(2); VG_MMA(3); VG_MMA(4); VG_MMA(5); VG_MMA(6); VG_MMA(7); VG_MMA(8);
+  }
+#undef VG_MMA
+  return 1000;
 }
 
 // The CUDA runtime's message for an error code returned above.

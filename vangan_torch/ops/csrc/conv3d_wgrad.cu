@@ -7,45 +7,59 @@
 //
 // accumulated in float32 and returned in float32. x_pad is read through the
 // same zero/reflect index map as conv3d_fwd.cu, so no padded copy is made.
+// ops/conv3d.py::conv_plan picks the body per shape and passes it in `route`.
 //
 // What bounds it on the card: the same FMAs as the forward (Co * Ci * taps
-// per output voxel), over a reduction of up to B * 128^3 = 6.3 M voxels per
-// weight, so it is compute-bound; this first version runs on the CUDA cores
-// in f32. It is a GEMM with M = Co, N = Ci * taps (the "columns") and K = the
-// voxels. A block owns an MT x NTILE tile of dW and walks its share of the
-// voxels in chunks of NT: per chunk it stages g (MT x NT) and the gathered
-// x columns (NT x NTILE) in shared memory, and each thread accumulates a
-// 4 x 4 register tile (one float4 of x and four broadcast g values per 16
-// FMAs). The voxel range is split over gridDim.x blocks and the partial
-// tiles are added into dW with f32 atomics (dW is zeroed by the caller), so
-// the sum order, and the last bits of dW, vary from run to run. Three tile
-// shapes (16 x 256, 32 x 128, 64 x 64) fit the layer widths of the path;
-// the host picks the one with least padding. wgmma/TMA is later work.
+// per output voxel) summed over up to B * 128^3 = 6.3 M voxels per weight;
+// at the path's heavy convs that is near the bf16 ridge, so the FMAs must
+// run on the tensor cores and x must not be gathered once per tap from
+// device memory.
+//
+// route 1, tensor cores (bfloat16; the main path): a GEMM with M = Ci x taps
+// (16 channels of one tap per MMA row tile), N = Co (a tile of up to 32) and
+// K = the voxels, on mma.sync m16n8k16 (bf16 in, f32 accumulate). A block
+// owns one 16-channel chunk of Ci, one Co tile and a group of up to 32 taps,
+// and walks its share of the (sample, 4 x 8 x 8 brick) pairs: per brick it
+// stages g (Co tile x 256 voxels) and the brick's x halo of its channels
+// once in shared memory (conv3d_common.cuh), and forms each tap's operand
+// from that halo by offset, with ldmatrix.trans. Warps split the taps (up
+// to four each); where a tap group is narrower than eight warps (1^3
+// shortcuts and head), the remaining warps split the voxels instead, so a
+// 1^3 conv does not pay for a 27-tap tile. Split-K: each block (and each
+// voxel-splitting warp) writes its f32 partial tile to its own slice of a
+// workspace (slices, Co, Ci * taps) that the wrapper allocates; a second
+// launch sums the slices in a fixed order. No atomics: dW is bit-identical
+// from run to run. mma.sync and not wgmma: wgmma wants 64-row tiles of A in
+// swizzled shared memory behind a descriptor, which the per-tap shifted
+// halo views are not, and the tensor-core rate is not what bounds these
+// shapes, the staging of g and the halo is.
+//
+// route 0, CUDA cores (float32, and bfloat16 shapes the tensor-core route
+// does not take: more than 64 taps): a GEMM with M = Co, N = Ci * taps (the
+// "columns") and K = the voxels. A block owns an MT x NTILE tile of dW and
+// walks its share of the voxels in chunks of NT: per chunk it stages g
+// (MT x NT) and the gathered x columns (NT x NTILE) in shared memory, and
+// each thread accumulates a 4 x 4 register tile in f32 (no TF32). The voxel
+// range is split over gridDim.x blocks and the partial tiles are added into
+// dW with f32 atomics (dW is zeroed by the caller), so on this route the sum
+// order, and the last bits of dW, vary from run to run. Three tile shapes
+// (16 x 256, 32 x 128, 64 x 64); the host picks the one with least padding.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+#include "conv3d_common.cuh"
 
 namespace {
 
+using vg::KMAX;
+using vg::map_index;
+using vg::to_f;
+
 constexpr int THREADS = 256;
 constexpr int NT = 32;    // voxels per chunk
-constexpr int KMAX = 8;   // largest kernel extent per axis
 constexpr int TARGET_BLOCKS = 132 * 10;
-
-__device__ __forceinline__ float to_f(float v) { return v; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
-
-// Coordinate i of the padded axis -> index into [0, n), or -1 for a zero pad
-// (numpy 'reflect' for any width, as conv3d_fwd.cu).
-__device__ __forceinline__ int map_index(int i, int n, int reflect) {
-  if (i >= 0 && i < n) return i;
-  if (!reflect) return -1;
-  if (n == 1) return 0;
-  const int period = 2 * (n - 1);
-  i %= period;
-  if (i < 0) i += period;
-  return i < n ? i : period - i;
-}
+constexpr int MMA_MAX_CO_TILE = 32;
+constexpr int TAPS_PER_WARP = 4;
+constexpr int G_STRIDE = vg::BRICK + 8;  // g tile row: 256 voxels + 16 bytes against bank conflicts
+constexpr size_t MAX_SMEM = 227 * 1024;
 
 template <typename T, int MT, int NTILE>
 __global__ void __launch_bounds__(THREADS)
@@ -161,9 +175,9 @@ conv3d_wgrad_kernel(const T* __restrict__ x, const T* __restrict__ g, float* __r
 }
 
 template <typename T, int MT, int NTILE>
-void launch(const void* x, const void* g, float* dw, int B, int Ci, int Co, int X, int Y,
-            int Z, int Xo, int Yo, int Zo, int kx, int ky, int kz, int sx, int sy, int sz,
-            int px, int py, int pz, int reflect, cudaStream_t s) {
+cudaError_t launch(const void* x, const void* g, float* dw, int B, int Ci, int Co, int X, int Y,
+                   int Z, int Xo, int Yo, int Zo, int kx, int ky, int kz, int sx, int sy,
+                   int sz, int px, int py, int pz, int reflect, cudaStream_t s) {
   const long long total = (long long)B * Xo * Yo * Zo;
   const long long n_chunks = (total + NT - 1) / NT;
   const int tiles_m = (Co + MT - 1) / MT, tiles_n = (Ci * kx * ky * kz + NTILE - 1) / NTILE;
@@ -174,6 +188,7 @@ void launch(const void* x, const void* g, float* dw, int B, int Ci, int Co, int 
   conv3d_wgrad_kernel<T, MT, NTILE><<<grid, THREADS, 0, s>>>(
       static_cast<const T*>(x), static_cast<const T*>(g), dw, B, Ci, Co, X, Y, Z, Xo, Yo, Zo,
       kx, ky, kz, sx, sy, sz, px, py, pz, reflect, n_chunks);
+  return cudaGetLastError();
 }
 
 // Padded work of an MT x NTILE tiling of the Co x ncols product.
@@ -182,45 +197,234 @@ long long padded(int Co, int ncols, int mt, int nt) {
 }
 
 template <typename T>
-void dispatch(const void* x, const void* g, float* dw, int B, int Ci, int Co, int X, int Y,
-              int Z, int Xo, int Yo, int Zo, int kx, int ky, int kz, int sx, int sy, int sz,
-              int px, int py, int pz, int reflect, cudaStream_t s) {
+cudaError_t dispatch(const void* x, const void* g, float* dw, int B, int Ci, int Co, int X,
+                     int Y, int Z, int Xo, int Yo, int Zo, int kx, int ky, int kz, int sx,
+                     int sy, int sz, int px, int py, int pz, int reflect, cudaStream_t s) {
   const int ncols = Ci * kx * ky * kz;
   const long long a = padded(Co, ncols, 16, 256), b = padded(Co, ncols, 32, 128),
                   c = padded(Co, ncols, 64, 64);
-#define VG_LAUNCH(MT, NTL)                                                                    \
-  launch<T, MT, NTL>(x, g, dw, B, Ci, Co, X, Y, Z, Xo, Yo, Zo, kx, ky, kz, sx, sy, sz, px, py, \
-                     pz, reflect, s)
+#define VG_LAUNCH(MT, NTL)                                                                 \
+  return launch<T, MT, NTL>(x, g, dw, B, Ci, Co, X, Y, Z, Xo, Yo, Zo, kx, ky, kz, sx, sy, \
+                            sz, px, py, pz, reflect, s)
   if (a <= b && a <= c) VG_LAUNCH(16, 256);
-  else if (b <= c) VG_LAUNCH(32, 128);
-  else VG_LAUNCH(64, 64);
+  if (b <= c) VG_LAUNCH(32, 128);
+  VG_LAUNCH(64, 64);
 #undef VG_LAUNCH
+}
+
+// Route 1: bf16 implicit GEMM on the tensor cores (see the note at the top).
+// Grid: x = the split over (sample, brick) pairs, y = (tap group, Ci chunk,
+// Co tile) with the Co tile fastest. Block slice s of the workspace, or
+// s * (8 / tap_warps) + k for the k-th voxel-splitting warp, gets this
+// block's partial dW tile (every element of it, zeros included).
+template <int NTL>
+__global__ void __launch_bounds__(vg::MMA_THREADS, 2)
+conv3d_wgrad_mma_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ g,
+                        float* __restrict__ ws, int B, int Ci, int Co, int X, int Y, int Z,
+                        int Xo, int Yo, int Zo, int kx, int ky, int kz, int sx, int sy, int sz,
+                        int px, int py, int pz, int reflect, int tap_warps) {
+  using namespace vg;
+  constexpr int CO_TILE = NTL * 8;
+  extern __shared__ uint4 smem[];
+  const int taps = kx * ky * kz;
+  const Halo h = make_halo(kx, ky, kz, sx, sy, sz);
+  uint4* halo = smem;
+  unsigned short* g_s = reinterpret_cast<unsigned short*>(smem + 2 * h.hx * h.hy * h.hz);
+
+  const int co_tiles = (Co + CO_TILE - 1) / CO_TILE, n_chunks = (Ci + CI_CHUNK - 1) / CI_CHUNK;
+  int wtile = blockIdx.y;
+  const int ct = wtile % co_tiles;
+  wtile /= co_tiles;
+  const int chunk = wtile % n_chunks, tg = wtile / n_chunks;
+  const int co0 = ct * CO_TILE, c0 = chunk * CI_CHUNK;
+  const int t0 = tg * tap_warps * TAPS_PER_WARP;
+  const int t_end = min(taps, t0 + tap_warps * TAPS_PER_WARP);
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int mi = lane >> 3, r = lane & 7;
+  const int kslices = (MMA_THREADS / 32) / tap_warps;
+  const int ts = warp % tap_warps, ks = warp / tap_warps;
+  // this warp's taps and their offsets in the halo
+  int toff[TAPS_PER_WARP];
+#pragma unroll
+  for (int j = 0; j < TAPS_PER_WARP; ++j) {
+    const int t = t0 + ts + j * tap_warps;
+    const int dz = t % kz, dy = (t / kz) % ky, dx = t / (ky * kz);
+    toff[j] = t < t_end ? (dx * h.hy + dy) * h.hz + dz : -1;
+  }
+  // ldmatrix rows of this lane: A (.trans) voxel row rr of a k-step and
+  // channel half; B (co row, voxel half) of a pair of n tiles
+  const int rr = r + 8 * (mi >> 1), a_half = mi & 1;
+  const int b_row = (mi >> 1) * 8 + r, b_half = mi & 1;
+
+  float acc[TAPS_PER_WARP][NTL][4];
+#pragma unroll
+  for (int j = 0; j < TAPS_PER_WARP; ++j)
+#pragma unroll
+    for (int nt = 0; nt < NTL; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[j][nt][e] = 0.f;
+
+  const uint32_t halo_u = smem_u32(halo), g_u = smem_u32(g_s);
+  const long long plane = (long long)X * Y * Z, nout = (long long)Xo * Yo * Zo;
+  const int nbz = (Zo + BRICK_Z - 1) / BRICK_Z, nby = (Yo + BRICK_Y - 1) / BRICK_Y;
+  const int nbx = (Xo + BRICK_X - 1) / BRICK_X;
+  const long long n_bricks = (long long)nbx * nby * nbz;
+  const unsigned short* gs = reinterpret_cast<const unsigned short*>(g);
+  // the g voxel of this thread in every brick
+  const int gi = tid / (BRICK_Y * BRICK_Z), gj = (tid / BRICK_Z) % BRICK_Y, gl = tid % BRICK_Z;
+
+  for (long long q = blockIdx.x; q < B * n_bricks; q += gridDim.x) {
+    const int bb = (int)(q / n_bricks);
+    int bq = (int)(q % n_bricks);
+    const int oz0 = (bq % nbz) * BRICK_Z;
+    bq /= nbz;
+    const int oy0 = (bq % nby) * BRICK_Y, ox0 = (bq / nby) * BRICK_X;
+    __syncthreads();  // the previous brick is consumed
+    stage_halo(halo, x + (long long)bb * Ci * plane, c0, Ci, X, Y, Z, h, ox0 * sx - px,
+               oy0 * sy - py, oz0 * sz - pz, reflect);
+    {
+      const int ox = ox0 + gi, oy = oy0 + gj, oz = oz0 + gl;
+      const bool in = ox < Xo && oy < Yo && oz < Zo;
+      const unsigned short* src =
+          gs + ((long long)bb * Co + co0) * nout + ((long long)ox * Yo + oy) * Zo + oz;
+#pragma unroll 4
+      for (int n = 0; n < CO_TILE; ++n)
+        g_s[n * G_STRIDE + tid] = in && co0 + n < Co ? __ldg(src + n * nout) : 0;
+    }
+    __syncthreads();
+    for (int kk = ks; kk < BRICK / 16; kk += kslices) {
+      uint32_t bf[NTL][2];
+#pragma unroll
+      for (int p = 0; p < NTL / 2; ++p) {
+        uint32_t b4[4];
+        ldsm_x4(g_u + ((p * 16 + b_row) * G_STRIDE + kk * 16 + b_half * 8) * 2, b4);
+        bf[2 * p][0] = b4[0];
+        bf[2 * p][1] = b4[1];
+        bf[2 * p + 1][0] = b4[2];
+        bf[2 * p + 1][1] = b4[3];
+      }
+      if constexpr (NTL & 1)
+        ldsm_x2(g_u + (((NTL - 1) * 8 + r) * G_STRIDE + kk * 16 + b_half * 8) * 2,
+                bf[NTL - 1][0], bf[NTL - 1][1]);
+      const int hv = brick_halo_index(kk * 16 + rr, h);
+#pragma unroll
+      for (int j = 0; j < TAPS_PER_WARP; ++j) {
+        if (toff[j] < 0) continue;
+        uint32_t a[4];
+        ldsm_x4_trans(halo_u + swz(hv + toff[j], a_half) * 16, a);
+#pragma unroll
+        for (int nt = 0; nt < NTL; ++nt) mma_bf16(acc[j][nt], a, bf[nt][0], bf[nt][1]);
+      }
+    }
+  }
+
+  // C[m = channel of the chunk][n = co]: rows g, g + 8, columns 2q, 2q + 1
+  const long long nw = (long long)Co * Ci * taps;
+  float* out = ws + ((long long)blockIdx.x * kslices + ks) * nw;
+  const int gr = lane >> 2, tq = lane & 3;
+#pragma unroll
+  for (int j = 0; j < TAPS_PER_WARP; ++j) {
+    if (toff[j] < 0) continue;
+    const int t = t0 + ts + j * tap_warps;
+#pragma unroll
+    for (int nt = 0; nt < NTL; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int ci = c0 + gr + 8 * (e >> 1), co = co0 + nt * 8 + 2 * tq + (e & 1);
+        if (ci < Ci && co < Co) out[((long long)co * Ci + ci) * taps + t] = acc[j][nt][e];
+      }
+  }
+}
+
+// dw[i] = sum over the slices of ws[slice][i], in slice order.
+__global__ void conv3d_wgrad_sum_kernel(const float* __restrict__ ws, float* __restrict__ dw,
+                                        int slices, long long n) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  float s = 0.f;
+  for (int k = 0; k < slices; ++k) s += ws[k * n + i];
+  dw[i] = s;
+}
+
+size_t mma_smem(int kx, int ky, int kz, int sx, int sy, int sz, int co_tile) {
+  const vg::Halo h = vg::make_halo(kx, ky, kz, sx, sy, sz);
+  return (size_t)h.hx * h.hy * h.hz * 32 + (size_t)co_tile * G_STRIDE * 2;
+}
+
+template <int NTL>
+cudaError_t launch_mma(const void* x, const void* g, float* dw, float* ws, int B, int Ci,
+                       int Co, int X, int Y, int Z, int Xo, int Yo, int Zo, int kx, int ky,
+                       int kz, int sx, int sy, int sz, int px, int py, int pz, int reflect,
+                       int tap_warps, int split, cudaStream_t s) {
+  using namespace vg;
+  const size_t smem = mma_smem(kx, ky, kz, sx, sy, sz, NTL * 8);
+  cudaError_t e = allow_smem(conv3d_wgrad_mma_kernel<NTL>, smem);
+  if (e != cudaSuccess) return e;
+  const int taps = kx * ky * kz;
+  const int tap_groups = (taps + tap_warps * TAPS_PER_WARP - 1) / (tap_warps * TAPS_PER_WARP);
+  const int tiles = tap_groups * ((Ci + CI_CHUNK - 1) / CI_CHUNK) * ((Co + NTL * 8 - 1) / (NTL * 8));
+  conv3d_wgrad_mma_kernel<NTL><<<dim3(split, tiles), MMA_THREADS, smem, s>>>(
+      static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(g), ws, B, Ci,
+      Co, X, Y, Z, Xo, Yo, Zo, kx, ky, kz, sx, sy, sz, px, py, pz, reflect, tap_warps);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  const long long n = (long long)Co * Ci * taps;
+  const int slices = split * ((MMA_THREADS / 32) / tap_warps);
+  conv3d_wgrad_sum_kernel<<<(unsigned)((n + 255) / 256), 256, 0, s>>>(ws, dw, slices, n);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
 // C entry point, bound with ctypes. x (B,Ci,X,Y,Z) and g (B,Co,Xo,Yo,Zo)
 // contiguous in one dtype (0 = float32, 1 = bfloat16); dw (Co,Ci,kx,ky,kz)
-// float32, contiguous and zeroed by the caller; lo pads px, py, pz, zero
-// (reflect = 0) or reflect (1). Returns cudaGetLastError() after the launch;
-// 1000 for an argument the kernel does not take.
-extern "C" int vg_conv3d_wgrad(const void* x, const void* g, float* dw, int dtype, int B,
-                               int Ci, int Co, int X, int Y, int Z, int Xo, int Yo, int Zo,
-                               int kx, int ky, int kz, int sx, int sy, int sz, int px, int py,
-                               int pz, int reflect, void* stream) {
+// float32, contiguous; lo pads px, py, pz, zero (reflect = 0) or reflect (1).
+// route 0 (CUDA cores): dw zeroed by the caller; the other plan arguments are
+// ignored. route 1 (tensor cores, bfloat16 only): co_tile a multiple of 8 up
+// to 32, tap_warps 1, 2, 4 or 8, split the blocks along the voxels, ws a
+// float32 workspace of ws_bytes >= split * (8 / tap_warps) * Co * Ci * taps * 4
+// bytes. Returns cudaGetLastError() after the launches; 1000 for an argument
+// the kernel does not take.
+extern "C" int vg_conv3d_wgrad(const void* x, const void* g, float* dw, float* ws, int dtype,
+                               int B, int Ci, int Co, int X, int Y, int Z, int Xo, int Yo,
+                               int Zo, int kx, int ky, int kz, int sx, int sy, int sz, int px,
+                               int py, int pz, int reflect, int route, int co_tile,
+                               int tap_warps, int split, long long ws_bytes, void* stream) {
   if (kx < 1 || ky < 1 || kz < 1 || kx > KMAX || ky > KMAX || kz > KMAX) return 1000;
   if (B < 1 || Ci < 1 || Co < 1 || Xo < 1 || Yo < 1 || Zo < 1) return 1000;
-  if ((long long)(Co + 15) / 16 > 65535 || (long long)Ci * kx * ky * kz / 64 + 1 > 65535)
-    return 1000;
-  if ((long long)B * Xo * Yo * Zo >= (1LL << 31)) return 1000;  // 32-bit voxel decode
+  if (sx < 1 || sy < 1 || sz < 1) return 1000;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    dispatch<float>(x, g, dw, B, Ci, Co, X, Y, Z, Xo, Yo, Zo, kx, ky, kz, sx, sy, sz, px, py,
-                    pz, reflect, s);
-  else if (dtype == 1)
-    dispatch<__nv_bfloat16>(x, g, dw, B, Ci, Co, X, Y, Z, Xo, Yo, Zo, kx, ky, kz, sx, sy, sz,
-                            px, py, pz, reflect, s);
-  else
+  if (route == 0) {
+    if ((long long)(Co + 15) / 16 > 65535 || (long long)Ci * kx * ky * kz / 64 + 1 > 65535)
+      return 1000;
+    if ((long long)B * Xo * Yo * Zo >= (1LL << 31)) return 1000;  // 32-bit voxel decode
+    if (dtype == 0)
+      return (int)dispatch<float>(x, g, dw, B, Ci, Co, X, Y, Z, Xo, Yo, Zo, kx, ky, kz, sx, sy,
+                                  sz, px, py, pz, reflect, s);
+    if (dtype == 1)
+      return (int)dispatch<__nv_bfloat16>(x, g, dw, B, Ci, Co, X, Y, Z, Xo, Yo, Zo, kx, ky, kz,
+                                          sx, sy, sz, px, py, pz, reflect, s);
     return 1000;
-  return (int)cudaGetLastError();
+  }
+  if (route != 1 || dtype != 1) return 1000;
+  if (co_tile < 8 || co_tile > MMA_MAX_CO_TILE || co_tile % 8 != 0) return 1000;
+  if (tap_warps != 1 && tap_warps != 2 && tap_warps != 4 && tap_warps != 8) return 1000;
+  if (split < 1 || split > 65535) return 1000;
+  if (mma_smem(kx, ky, kz, sx, sy, sz, co_tile) > MAX_SMEM) return 1000;
+  const long long taps = (long long)kx * ky * kz;
+  const long long tiles = (taps + tap_warps * TAPS_PER_WARP - 1) / (tap_warps * TAPS_PER_WARP) *
+                          ((Ci + 15) / 16) * ((Co + co_tile - 1) / co_tile);
+  if (tiles > 65535) return 1000;
+  if ((long long)split * (8 / tap_warps) * Co * Ci * taps * 4 > ws_bytes || ws == nullptr)
+    return 1000;
+#define VG_MMA(NTL)                                                                         \
+  case NTL:                                                                                 \
+    return (int)launch_mma<NTL>(x, g, dw, ws, B, Ci, Co, X, Y, Z, Xo, Yo, Zo, kx, ky, kz, sx, \
+                                sy, sz, px, py, pz, reflect, tap_warps, split, s)
+  switch (co_tile / 8) {
+    VG_MMA(1); VG_MMA(2); VG_MMA(3); VG_MMA(4);
+  }
+#undef VG_MMA
+  return 1000;
 }

@@ -49,8 +49,12 @@ def pad3d(x: torch.Tensor, pads: Sequence[Tuple[int, int]], mode: str = "zeros")
 def pad3d_grad(dxp: torch.Tensor, pads: Sequence[Tuple[int, int]],
                mode: str = "zeros") -> torch.Tensor:
     """The gradient of ``pad3d``: the cotangent ``dxp`` of the padded tensor
-    folded back onto the unpadded axes. 'zeros' drops the pad; 'reflect' adds
-    each padded position into the voxel it copies (the same index map)."""
+    folded back onto the unpadded axes, as a view of ``dxp``. 'zeros' drops
+    the pad; 'reflect' adds each padded position into the voxel it copies (the
+    same index map), axis by axis, in place: each pad slab is added into the
+    interior of ``dxp``, so ``dxp`` is consumed, and only the slabs and the
+    planes they fold onto move. The sums run in position order (lo slab,
+    interior, hi slab), the order of an ``index_add_`` over the whole axis."""
     if not any(lo or hi for lo, hi in pads):
         return dxp
     if mode == "zeros":
@@ -62,8 +66,14 @@ def pad3d_grad(dxp: torch.Tensor, pads: Sequence[Tuple[int, int]],
     for axis, (lo, hi) in zip((2, 3, 4), pads):
         if lo or hi:
             n = dxp.shape[axis] - lo - hi
-            shape = list(dxp.shape)
-            shape[axis] = n
-            dxp = dxp.new_zeros(shape).index_add_(axis, reflect_index(n, lo, hi, dxp.device),
-                                                  dxp)
+            src = reflect_index(n, lo, hi)  # interior positions map to themselves
+            inner = dxp.narrow(axis, lo, n)
+            if lo:  # the planes the lo slab folds onto: (their lo sums) + interior
+                a, b = int(src[:lo].min()), int(src[:lo].max()) + 1
+                planes = inner.narrow(axis, a, b - a)
+                planes.copy_(torch.zeros_like(planes).index_add_(
+                    axis, (src[:lo] - a).to(dxp.device), dxp.narrow(axis, 0, lo)) + planes)
+            if hi:
+                inner.index_add_(axis, src[lo + n:].to(dxp.device), dxp.narrow(axis, lo + n, hi))
+            dxp = inner
     return dxp
