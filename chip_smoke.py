@@ -10,21 +10,26 @@ Phases, each of which raises on failure:
 2. the conv3d kernels against their plain versions at every conv shape the
    full-width gen_IS (17 kernel convs) and disc_I (1: conv0) give them at
    128^3, at the step's batch of 3: the forward (K1) against F.conv3d, the input gradient (K2,
-   the forward kernel per stride parity) against torch.nn.grad.conv3d_input
-   and the weight gradient (K3) against torch.nn.grad.conv3d_weight, in
+   one launch for every stride parity, and a fold launch for a reflect pad)
+   against torch.nn.grad.conv3d_input and the weight gradient (K3) against
+   torch.nn.grad.conv3d_weight, in
    float32 (TF32 off; y and dx within 1e-4 * max |ref|, dW within 1e-3, its
    sums run over up to 2 M voxels in another order) and bfloat16 (2e-2),
    with CUDA event times (median of 5) of the kernel, the plain version and
    the library call; each row names the bf16 plan (``conv_plan``: the
    route, tensor-core or thin CUDA-core body, and the Co tile, split and
-   workspace) of K1, each K2 parity and K3, and the achieved TFLOP/s (FLOPs
-   / kernel ms) of the kernel and the library call; the bf16 K3 must give
-   bit-identical dW in two runs; a shape that takes the thin body is also
-   run and timed on the tensor-core body, the evidence for the choice;
+   workspace) of K1, K2 (its Ci tile, parities in launch order, fold planes
+   and launches) and K3, and the achieved TFLOP/s (FLOPs / kernel ms) of the
+   kernel and the library call; the bf16 K3 must give bit-identical dW in two
+   runs; a shape that takes the thin body is also run and timed on the
+   tensor-core body, the evidence for that choice;
 3. the InstanceNorm kernels against their plain versions at every (C, size)
    of the two networks (28 and 4 norms), batch 3, for each activation: the
    forward (K4) and the backward (K5: dx, dgamma, dbeta against autograd of
-   instance_norm_act_plain), with the same tolerances and timing;
+   instance_norm_act_plain), with the same tolerances and timing; each row
+   names K5's plan (``bwd_plan``), the bf16 K5 must give bit-identical sums
+   and dx in two runs, and the act='none' rows time
+   aten.native_batch_norm_backward on the same inputs as K5's yardstick;
 4. the soft-skeleton kernels against their plain version (morphology) at the
    step's shape, 3 x 128^3, 15 iterations: the forward (K6) on the min-max
    normalised tanh of seeded noise and on a binary volume touching every
@@ -107,18 +112,19 @@ NOISE = 0.1           # discriminator noise sigma of the train step (layer_noise
 # - K3 for every kernel conv whose weight needs a gradient: the 17 of each
 #   generator call, and conv0 in the 4 discriminator calls with live
 #   parameters (the 2 generator-branch judgements freeze them);
-# - K2, one forward-kernel launch per non-empty stride parity, for every
-#   kernel conv whose input needs a gradient: per generator call all but
-#   stem.conv1 and stem.shortcut (they read data or a detached fake):
-#   stem.conv_block 1, enc1 and enc2 10 each (block1, 3^3 stride 2: 8
-#   parities; shortcut, 1^3 stride 2: 1 non-empty parity; block2: 1),
-#   dec2.block2 1, dec1 3, dec0 3, head 1 = 29; and conv0 (4^3 stride 2: 8
-#   parities) of the 2 generator-branch judgements, whose input is the fake;
+# - K2, one launch per conv whose input needs a gradient: per generator call
+#   the 15 kernel convs but stem.conv1 and stem.shortcut (they read data or a
+#   detached fake): stem.conv_block, enc1 and enc2 3 each (block1, block2,
+#   shortcut), dec2.block2, dec1 and dec0 3 each, head; and conv0 of the 2
+#   generator-branch judgements, whose input is the fake; plus one fold
+#   launch for each of them with a reflect pad: per generator call the 10
+#   block convs (all but the 4 shortcuts and the head), and conv0;
 # - one K5 call per norm; 16 K7 rounds for the prediction's skeleton (the
 #   ground truth's takes no gradient).
 TRAIN_LAUNCHES = {
     "conv3d_fwd": 4 * CONV_PATH_CALLS + 6 * DISC_CONV_CALLS,
-    "conv3d_dgrad": 4 * 29 + 2 * 8,
+    "conv3d_dgrad": 4 * 15 + 2 * 1,
+    "conv3d_dgrad_fold": 4 * 10 + 2 * 1,
     "conv3d_wgrad": 4 * CONV_PATH_CALLS + 4 * DISC_CONV_CALLS,
     "instnorm_fwd": 4 * IN_PATH_CALLS + 6 * DISC_IN_CALLS,
     "instnorm_bwd": 4 * IN_PATH_CALLS + 6 * DISC_IN_CALLS,
@@ -192,19 +198,21 @@ def conv_work(co, ci, k, out_dims, in_dims, batch, esize=2):
             esize * (ci * batch * math.prod(in_dims) + co * ci * taps + co * n_out))
 
 
-def plans(ci, co, k, stride, pads, dims, out_dims):
-    """The bf16 plans (route and tiles) of K1, each K2 parity and K3 of a conv."""
+def plans(ci, co, k, stride, pads, pad_mode, dims, out_dims):
+    """The bf16 plans (route and tiles) of K1, K2 and K3 of a conv."""
     from vangan_torch.ops import conv3d as C
 
     keys = ("route", "co_tile", "co_tiles", "tap_warps", "tap_groups", "split",
-            "workspace_bytes", "pad_share")
+            "workspace_bytes", "pad_share", "shared_halo")
     brief = lambda p: {k_: getattr(p, k_) for k_ in keys}  # noqa: E731
     bf16 = torch.bfloat16
+    dg = C.conv_plan("dgrad", ci, co, k, stride, out_dims, bf16, STEP_BATCH, in_dims=dims,
+                     pads=pads, pad_mode=pad_mode)
     return {"brick": list(C.BRICK), "ci_chunk": C.CI_CHUNK,
             "fwd": brief(C.conv_plan("fwd", ci, co, k, stride, out_dims, bf16, STEP_BATCH)),
-            "dgrad": [dict(brief(C.conv_plan("fwd", co, ci, e, (1, 1, 1), n, bf16, STEP_BATCH)),
-                           k=list(e)) for _, e, n in C.dgrad_parities(
-                               k, stride, C.padded_dims(dims, pads))],
+            "dgrad": dict(brief(dg), ci_tile=dg.co_tile, launches=dg.launches,
+                          parities=[[list(p), list(e)] for p, e, _ in dg.parities],
+                          fold=[list(f) for f in dg.fold], fold_bytes=dg.fold_bytes),
             "wgrad": brief(C.conv_plan("wgrad", ci, co, k, stride, out_dims, bf16,
                                        STEP_BATCH))}
 
@@ -286,7 +294,7 @@ def check_convs(net, shapes, expected, tol):
                     row[f"{op}_{tag}_library_ms"] = cuda_ms(library)
                     row[f"{op}_{tag}_tflops"] = flops / row[f"{op}_{tag}_ms"] / 1e9
                     row[f"{op}_{tag}_library_tflops"] = flops / row[f"{op}_{tag}_library_ms"] / 1e9
-                row["plan"] = plans(ci, co, m.kernel_size, stride, pads, dims, out_dims)
+                row["plan"] = plans(ci, co, m.kernel_size, stride, pads, pad_mode, dims, out_dims)
                 if dtype == torch.bfloat16 and row["plan"]["fwd"]["route"] == "thin":
                     # the tensor-core body on the same shape, Ci padded to
                     # 16: what the thin shapes' choice of body rests on
@@ -352,6 +360,14 @@ def check_instnorms(net, shapes, expected, tol):
                     plain_b = lambda: I.instance_norm_act_bwd_plain(x, gy, gamma, beta, 1e-3,  # noqa: E731
                                                                     act)
                     got_b = kern_b()
+                    plan_b = I.bwd_plan(math.prod(dims), dtype)
+                    row[f"bwd_{tag}_plan"] = dict(vars(plan_b))
+                    if dtype == torch.bfloat16:
+                        # the partial sums are added in a fixed order: the same bits every run
+                        again = kern_b()
+                        require(all(torch.equal(a_, b_) for a_, b_ in zip(got_b, again)),
+                                f"IN backward C={c} {dims} {act}: differs between two runs")
+                        row["bwd_bf16_bit_identical"] = True
                 # the plain backward: autograd of the plain forward
                 leaves = [t.clone().requires_grad_() for t in (x, gamma, beta)]
                 I.instance_norm_act_plain(*leaves, 1e-3, act).backward(gy)
@@ -391,6 +407,20 @@ def check_instnorms(net, shapes, expected, tol):
                 with torch.inference_mode():
                     row[f"bwd_{tag}_ms"] = cuda_ms(kern_b)
                     row[f"bwd_{tag}_plain_ms"] = cuda_ms(plain_b)
+                    if act == "none":
+                        # yardstick only (the port never calls it): the act-none
+                        # backward as one batch-norm backward over (1, B*C, ...)
+                        # with the forward's mean and inverse std
+                        ab = stats.view(-1, 4)
+                        xv = x.reshape(1, STEP_BATCH * c, *dims)
+                        gv = gy.reshape(1, STEP_BATCH * c, *dims)
+                        wv = gamma.float().repeat(STEP_BATCH)
+                        lib = lambda: torch.ops.aten.native_batch_norm_backward(  # noqa: E731
+                            gv, xv, wv, None, None, ab[:, 0].contiguous(),
+                            ab[:, 3].contiguous(), True, 1e-3, [True, True, True])
+                        lib_dx = lib()[0].reshape(x.shape)
+                        row[f"bwd_{tag}_library_dx_rel_err"] = errs(lib_dx, got_b[0])[1]
+                        row[f"bwd_{tag}_library_ms"] = cuda_ms(lib)
             rows.append(row)
             print("instnorm", json.dumps(row))
     return rows
@@ -654,6 +684,7 @@ SPREAD_FACTOR = 3
 def counters(ops):
     conv_ops, in_ops, skel_ops = ops
     return {"conv3d_fwd": conv_ops.launches, "conv3d_dgrad": conv_ops.dgrad_launches,
+            "conv3d_dgrad_fold": conv_ops.dgrad_fold_launches,
             "conv3d_wgrad": conv_ops.wgrad_launches, "instnorm_fwd": in_ops.launches,
             "instnorm_bwd": in_ops.bwd_launches, "soft_skel_fwd": skel_ops.launches,
             "soft_skel_bwd": skel_ops.bwd_launches}
@@ -661,7 +692,8 @@ def counters(ops):
 
 def reset_counters(ops):
     conv_ops, in_ops, skel_ops = ops
-    conv_ops.launches = conv_ops.dgrad_launches = conv_ops.wgrad_launches = 0
+    conv_ops.launches = conv_ops.dgrad_launches = conv_ops.dgrad_fold_launches = 0
+    conv_ops.wgrad_launches = 0
     in_ops.launches = in_ops.bwd_launches = 0
     skel_ops.launches = skel_ops.bwd_launches = 0
 
@@ -889,18 +921,20 @@ def main() -> int:
                  "ms": total(f"{op}_bf16_ms"), "plain_ms": total(f"{op}_bf16_plain_ms"),
                  **summed_bound([(len(r["uses"]), r["bound"][op]) for r in in_rows]),
                  "library_ms": None}
-        if op == "fwd":  # F.instance_norm has no activation: the act='none' norms only
-            none = [r for r in in_rows if r["act"] == "none"]
-            entry["ms_act_none"] = sum(len(r["uses"]) * r["fwd_bf16_ms"] for r in none)
-            entry["library_ms_act_none"] = sum(len(r["uses"]) * r["fwd_bf16_library_ms"]
-                                               for r in none)
+        # the library calls (F.instance_norm, native_batch_norm_backward) have no
+        # activation: the act='none' norms only
+        none = [r for r in in_rows if r["act"] == "none"]
+        entry["ms_act_none"] = sum(len(r["uses"]) * r[f"{op}_bf16_ms"] for r in none)
+        entry["library_ms_act_none"] = sum(len(r["uses"]) * r[f"{op}_bf16_library_ms"]
+                                           for r in none)
         return entry
 
     kernels = [
         conv_entry("conv3d_fwd", "fwd", "vangan_torch/ops/csrc/conv3d_fwd.cu",
                    "vangan_tpu/ops/pallas/conv3d.py:577"),
-        conv_entry("conv3d_dgrad", "dgrad", "vangan_torch/ops/conv3d.py",
-                   "vangan_tpu/ops/pallas/conv3d.py:904"),
+        dict(conv_entry("conv3d_dgrad", "dgrad", "vangan_torch/ops/csrc/conv3d_dgrad.cu",
+                        "vangan_tpu/ops/pallas/conv3d.py:904"),
+             fold_launches=train["launches"]["conv3d_dgrad_fold"]),
         conv_entry("conv3d_wgrad", "wgrad", "vangan_torch/ops/csrc/conv3d_wgrad.cu",
                    "vangan_tpu/ops/pallas/conv3d.py:817"),
         in_entry("instnorm_fwd", "fwd", "vangan_tpu/ops/pallas/instnorm.py:309"),

@@ -1,7 +1,8 @@
 """``conv_plan``: the body and tiles the conv kernels take at every kernel conv
 shape of the full-width ``gen_IS`` and ``disc_I`` at 128^3 and batch 3 (the
 shapes ``chip_smoke.py`` phase 2 checks on the card), for the forward (K1),
-each stride parity of the input gradient (K2, one K1 launch each) and the
+the input gradient (K2, one launch for every stride parity;
+``tests/test_torch_dgrad_plan.py`` checks the rest of its plan) and the
 weight gradient (K3); and the wrapper's side of the plan (the weight layout
 of the tensor-core forward, the workspace of the tensor-core K3).
 
@@ -61,24 +62,24 @@ def _geometry(name):
 
 
 def _plans(name, dtype):
-    """The plans of the forward, every dgrad parity and the wgrad of a conv."""
+    """The plans of the forward, the dgrad and the wgrad of a conv."""
     ci, co, k, s, pads, out = _geometry(name)
-    plans = {"fwd": C.conv_plan("fwd", ci, co, k, s, out, dtype, BATCH),
-             "wgrad": C.conv_plan("wgrad", ci, co, k, s, out, dtype, BATCH)}
-    xp = C.padded_dims((PATH_CONVS[name][6],) * 3, pads)
-    for i, (_, e, n) in enumerate(C.dgrad_parities(k, s, xp)):
-        plans[f"dgrad{i}"] = C.conv_plan("fwd", co, ci, e, (1, 1, 1), n, dtype, BATCH)
-    return plans
+    n, pad_mode = PATH_CONVS[name][6], PATH_CONVS[name][5]
+    return {"fwd": C.conv_plan("fwd", ci, co, k, s, out, dtype, BATCH),
+            "dgrad": C.conv_plan("dgrad", ci, co, k, s, out, dtype, BATCH, in_dims=(n,) * 3,
+                                 pads=pads, pad_mode=pad_mode),
+            "wgrad": C.conv_plan("wgrad", ci, co, k, s, out, dtype, BATCH)}
 
 
 @pytest.mark.parametrize("name,launches", [("enc1.block1.conv", 8), ("enc1.shortcut", 1),
                                            ("disc.conv0", 8), ("dec0.block1.conv", 1)])
 def test_dgrad_parities(name, launches):
-    """K2's launches per conv: the 3^3 and 4^3 stride-2 convs 8 parities, a
-    1^3 stride-2 shortcut only the even one (chip_smoke.TRAIN_LAUNCHES)."""
+    """The stride parities with taps that K2's one launch computes: the 3^3
+    and 4^3 stride-2 convs 8, a 1^3 stride-2 shortcut only the even one (its
+    odd positions get zeros)."""
     _, _, k, s, pads, _ = _geometry(name)
     xp = C.padded_dims((PATH_CONVS[name][6],) * 3, pads)
-    parities = C.dgrad_parities(k, s, xp)
+    parities = [t for t in C.dgrad_launch_order(k, s, xp) if math.prod(t[1])]
     assert len(parities) == launches
     for p, e, n in parities:
         assert all(ee == len(range(pp, kk, ss)) and nn == len(range(pp, x, ss))
@@ -89,9 +90,11 @@ def _kernel_takes(plan):
     """What the C entry points accept for a plan (they return 1000 otherwise)."""
     if plan.route in ("f32", "thin"):
         return True
-    limit = C.FWD_MAX_CO_TILE if plan.op == "fwd" else C.WGRAD_MAX_CO_TILE
+    limit = {"fwd": C.FWD_MAX_CO_TILE, "dgrad": C.DGRAD_MAX_CI_TILE,
+             "wgrad": C.WGRAD_MAX_CO_TILE}[plan.op]
+    static = C.DGRAD_STATIC_SMEM if plan.op == "dgrad" else 0
     ok = (plan.co_tile % 8 == 0 and 8 <= plan.co_tile <= limit
-          and 0 < plan.smem_bytes <= C.MAX_SMEM)
+          and 0 < plan.smem_bytes and plan.smem_bytes + static <= C.MAX_SMEM)
     if plan.op == "wgrad":
         ok = ok and plan.tap_warps in (1, 2, 4, 8) and 1 <= plan.split <= 65535
     return ok
@@ -126,7 +129,7 @@ def test_bf16_path_shapes_take_a_route_the_kernel_takes(name):
         assert plan.route in ("mma", "thin"), (part, plan)
         assert _kernel_takes(plan), (part, plan)
         # K3 always runs on the tensor cores (deterministic), the forward
-        # only leaves them for Ci <= 3 (and K2's head parity, Ci' = 1)
+        # only leaves them for Ci <= 3 (and K2 for Co <= 3: the head)
         if part == "wgrad":
             assert plan.route == "mma"
         elif part == "fwd":

@@ -26,6 +26,8 @@ from vangan_torch.ops import morphology
 from vangan_torch.ops import skeleton as skel_ops
 from vangan_torch.ops.conv3d import conv3d, conv3d_plain, norm_padding, norm_stride
 
+from test_torch_conv3d_plan import PATH_CONVS  # noqa: E402  (a sibling module: the path's convs)
+
 pytestmark = pytest.mark.gpu
 
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
@@ -128,10 +130,10 @@ CONV_CASES = [
 @pytest.mark.parametrize("k,stride,padding,pad_mode,ci,co,bias,dims", CONV_CASES)
 def test_conv3d_grad_kernels_match_plain(cuda, dtype, k, stride, padding, pad_mode, ci, co,
                                          bias, dims):
-    """dx (the forward kernel per stride parity) and dW (conv3d_wgrad.cu)
-    through the autograd Function, against conv3d_dgrad_plain /
-    conv3d_wgrad_plain; dx rel 1e-4 (f32) / 2e-2 (bf16), dW 1e-3 / 2e-2:
-    dW sums over every voxel in another order."""
+    """dx (conv3d_dgrad.cu: one launch, and one fold launch for a reflect
+    pad) and dW (conv3d_wgrad.cu) through the autograd Function, against
+    conv3d_dgrad_plain / conv3d_wgrad_plain; dx rel 1e-4 (f32) / 2e-2 (bf16),
+    dW 1e-3 / 2e-2: dW sums over every voxel in another order."""
     g = torch.Generator().manual_seed(0)
     x = torch.randn(2, ci, *dims, generator=g).to(cuda, dtype).requires_grad_()
     w = (torch.randn(co, ci, *k, generator=g) * 0.3).to(cuda).requires_grad_()
@@ -140,13 +142,12 @@ def test_conv3d_grad_kernels_match_plain(cuda, dtype, k, stride, padding, pad_mo
     pads = norm_padding(padding, k, s, dims)
     y = conv3d(x, w, b, stride, padding, pad_mode)
     gy = torch.randn(y.shape, generator=g).to(cuda, dtype)
-    before = (conv_ops.dgrad_launches, conv_ops.wgrad_launches)
+    before = (conv_ops.dgrad_launches, conv_ops.dgrad_fold_launches, conv_ops.wgrad_launches)
     y.backward(gy)
     torch.cuda.synchronize()
-    n_parities = int(np.prod([sum(len(range(p, kk, ss)) > 0 for p in range(ss))
-                              for kk, ss in zip(k, s)]))
-    assert (conv_ops.dgrad_launches, conv_ops.wgrad_launches) == \
-        (before[0] + n_parities, before[1] + 1)
+    folds = int(pad_mode == "reflect" and any(lo or hi for lo, hi in pads))
+    assert (conv_ops.dgrad_launches, conv_ops.dgrad_fold_launches, conv_ops.wgrad_launches) == \
+        (before[0] + 1, before[1] + folds, before[2] + 1)
     dx = conv_ops.conv3d_dgrad_plain(gy, w.detach(), x.shape, s, pads, pad_mode)
     dw = conv_ops.conv3d_wgrad_plain(x.detach(), gy, w.shape, s, pads, pad_mode)
     assert x.grad.dtype == dtype and w.grad.dtype == torch.float32
@@ -301,3 +302,77 @@ def test_soft_skel_kernel_bit_exact(cuda, dims, iters):
         assert skel_ops.launches == before + iters + 1
         assert got.shape == want.shape == x.shape
         assert float((got - want).abs().max()) == 0.0
+
+
+# K2 at every kernel conv shape of the path (tests/test_torch_conv3d_plan.py),
+# batch 1: one launch per conv and a fold launch for a reflect pad
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name", sorted(PATH_CONVS))
+def test_conv3d_dgrad_at_path_shapes(cuda, dtype, name):
+    ci, co, k, stride, padding, pad_mode, n = PATH_CONVS[name]
+    k, s, dims = (k,) * 3, (stride,) * 3, (n,) * 3
+    pads = norm_padding(padding, k, s, dims)
+    out = [(d + lo + hi - kk) // ss + 1 for d, (lo, hi), kk, ss in zip(dims, pads, k, s)]
+    g = torch.Generator().manual_seed(9)
+    gy = torch.randn(1, co, *out, generator=g).to(cuda, dtype)
+    w = (torch.randn(co, ci, *k, generator=g) * 0.1).to(cuda)
+    plan = conv_ops.conv_plan("dgrad", ci, co, k, s, out, dtype, 1, in_dims=dims, pads=pads,
+                              pad_mode=pad_mode)
+    before = (conv_ops.dgrad_launches, conv_ops.dgrad_fold_launches)
+    with torch.inference_mode():
+        got = conv_ops.conv3d_dgrad(gy, w, (1, ci, *dims), s, pads, pad_mode)
+        want = conv_ops.conv3d_dgrad_plain(gy, w, (1, ci, *dims), s, pads, pad_mode)
+    torch.cuda.synchronize()
+    assert (conv_ops.dgrad_launches, conv_ops.dgrad_fold_launches) == \
+        (before[0] + 1, before[1] + plan.launches - 1)
+    assert got.shape == want.shape and got.dtype == dtype
+    assert _rel_err(got, want) <= TOL[dtype]
+
+
+def _in_backward(cuda, dtype, shape, act, seed=6):
+    g = torch.Generator().manual_seed(seed)
+    x = (torch.randn(*shape, generator=g) * 2 + 0.5).to(cuda, dtype)
+    gamma = (torch.randn(shape[1], generator=g) * 0.5 + 1).to(cuda)
+    beta = (torch.randn(shape[1], generator=g) * 0.2).to(cuda)
+    gy = torch.randn(*shape, generator=g).to(cuda, dtype)
+    with torch.inference_mode():
+        _, stats = in_ops._instance_norm_act_cuda(x, gamma, beta, 1e-3, act, 0.2)
+        got = in_ops._instance_norm_act_bwd_cuda(x, gy, stats, act, 0.2)
+        want = in_ops.instance_norm_act_bwd_plain(x, gy, gamma, beta, 1e-3, act, 0.2)
+    torch.cuda.synchronize()
+    return got, want
+
+
+# K5 on both sides of the small-plane threshold (8 * 256 * 4 bf16 elements
+# per plane), with several blocks per plane and a ragged last chunk, and on
+# planes that are not a multiple of 16 bytes
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,route", [
+    ((3, 5, 16, 16, 32), None),       # 8192 elements: the largest small bf16 plane
+    ((3, 5, 16, 16, 40), "split"),    # aligned, just past it: two passes
+    ((3, 5, 15, 17, 33), "split"),    # not a multiple of 16 bytes, past it
+    ((3, 7, 32, 32, 32), "split"),    # 2 blocks a plane, 21 planes
+    ((2, 3, 8, 31, 271), "split"),    # 5 blocks a plane, the last one shorter
+    ((2, 3, 5, 7, 9), "small"),       # small and not a multiple of 16 bytes
+])
+def test_instnorm_backward_plans_match_plain(cuda, dtype, shape, route):
+    n = int(np.prod(shape[2:]))
+    esize = 4 if dtype == torch.float32 else 2
+    plan = in_ops.bwd_plan(n, dtype, n * esize % 16 == 0)
+    if route is not None:
+        assert plan.route == route
+    before = in_ops.bwd_launches
+    for act in ("none", "relu"):
+        got, want = _in_backward(cuda, dtype, shape, act)
+        for a, b in zip(got, want):
+            assert _rel_err(a, b) <= TOL[dtype]
+    assert in_ops.bwd_launches == before + 2  # one call each
+
+
+@pytest.mark.parametrize("shape", [(3, 16, 16, 16, 16), (3, 16, 64, 64, 64), (2, 3, 5, 7, 9)])
+def test_instnorm_backward_is_deterministic(cuda, shape):
+    """The partial sums are added in a fixed order: two runs, the same bits."""
+    first, _ = _in_backward(cuda, torch.bfloat16, shape, "leaky_relu")
+    second, _ = _in_backward(cuda, torch.bfloat16, shape, "leaky_relu")
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)

@@ -37,13 +37,19 @@ _SIGNATURES = {
     # sz, px, py, pz, reflect, route, co_tile, tap_warps, split, ws_bytes,
     # stream
     "vg_conv3d_wgrad": [_P, _P, _P, _P] + [_I] * 24 + [ctypes.c_longlong, _P],
+    # g, w, dx, buf, dtype, B, Ci, Co, X, Y, Z, Xo, Yo, Zo, kx, ky, kz, sx,
+    # sy, sz, lx, ly, lz, hx, hy, hz, reflect, order, fold, route, ci_tile,
+    # shared_halo, smem_bytes, buf_bytes, stream
+    "vg_conv3d_dgrad": [_P, _P, _P, _P] + [_I] * 23 + [_P, _P] + [_I] * 4
+                       + [ctypes.c_longlong, _P],
     # x, gamma, beta, y, partial, ab, dtype, BC, C, N, nsplit, eps, act,
     # alpha, vec, stream
     "vg_instnorm_fwd": [_P] * 6 + [_I, _I, _I, ctypes.c_longlong, _I, ctypes.c_float,
                                    _I, ctypes.c_float, _I, _P],
-    # x, g, ab, partial, sums, dx, dtype, BC, N, nsplit, act, alpha, vec, stream
-    "vg_instnorm_bwd": [_P] * 6 + [_I, _I, ctypes.c_longlong, _I, _I, ctypes.c_float, _I,
-                                   _P],
+    # x, g, ab, partial, sums, dx, dtype, BC, N, route, vec, vpt, nsplit, act,
+    # alpha, stream
+    "vg_instnorm_bwd": [_P] * 6 + [_I, _I, ctypes.c_longlong] + [_I] * 5 + [ctypes.c_float,
+                                                                           _P],
     # img, skel_prev, skel_out, img_next, B, X, Y, Z, first, stream
     "vg_skeleton_round_fwd": [_P] * 4 + [_I] * 5 + [_P],
     # img, e, skel_prev, d_e_next, d_skel, d_img, d_skel_prev, d_e, d_v,

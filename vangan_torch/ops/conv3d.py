@@ -22,14 +22,17 @@ Where a gradient is needed the op is a ``torch.autograd.Function`` whose
 backward computes only what ``ctx.needs_input_grad`` asks for (the
 generators' stem convs read data or detached inputs and need no dx):
 
-- dx, ``conv3d_dgrad`` (the TPU kernel ``_conv_dgrad``): for each stride
-  parity p, a stride-1 launch of the forward kernel on the cotangent with the
-  flipped parity sub-kernel (taps d = s*e + p), Ci and Co swapped, zero-padded
-  by its extent - 1, in g's dtype with f32 accumulation, as the TPU kernel
-  runs its forward in g's dtype; the pieces interleave into the gradient of
-  the padded input and the pad folds back in plain torch
-  (``pad.pad3d_grad``, in f32 for a reflect pad), then dx is rounded to x's
-  dtype;
+- dx, ``conv3d_dgrad`` (the TPU kernel ``_conv_dgrad``):
+  ``csrc/conv3d_dgrad.cu``, one launch per conv for every stride parity p
+  (the transposed conv of the cotangent with the flipped parity sub-kernels,
+  taps d = s*e + p), f32 accumulation, dx written in place at the strided
+  positions s*o + p - lo in g's dtype, rounded once; a reflect pad's fold
+  (the pad positions and the interior positions they fold onto) goes
+  through a small f32 buffer and one fold launch, summed in
+  ``pad.pad3d_grad``'s order. ``conv_plan("dgrad", ...)`` fixes the body,
+  the Ci tile, the parity order and the fold, and the kernel runs the plan's
+  order and fold tables (``dgrad_tables``); ``dgrad_weights`` arranges
+  every parity's weights in one gather;
 - dW, ``conv3d_wgrad`` (the TPU kernel ``_conv_wgrad``):
   ``csrc/conv3d_wgrad.cu``, accumulated and returned in f32; on the
   tensor-core route bit-identical from run to run (split-K partial tiles
@@ -42,6 +45,8 @@ On a CPU tensor each of these runs its plain version (``conv3d_dgrad_plain``,
 
 from __future__ import annotations
 
+import ctypes
+import functools
 import itertools
 import math
 from dataclasses import dataclass
@@ -51,12 +56,13 @@ import torch
 import torch.nn.functional as F
 
 from vangan_torch.ops import build
-from vangan_torch.ops.pad import Pad3, pad3d, pad3d_grad
+from vangan_torch.ops.pad import Pad3, fold_positions, pad3d, pad3d_grad
 
 # kernel launches (chip_smoke.py reads and resets them)
-launches = 0        # conv3d forward
-dgrad_launches = 0  # forward-kernel launches made by conv3d_dgrad (one per stride parity)
-wgrad_launches = 0  # conv3d_wgrad
+launches = 0             # conv3d forward
+dgrad_launches = 0       # conv3d_dgrad (one per conv)
+dgrad_fold_launches = 0  # its reflect-pad fold (one per reflect conv)
+wgrad_launches = 0       # conv3d_wgrad
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 KMAX = 8  # largest kernel extent per axis the kernels take
@@ -70,9 +76,14 @@ MMA_WARPS = 8
 THIN_MAX_CI = 3         # forward: a bf16 conv with Ci <= 3 takes the CUDA-core body
 MMA_MAX_TAPS = 64
 FWD_MAX_CO_TILE = 64
+DGRAD_MAX_CI_TILE = 64
+DGRAD_MULTI_MAX_CI_TILE = 32  # a strided conv's parity loop spills registers above it
+MAX_PARITIES = 64       # stride parities (sx * sy * sz) the input gradient's launch takes
+MAX_FOLD_PAD = KMAX - 1  # widest reflect pad per side its fold takes
 WGRAD_MAX_CO_TILE = 32
 WGRAD_TAPS_PER_WARP = 4
 MAX_SMEM = 227 * 1024   # shared memory a block may use (H100)
+DGRAD_STATIC_SMEM = 656  # the input gradient's static shared memory (its Geo struct)
 SMS = 132
 WGRAD_TARGET_BLOCKS = 4 * SMS  # two waves of two resident blocks per SM
 WORKSPACE_CAP = 64 << 20       # bytes of the weight gradient's split-K workspace
@@ -86,11 +97,24 @@ class ConvPlan:
     (the CUDA-core body, float32 or bfloat16). The rest is the tensor-core
     route's tiling: a block owns a ``brick`` of output voxels (and, for the
     weight gradient, a 16-channel ``ci_chunk`` of Ci and a group of taps) and
-    a ``co_tile`` of Co (``co_tiles`` of them); the weight gradient splits
+    a ``co_tile`` of the GEMM's N, its output channels (Co; Ci for the input
+    gradient), ``co_tiles`` of them; the weight gradient splits
     the (sample, brick) pairs over ``split`` blocks and ``tap_warps`` warps
     share out the taps (the other warps split the voxels), writing
     ``workspace_bytes`` of f32 partial tiles. ``pad_share`` is the share of
     the issued MMA work that is padding (ragged bricks, Co tiles, Ci chunks).
+
+    The input gradient's plan also holds, on every route: ``parities``, each
+    stride parity as (p, sub-kernel extents, positions of the padded input
+    with that parity), in the order its one launch runs them (most taps
+    first; a parity with no taps writes zeros); ``fold``, per axis the
+    padded positions a reflect pad's fold reads (the pad positions and the
+    interior positions they fold onto; empty for a zero pad), whose f32
+    values go through a ``fold_bytes`` buffer; ``launches``, 1 plus 1
+    for the fold launch; and, on the tensor-core route, ``shared_halo``: a
+    block stages g's halo once for all its parities. ``smem_bytes`` is the
+    dynamic shared memory of a tensor-core launch (the input gradient's also
+    holds ``DGRAD_STATIC_SMEM`` of static).
     """
     op: str
     route: str
@@ -104,6 +128,11 @@ class ConvPlan:
     workspace_bytes: int = 0
     smem_bytes: int = 0
     pad_share: float = 0.0
+    parities: tuple = ()
+    fold: tuple = ((), (), ())
+    fold_bytes: int = 0
+    launches: int = 1
+    shared_halo: bool = False
 
     @property
     def workspace_slices(self) -> int:
@@ -126,22 +155,42 @@ def _co_tiling(co: int, max_tile: int) -> Tuple[int, int]:
 
 def conv_plan(op: str, ci: int, co: int, k: Sequence[int], stride: Sequence[int],
               out_dims: Sequence[int], dtype: torch.dtype, batch: int = 1,
-              thin_max_ci: int = THIN_MAX_CI) -> ConvPlan:
+              thin_max_ci: int = THIN_MAX_CI,
+              in_dims: Optional[Sequence[int]] = None, pads: Optional[Pad3] = None,
+              pad_mode: str = "zeros") -> ConvPlan:
     """The kernel body and tiles for one conv launch.
 
-    ``op`` is ``"fwd"`` (K1, and each stride-parity launch of K2 with its
-    sub-kernel and Ci, Co swapped) or ``"wgrad"`` (K3); ``out_dims`` the
-    output's (Xo, Yo, Zo). float32 always takes the CUDA-core route. bfloat16
-    takes the tensor-core route unless the shape has more than 64 taps, its
-    tiles do not fit in shared memory, or (forward) Ci <= ``thin_max_ci``,
-    where a 16-channel k-step would be mostly padding: those take the
-    CUDA-core body (``"thin"``).
+    ``op`` is ``"fwd"`` (K1), ``"dgrad"`` (K2; it also needs the input's
+    ``in_dims``, ``pads`` and ``pad_mode``) or ``"wgrad"`` (K3); ``ci``, ``co``
+    are the conv's channels and ``out_dims`` the output's (Xo, Yo, Zo).
+    float32 always takes the CUDA-core route. bfloat16 takes the tensor-core
+    route unless the shape has more than 64 taps (for K2: a parity
+    sub-kernel), its tiles do not fit in shared memory, or the GEMM's
+    16-channel k-step would be mostly padding (the forward's Ci, the input
+    gradient's Co <= ``thin_max_ci``): those take the CUDA-core body
+    (``"thin"``). The N tile is at most 64 for the forward and a
+    unit-stride input gradient, 32 for a strided input gradient (its parity
+    loop spills registers above it) and the weight gradient. What no body
+    takes raises ValueError.
     """
-    if op not in ("fwd", "wgrad"):
+    return _conv_plan(op, int(ci), int(co), tuple(k), tuple(stride), tuple(out_dims), dtype,
+                      int(batch), thin_max_ci,
+                      None if in_dims is None else tuple(in_dims),
+                      None if pads is None else tuple(tuple(p) for p in pads), pad_mode)
+
+
+@functools.lru_cache(maxsize=1024)
+def _conv_plan(op, ci, co, k, stride, out_dims, dtype, batch, thin_max_ci, in_dims, pads,
+               pad_mode) -> ConvPlan:
+    """``conv_plan`` on hashable arguments, cached: a wrapper asks for the
+    same few plans every step."""
+    if op not in ("fwd", "dgrad", "wgrad"):
         raise ValueError(f"conv_plan: op {op!r}")
     if dtype not in _DTYPES:
         raise TypeError(f"conv_plan: no kernel for {dtype}")
-    k, stride = tuple(k), tuple(stride)
+    if op == "dgrad":
+        return _dgrad_plan(ci, co, k, stride, out_dims, dtype, batch, thin_max_ci, in_dims,
+                           pads, pad_mode)
     taps = math.prod(k)
     if dtype == torch.float32:
         return ConvPlan(op, "f32")
@@ -179,6 +228,132 @@ def conv_plan(op: str, ci: int, co: int, k: Sequence[int], stride: Sequence[int]
                     workspace_bytes=split * per_split, **common)
 
 
+def _dgrad_plan(ci, co, k, stride, g_dims, dtype, batch, thin_max_ci, in_dims, pads,
+                pad_mode) -> ConvPlan:
+    """``conv_plan("dgrad", ...)``: the input gradient's one launch (plus its
+    fold) for x (batch, ci, *in_dims) padded by ``pads`` and g (batch, co,
+    *g_dims). The kernel takes its parity order and fold tables
+    (``dgrad_tables``) and refuses a ``smem_bytes`` other than its own."""
+    if in_dims is None or pads is None:
+        raise ValueError("conv_plan('dgrad') needs in_dims and pads")
+    if pad_mode not in ("zeros", "reflect"):
+        raise ValueError(f"conv_plan('dgrad'): pad_mode {pad_mode!r}")
+    xp = padded_dims(in_dims, pads)
+    if any(n != (xx - kk) // s + 1 for n, xx, kk, s in zip(g_dims, xp, k, stride)):
+        raise ValueError(f"conv_plan('dgrad'): g dims {tuple(g_dims)} do not match the padded "
+                         f"input {xp}")
+    order = tuple(dgrad_launch_order(k, stride, xp))
+    if len(order) > MAX_PARITIES:
+        raise ValueError(f"conv_plan('dgrad'): {len(order)} stride parities, the kernel takes "
+                         f"{MAX_PARITIES}")
+    fold, fold_bytes = ((), (), ()), 0
+    if pad_mode == "reflect" and any(lo or hi for lo, hi in pads):
+        if max(max(p) for p in pads) > MAX_FOLD_PAD:
+            raise ValueError(f"conv_plan('dgrad'): reflect pads {pads} wider than "
+                             f"{MAX_FOLD_PAD}")
+        fold = tuple(fold_positions(n, lo, hi) for n, (lo, hi) in zip(in_dims, pads))
+        (X, Y, Z), (nx, ny, nz) = xp, (len(f) for f in fold)
+        fold_bytes = batch * ci * (nx * Y * Z + X * ny * Z + X * Y * nz) * 4
+    common = dict(parities=order, fold=fold, fold_bytes=fold_bytes,
+                  launches=1 + bool(fold_bytes))
+    live = [(e, n) for _, e, n in order if math.prod(e) > 0]
+    order_by_p = {p: e for p, e, _ in order}
+    order_by_p_dims = next(n for p, _, n in order if p == (0, 0, 0))  # the brick grid
+    taps_max = max(math.prod(e) for e, _ in live)
+    if dtype == torch.float32:
+        return ConvPlan("dgrad", "f32", **common)
+    if taps_max > MMA_MAX_TAPS or co <= thin_max_ci:
+        return ConvPlan("dgrad", "thin", **common)
+    # shared memory: one parity's weights of a chunk, and g's halo: every
+    # chunk's for parity 0 (the largest sub-kernel on every axis), staged once
+    # per block for all the parities, where that fits two blocks on an SM;
+    # else one chunk's, staged per parity
+    halo0 = _halo_voxels(order_by_p[(0, 0, 0)], (1, 1, 1)) * 32
+    chunks = -(-co // CI_CHUNK)
+    tile_cap = DGRAD_MAX_CI_TILE if len(order) == 1 else DGRAD_MULTI_MAX_CI_TILE
+    while tile_cap >= 8:
+        ci_tile, ci_tiles = _co_tiling(ci, tile_cap)
+        w_bytes = taps_max * ci_tile * 32
+        shared = len(live) > 1 and \
+            w_bytes + chunks * halo0 + DGRAD_STATIC_SMEM <= MAX_SMEM // 2
+        smem = w_bytes + (chunks if shared else 1) * halo0
+        if smem + DGRAD_STATIC_SMEM <= MAX_SMEM:
+            break
+        tile_cap -= 8
+    else:
+        return ConvPlan("dgrad", "thin", **common)
+    bricks = batch * math.prod(-(-n // b) for n, b in zip(order_by_p_dims, BRICK))
+    useful = sum(batch * math.prod(n) * math.prod(e) for e, n in live) * ci * co
+    issued = bricks * math.prod(BRICK) * sum(math.prod(e) for e, _ in live) \
+        * ci_tiles * ci_tile * chunks * CI_CHUNK
+    return ConvPlan("dgrad", "mma", co_tile=ci_tile, co_tiles=ci_tiles, smem_bytes=smem,
+                    pad_share=1.0 - useful / issued, shared_halo=shared, **common)
+
+
+def dgrad_launch_order(k: Sequence[int], stride: Sequence[int], padded: Sequence[int]) -> list:
+    """Every stride parity of the input gradient, empty ones included, as
+    (p, sub-kernel extents, positions of the padded input with that parity),
+    most taps first (ties in product order): the order of the kernel's grid,
+    so the longest blocks start first."""
+    per_axis = [[(p, len(range(p, kk, s)), -(-(n - p) // s)) for p in range(s)]
+                for kk, s, n in zip(k, stride, padded)]
+    every = [(tuple(a[0] for a in par), tuple(a[1] for a in par), tuple(a[2] for a in par))
+             for par in itertools.product(*per_axis)]
+    return sorted(every, key=lambda t: -math.prod(t[1]))
+
+
+@functools.lru_cache(maxsize=256)
+def dgrad_tables(plan: ConvPlan, stride: Tuple[int, int, int]) -> Tuple[ctypes.Array,
+                                                                        ctypes.Array]:
+    """The input gradient plan's geometry as the C entry takes it: the parity
+    order (each parity's product index (px * sy + py) * sz + pz, in launch
+    order) and the fold table (per axis the number of fold positions, then
+    the positions of x, y and z)."""
+    sx, sy, sz = stride
+    order = [(px * sy + py) * sz + pz for (px, py, pz), _, _ in plan.parities]
+    fold = [len(f) for f in plan.fold] + [p for f in plan.fold for p in f]
+    return (ctypes.c_int * len(order))(*order), (ctypes.c_int * len(fold))(*fold)
+
+
+def _mma_layout(w: torch.Tensor, n_tile: int, fill=0) -> torch.Tensor:
+    """(N, K channels, kx, ky, kz) as [K chunk][N tile][tap][n_tile][16],
+    padded with ``fill`` in K and N: the tensor-core weight layout."""
+    n, kch = w.shape[:2]
+    taps = math.prod(w.shape[2:])
+    chunks, tiles = -(-kch // CI_CHUNK), -(-n // n_tile)
+    wp = F.pad(w.reshape(n, kch, taps), (0, 0, 0, chunks * CI_CHUNK - kch, 0, tiles * n_tile - n),
+               value=fill)
+    return wp.reshape(tiles, n_tile, chunks, CI_CHUNK, taps).permute(2, 0, 4, 1, 3).contiguous()
+
+
+@functools.lru_cache(maxsize=256)
+def _dgrad_weight_index(w_shape, stride, ci_tile, device) -> torch.Tensor:
+    """Where each element of ``dgrad_weights``' buffer comes from in the flat
+    weight (its size for a padding zero)."""
+    n = math.prod(w_shape)
+    ids = torch.arange(n, dtype=torch.int64).reshape(w_shape)
+    sx, sy, sz = stride
+    parts = []
+    for px, py, pz in itertools.product(range(sx), range(sy), range(sz)):
+        sub = ids[:, :, px::sx, py::sy, pz::sz]
+        if sub.numel():
+            parts.append(_mma_layout(sub.flip((2, 3, 4)).transpose(0, 1), ci_tile, n).reshape(-1))
+    return torch.cat(parts).to(device)
+
+
+def dgrad_weights(w: torch.Tensor, stride: Sequence[int], ci_tile: int,
+                  dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    """The tensor-core input gradient's weights, every parity's in one flat
+    buffer (bfloat16 for the kernel): for each stride parity p with taps, in
+    product order, the flipped sub-kernel
+    ``w[:, :, px::sx, py::sy, pz::sz].flip(2, 3, 4)`` with Ci and Co
+    swapped, in ``mma_weights``' layout ([Co chunk][Ci tile][tap][ci_tile]
+    [16], zero-padded), one after the other. One gather per call (its index
+    cached per shape); runs on any device."""
+    idx = _dgrad_weight_index(tuple(w.shape), tuple(stride), ci_tile, w.device)
+    return F.pad(w.detach().reshape(-1).to(dtype), (0, 1))[idx]
+
+
 def wgrad_workspace_shape(plan: ConvPlan, w_shape: Sequence[int]) -> Tuple[int, int, int]:
     """(slices, Co, Ci * taps): the f32 partial tiles of a tensor-core K3."""
     co, ci = w_shape[:2]
@@ -189,13 +364,7 @@ def mma_weights(w: torch.Tensor, co_tile: int) -> torch.Tensor:
     """The forward's tensor-core weights: (Co, Ci, kx, ky, kz) rearranged as
     [Ci chunk][Co tile][tap][co_tile][16] bfloat16, zero-padded in Ci and Co,
     so each block stages a chunk with 16-byte copies."""
-    co, ci = w.shape[:2]
-    taps = math.prod(w.shape[2:])
-    chunks, co_tiles = -(-ci // CI_CHUNK), -(-co // co_tile)
-    wp = F.pad(w.to(torch.bfloat16).reshape(co, ci, taps),
-               (0, 0, 0, chunks * CI_CHUNK - ci, 0, co_tiles * co_tile - co))
-    return wp.reshape(co_tiles, co_tile, chunks, CI_CHUNK, taps).permute(2, 0, 4, 1, 3) \
-        .contiguous()
+    return _mma_layout(w.to(torch.bfloat16), co_tile)
 
 
 def norm_stride(stride: Union[int, Sequence[int]]) -> Tuple[int, int, int]:
@@ -269,8 +438,9 @@ def conv3d(x: torch.Tensor, w: torch.Tensor, bias: Optional[torch.Tensor] = None
 def conv3d_dgrad(g: torch.Tensor, w: torch.Tensor, x_shape: Sequence[int],
                  stride: Sequence[int], pads: Pad3, pad_mode: str) -> torch.Tensor:
     """dL/dx (in g's dtype) of the conv of an input of ``x_shape`` for the
-    cotangent ``g``: the forward kernel per stride parity on a CUDA tensor,
-    ``conv3d_dgrad_plain`` on a CPU tensor."""
+    cotangent ``g``: ``csrc/conv3d_dgrad.cu`` on a CUDA tensor (one launch,
+    and one fold launch for a reflect pad), ``conv3d_dgrad_plain`` on a CPU
+    tensor."""
     if g.device.type == "cpu":
         return conv3d_dgrad_plain(g, w, x_shape, stride, pads, pad_mode)
     return _conv3d_dgrad_cuda(g, w, x_shape, stride, pads, pad_mode)
@@ -356,38 +526,34 @@ def _launch_fwd(x, w, bias, stride, lo_pads, reflect, out_dims, name, plan=None)
 
 
 def _conv3d_dgrad_cuda(g, w, x_shape, stride, pads, pad_mode):
-    global dgrad_launches
+    global dgrad_launches, dgrad_fold_launches
     _check_cuda(g, w.shape, "conv3d_dgrad")
-    g = g.contiguous()
     b, ci = x_shape[:2]
-    xp = padded_dims(x_shape[2:], pads)
-    unit = all(s == 1 for s in stride)
-    # the pieces interleave in g's dtype; the reflect fold-back adds in f32
-    acc = g.dtype if pad_mode == "zeros" else torch.float32
-    dxp = None if unit else torch.zeros((b, ci, *xp), dtype=acc, device=g.device)
-    sx, sy, sz = stride
-    for (px, py, pz), extents, out_dims in dgrad_parities(w.shape[2:], stride, xp):
-        wsub = w[:, :, px::sx, py::sy, pz::sz].flip((2, 3, 4)).transpose(0, 1)
-        piece = _launch_fwd(g, wsub, None, (1, 1, 1), [e - 1 for e in extents], False,
-                            out_dims, "conv3d_dgrad")
-        dgrad_launches += 1
-        if unit:
-            dxp = piece.to(acc)
-        else:
-            dxp[:, :, px::sx, py::sy, pz::sz] = piece
-    return pad3d_grad(dxp, pads, pad_mode).to(g.dtype)
-
-
-def dgrad_parities(k: Sequence[int], stride: Sequence[int], padded: Sequence[int]) -> list:
-    """The forward-kernel launches of ``conv3d_dgrad`` on a CUDA tensor, one
-    per non-empty stride parity p (per axis, taps d = s*e + p of the kernel):
-    ((px, py, pz), sub-kernel extents, output dims = the padded input's
-    positions with that parity). An empty parity (a 1^3 stride-2 shortcut's
-    odd positions) gets no gradient and no launch."""
-    per_axis = [[(p, len(range(p, kk, s)), -(-(n - p) // s)) for p in range(s)]
-                for kk, s, n in zip(k, stride, padded)]
-    return [(tuple(a[0] for a in par), tuple(a[1] for a in par), tuple(a[2] for a in par))
-            for par in itertools.product(*per_axis) if min(min(a[1:]) for a in par) > 0]
+    co, k = w.shape[0], tuple(w.shape[2:])
+    if tuple(g.shape[:2]) != (b, co) or w.shape[1] != ci or len(x_shape) != 5:
+        raise ValueError(f"conv3d_dgrad: shapes g {tuple(g.shape)}, w {tuple(w.shape)}, "
+                         f"x {tuple(x_shape)}")
+    g = g.contiguous()
+    plan = conv_plan("dgrad", ci, co, k, stride, g.shape[2:], g.dtype, b, in_dims=x_shape[2:],
+                     pads=pads, pad_mode=pad_mode)
+    order, fold = dgrad_tables(plan, tuple(stride))
+    w = w.detach().to(g.device)
+    w = dgrad_weights(w, stride, plan.co_tile) if plan.route == "mma" else \
+        w.to(g.dtype).contiguous()
+    dx = torch.empty(tuple(x_shape), dtype=g.dtype, device=g.device)
+    buf = torch.empty(plan.fold_bytes // 4, dtype=torch.float32, device=g.device) \
+        if plan.fold_bytes else None
+    with torch.cuda.device(g.device):
+        status = build.library().vg_conv3d_dgrad(
+            g.data_ptr(), w.data_ptr(), dx.data_ptr(), None if buf is None else buf.data_ptr(),
+            _DTYPES[g.dtype], b, ci, co, *x_shape[2:], *g.shape[2:], *k, *stride,
+            *[lo for lo, _ in pads], *[hi for _, hi in pads], int(pad_mode == "reflect"), order,
+            fold, ROUTES[plan.route], plan.co_tile, int(plan.shared_halo), plan.smem_bytes,
+            plan.fold_bytes, torch.cuda.current_stream(g.device).cuda_stream)
+    build.check(status, "conv3d_dgrad")
+    dgrad_launches += 1
+    dgrad_fold_launches += plan.launches - 1
+    return dx
 
 
 def _conv3d_wgrad_cuda(x, g, w_shape, stride, pads, pad_mode):

@@ -13,12 +13,16 @@ Where a gradient is needed the op is a ``torch.autograd.Function``: the
 forward keeps (mean, a, beta, inv) per (b, c), and the backward launches
 ``csrc/instnorm_bwd.cu`` (the TPU kernels ``bwd_reduce_sums`` and ``bwd_dx``)
 for dx, with dgamma and dbeta the plain sums over b of its per-(b, c) sums;
-on a CPU tensor it runs ``instance_norm_act_bwd_plain``.
+on a CPU tensor it runs ``instance_norm_act_bwd_plain``. ``bwd_plan`` (pure
+Python) says how the backward runs a shape: one block per small plane, or a
+reduce pass and a dx pass over every plane.
 """
 
 from __future__ import annotations
 
+import functools
 import math
+from dataclasses import dataclass
 
 import torch
 
@@ -26,11 +30,50 @@ from vangan_torch.ops import build
 
 # kernel launches (chip_smoke.py reads and resets them)
 launches = 0      # instance_norm_act forward calls
-bwd_launches = 0  # backward calls (one reduce, one dx pass each)
+bwd_launches = 0  # backward calls (bwd_plan(...).launches kernel launches each)
 
 ACTS = {"none": 0, "relu": 1, "leaky_relu": 2}
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_ELEMS_PER_BLOCK = 16384  # pass 1 / pass 3 work per block along a (b, c) plane
+_ELEMS_PER_BLOCK = 16384  # reduce / dx work per block along a (b, c) plane
+
+# the backward's plan (csrc/instnorm_bwd.cu)
+BWD_THREADS = 256
+BWD_SMALL_VECS = 4             # 16-byte vectors per thread and tensor a small plane's block holds
+BWD_MAX_SPLIT = BWD_THREADS    # a dx block adds its plane's partials, one per thread
+
+
+@dataclass(frozen=True)
+class BwdPlan:
+    """How the backward kernel runs one shape (``bwd_plan``).
+
+    ``route``: ``"small"``, one block per (b, c) plane holding x and g in
+    registers (``vpt`` vectors of ``vec`` elements per thread and tensor),
+    one launch; or ``"split"``, a reduce launch and a dx launch of
+    ``nsplit`` blocks per plane over every plane. ``vec`` is 1 for planes
+    that are not 16-byte aligned. ``launches`` is the kernel launches of one
+    call.
+    """
+    route: str
+    vec: int
+    vpt: int = 0
+    nsplit: int = 0
+    launches: int = 1
+
+
+@functools.lru_cache(maxsize=1024)
+def bwd_plan(n: int, dtype: torch.dtype, aligned: bool = True) -> BwdPlan:
+    """The backward's route for planes of ``n`` elements: planes of up to
+    ``BWD_SMALL_VECS`` vectors per thread (the 16^3 and 8^3 levels in bf16)
+    take one block each; larger ones take two passes of ``nsplit`` blocks
+    per plane."""
+    if dtype not in _DTYPES:
+        raise TypeError(f"bwd_plan: no kernel for {dtype}")
+    esize = torch.empty((), dtype=dtype).element_size()
+    vec = 16 // esize if aligned else 1
+    per_thread = -(-n // (vec * BWD_THREADS))
+    if per_thread <= BWD_SMALL_VECS:
+        return BwdPlan("small", vec, vpt=1 << (per_thread - 1).bit_length())
+    return BwdPlan("split", vec, nsplit=_nsplit(n), launches=2)
 
 
 def instance_norm_act_plain(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
@@ -157,20 +200,24 @@ def _instance_norm_act_cuda(x, gamma, beta, eps, act, alpha):
 
 
 def _instance_norm_act_bwd_cuda(x, g, stats, act, alpha):
-    """(dx, dgamma, dbeta) from the backward kernels."""
+    """(dx, dgamma, dbeta) from the backward kernel on ``bwd_plan``'s route."""
     global bwd_launches
     g = g.to(x.dtype).contiguous()
     b, c = x.shape[:2]
     n = math.prod(x.shape[2:])
-    nsplit = _nsplit(n)
     dx = torch.empty_like(x)
-    partial = torch.empty(b * c * nsplit * 2, dtype=torch.float32, device=x.device)
+    plan = bwd_plan(n, x.dtype, bool(_vec(n, x, g, dx)))
+    partial = torch.empty(b * c * plan.nsplit * 2, dtype=torch.float32, device=x.device) \
+        if plan.route == "split" else None
     sums = torch.empty((b, c, 2), dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
         status = build.library().vg_instnorm_bwd(
-            x.data_ptr(), g.data_ptr(), stats.data_ptr(), partial.data_ptr(), sums.data_ptr(),
-            dx.data_ptr(), _DTYPES[x.dtype], b * c, n, nsplit, ACTS[act], float(alpha),
-            _vec(n, x, g, dx), torch.cuda.current_stream(x.device).cuda_stream)
+            x.data_ptr(), g.data_ptr(), stats.data_ptr(),
+            None if partial is None else partial.data_ptr(), sums.data_ptr(), dx.data_ptr(),
+            _DTYPES[x.dtype], b * c, n, int(plan.route == "split"), int(plan.vec > 1),
+            plan.vpt, plan.nsplit, ACTS[act], float(alpha),
+            torch.cuda.current_stream(x.device).cuda_stream)
     build.check(status, "instance_norm_act backward")
     bwd_launches += 1
-    return dx, sums[..., 1].sum(dim=0), sums[..., 0].sum(dim=0)
+    per_c = sums.sum(dim=0)  # (C, 2): one reduction for dbeta and dgamma
+    return dx, per_c[:, 1], per_c[:, 0]

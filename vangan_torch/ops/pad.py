@@ -30,6 +30,28 @@ def reflect_index(n: int, lo: int, hi: int, device=None) -> torch.Tensor:
     return torch.where(i < n, i, period - i)
 
 
+def _reflect(i: int, n: int) -> int:
+    """``reflect_index``'s rule for one position i (of -lo .. n + hi - 1)."""
+    if n == 1:
+        return 0
+    period = 2 * (n - 1)
+    i %= period
+    return i if i < n else period - i
+
+
+def fold_targets(n: int, lo: int, hi: int) -> Tuple[int, ...]:
+    """The interior positions (unpadded, sorted) a reflect pad folds onto."""
+    pads = (*range(lo), *range(lo + n, lo + n + hi))
+    return tuple(sorted({_reflect(p - lo, n) for p in pads}))
+
+
+def fold_positions(n: int, lo: int, hi: int) -> Tuple[int, ...]:
+    """The padded positions (sorted) that a reflect pad's fold reads: the pad
+    positions and the interior positions they fold onto."""
+    pads = (*range(lo), *range(lo + n, lo + n + hi))
+    return tuple(sorted(set(pads) | {t + lo for t in fold_targets(n, lo, hi)}))
+
+
 def pad3d(x: torch.Tensor, pads: Sequence[Tuple[int, int]], mode: str = "zeros") -> torch.Tensor:
     """Pad the last three axes of ``x`` by ``pads`` ((lo, hi) per axis),
     ``mode`` 'zeros' or 'reflect'."""
