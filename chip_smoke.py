@@ -25,17 +25,23 @@ Phases, each of which raises on failure:
    tensor-core body, the evidence for that choice;
 3. the InstanceNorm kernels against their plain versions at every (C, size)
    of the two networks (28 and 4 norms), batch 3, for each activation: the
-   forward (K4) and the backward (K5: dx, dgamma, dbeta against autograd of
-   instance_norm_act_plain), with the same tolerances and timing; each row
-   names K5's plan (``bwd_plan``), the bf16 K5 must give bit-identical sums
-   and dx in two runs, and the act='none' rows time
-   aten.native_batch_norm_backward on the same inputs as K5's yardstick;
+   forward (K4, one kernel launch per call on the route of ``fwd_plan``:
+   small, a cluster of up to 16 blocks, or stream) and the backward (K5:
+   dx, dgamma, dbeta against autograd of instance_norm_act_plain), with the
+   same tolerances and timing; each row names K4's and K5's plans
+   (``fwd_plan``, ``bwd_plan``), the bf16 K4 must give bit-identical y and
+   stats and the bf16 K5 bit-identical sums and dx in two runs, K4's kernel
+   launches (as its C entry counts them) must be one per call, and the
+   act='none' rows time aten.native_batch_norm_backward on the same inputs
+   as K5's yardstick;
 4. the soft-skeleton kernels against their plain version (morphology) at the
    step's shape, 3 x 128^3, 15 iterations: the forward (K6) on the min-max
    normalised tanh of seeded noise and on a binary volume touching every
    face, bit-exact (max |diff| == 0); the backward (K7) on seeded continuous
    data with distinct values against autograd of morphology.soft_skel, max
-   |diff| <= 1e-5 * max |g|; CUDA event times (median of 5);
+   |diff| <= 1e-5 * max |g|, with one kernel launch per round, and on both
+   inputs against its gather in torch (``skeleton.round_bwd_plain``) round by
+   round, max |diff| == 0; CUDA event times (median of 5);
 5. gen_IS (f=16, 4 levels) on a batch of 8 x 128^3 from seeded weights: one
    bf16 call must launch the conv kernel 17 times and the IN kernel 28 times;
    in f32 the kernel path must match the plain path (max |diff| <= 1e-3 on
@@ -58,8 +64,10 @@ Phases, each of which raises on failure:
    plain-path stitches of the same input;
 8. the training path: ``VanGan.distributed_train_step`` at full width (four
    networks from seeded init, the seeded batch of phase 6, noise sigma 0.1,
-   dropout on, bf16): one step must launch every kernel an exact count (see
-   ``TRAIN_LAUNCHES``), give ten finite losses, and leave every network's
+   dropout on, bf16): one step must call every kernel an exact count (see
+   ``TRAIN_LAUNCHES``) and launch K4 and K7 an exact count of kernels, as
+   their C entries count them (``TRAIN_KERNEL_LAUNCHES``), give ten finite
+   losses, and leave every network's
    parameters finite and changed; from the same weights and noise seed, on
    the batch's first sample (the f32 plain path does not fit in 80 GB at
    batch 3): in f32 each loss of the kernel path within 1e-3 relative of the
@@ -73,7 +81,8 @@ Phases, each of which raises on failure:
    warm-up step, and peak device memory.
 
 Then one JSON line of the seven kernels (launches counted in one train step
-of phase 8, the path that runs them all; ms, plain ms, library ms and the
+of phase 8, the path that runs them all, and for K4 and K7 the kernel
+launches beside the calls; ms, plain ms, library ms and the
 bound summed over the convs / norms of one gen_IS and one disc_I call at
 batch 3 (phases 2-3), one 3 x 128^3 skeleton for soft_skel) and,
 last, the ok line. Without CUDA, or outside the repository, it exits
@@ -131,6 +140,10 @@ TRAIN_LAUNCHES = {
     "soft_skel_fwd": 2 * (SKEL_ITERS + 1),
     "soft_skel_bwd": SKEL_ITERS + 1,
 }
+# kernel launches of one train step, as the C entries of K4 and K7 count
+# them: K4 one per call, K7 one per round
+TRAIN_KERNEL_LAUNCHES = {"instnorm_fwd": TRAIN_LAUNCHES["instnorm_fwd"],
+                         "soft_skel_bwd": TRAIN_LAUNCHES["soft_skel_bwd"]}
 
 
 def require(cond, msg):
@@ -345,12 +358,29 @@ def check_instnorms(net, shapes, expected, tol):
                 with torch.inference_mode():
                     kern = lambda: I.instance_norm_act(x, gamma, beta, 1e-3, act)  # noqa: E731
                     plain = lambda: I.instance_norm_act_plain(x, gamma, beta, 1e-3, act)  # noqa: E731
+                    kernels0 = I.fwd_kernel_launches
                     got, want = kern(), plain()
                     torch.cuda.synchronize()
+                    # the plans the wrappers run: planes 16-byte aligned or not
+                    aligned = math.prod(dims) * x.element_size() % 16 == 0
+                    plan_f = I.fwd_plan(math.prod(dims), dtype, aligned)
+                    row[f"fwd_{tag}_plan"] = dict(vars(plan_f))
+                    row[f"fwd_{tag}_kernel_launches"] = I.fwd_kernel_launches - kernels0
+                    require(row[f"fwd_{tag}_kernel_launches"] == plan_f.launches == 1,
+                            f"IN C={c} {dims} {dtype}: {row[f'fwd_{tag}_kernel_launches']} "
+                            "kernel launches in one forward call")
                     abs_err, rel = errs(got, want)
                     require(rel <= tol[dtype], f"IN C={c} {dims} {act} {dtype}: "
                             f"rel err {rel:.3e}")
                     row[f"fwd_{tag}_abs_err"], row[f"fwd_{tag}_rel_err"] = abs_err, rel
+                    if dtype == torch.bfloat16:
+                        # the cluster's partials merge in rank order: the same bits every run
+                        y1, s1 = I._instance_norm_act_cuda(x, gamma, beta, 1e-3, act, 0.2)
+                        y2, s2 = I._instance_norm_act_cuda(x, gamma, beta, 1e-3, act, 0.2)
+                        require(torch.equal(y1, y2) and torch.equal(s1, s2) and
+                                torch.equal(y1, got), f"IN C={c} {dims} {act}: the forward "
+                                "differs between two runs")
+                        row["fwd_bf16_bit_identical"] = True
                     row[f"fwd_{tag}_ms"], row[f"fwd_{tag}_plain_ms"] = cuda_ms(kern), cuda_ms(plain)
                     row[f"fwd_{tag}_library_ms"] = cuda_ms(
                         lambda: F.instance_norm(x, weight=gamma.to(dtype),
@@ -360,7 +390,7 @@ def check_instnorms(net, shapes, expected, tol):
                     plain_b = lambda: I.instance_norm_act_bwd_plain(x, gy, gamma, beta, 1e-3,  # noqa: E731
                                                                     act)
                     got_b = kern_b()
-                    plan_b = I.bwd_plan(math.prod(dims), dtype)
+                    plan_b = I.bwd_plan(math.prod(dims), dtype, aligned)
                     row[f"bwd_{tag}_plan"] = dict(vars(plan_b))
                     if dtype == torch.bfloat16:
                         # the partial sums are added in a fixed order: the same bits every run
@@ -481,7 +511,12 @@ def check_skeleton(skel_ops):
     x = (torch.randperm(n_vox, device=DEVICE, generator=g).float() / n_vox).reshape(shape)
     gy = torch.randn(shape, device=DEVICE, generator=g)
     xk, xp = x.clone().requires_grad_(), x.clone().requires_grad_()
+    kernels0 = skel_ops.bwd_kernel_launches
     skel_ops.soft_skel(xk, SKEL_ITERS).backward(gy)
+    torch.cuda.synchronize()
+    res["bwd_kernel_launches"] = skel_ops.bwd_kernel_launches - kernels0
+    require(res["bwd_kernel_launches"] == rounds, f"soft_skel backward: "
+            f"{res['bwd_kernel_launches']} kernel launches for {rounds} rounds")
     ref_out = morphology.soft_skel(xp, SKEL_ITERS)
     (ref,) = torch.autograd.grad(ref_out, xp, gy, retain_graph=True)
     torch.cuda.synchronize()
@@ -494,6 +529,23 @@ def check_skeleton(skel_ops):
     res["bwd_plain_ms"] = cuda_ms(lambda: torch.autograd.grad(ref_out, xp, gy,
                                                               retain_graph=True))
     del imgs, skels, ref_out
+    # K7 against its gather in torch, round by round from the same kept
+    # volumes (the same tie rule, the same sums in the same order), on both
+    # inputs: on the binary one autograd routes ties otherwise
+    with torch.inference_mode():
+        for tag, v in (("distinct", x), ("binary_faces", vessels)):
+            _, imgs, skels = skel_ops._soft_skel_cuda(v, SKEL_ITERS, keep=True)
+            got = skel_ops._soft_skel_bwd_cuda(imgs, skels, gy, shape)[..., 0]
+            d_skel, d_img = gy[..., 0], None
+            for t in reversed(range(rounds)):
+                d_img, d_skel = skel_ops.round_bwd_plain(
+                    imgs[t], imgs[t + 1], skels[t - 1] if t else None, d_img, d_skel)
+            torch.cuda.synchronize()
+            gap = float((got - d_img).abs().max())
+            require(gap == 0.0, f"soft_skel backward kernel vs its gather on {tag}: max "
+                    f"|diff| {gap:.3e}")
+            res[f"bwd_{tag}_vs_gather_max_abs_err"] = gap
+            del imgs, skels, got, d_img, d_skel
     print("soft_skel", json.dumps(res))
     return res
 
@@ -690,12 +742,18 @@ def counters(ops):
             "soft_skel_bwd": skel_ops.bwd_launches}
 
 
+def kernel_counters(ops):
+    _, in_ops, skel_ops = ops
+    return {"instnorm_fwd": in_ops.fwd_kernel_launches,
+            "soft_skel_bwd": skel_ops.bwd_kernel_launches}
+
+
 def reset_counters(ops):
     conv_ops, in_ops, skel_ops = ops
     conv_ops.launches = conv_ops.dgrad_launches = conv_ops.dgrad_fold_launches = 0
     conv_ops.wgrad_launches = 0
-    in_ops.launches = in_ops.bwd_launches = 0
-    skel_ops.launches = skel_ops.bwd_launches = 0
+    in_ops.launches = in_ops.bwd_launches = in_ops.fwd_kernel_launches = 0
+    skel_ops.launches = skel_ops.bwd_launches = skel_ops.bwd_kernel_launches = 0
 
 
 def check_train_step(ops):
@@ -727,9 +785,11 @@ def check_train_step(ops):
     reset_counters(ops)
     out = gan.distributed_train_step(real_I, real_S, NOISE, True)
     torch.cuda.synchronize()
-    launches = counters(ops)
+    launches, kernel_launches = counters(ops), kernel_counters(ops)
     require(launches == TRAIN_LAUNCHES, f"one train step launched {launches}, "
             f"expected {TRAIN_LAUNCHES}")
+    require(kernel_launches == TRAIN_KERNEL_LAUNCHES, f"one train step launched "
+            f"{kernel_launches} kernels, expected {TRAIN_KERNEL_LAUNCHES}")
     step_losses = {k: float(v) for k, v in out.items()}
     require(len(step_losses) == 10 and all(math.isfinite(v) for v in step_losses.values()),
             f"train step losses not all finite: {step_losses}")
@@ -838,7 +898,7 @@ def check_train_step(ops):
         peak[path] = max(peak[path], torch.cuda.max_memory_allocated() / 2**30)
     gan.set_use_kernels(True)
     res = {"batch": list(shape), "noise_std": NOISE, "launches": launches,
-           "losses": step_losses,
+           "kernel_launches": kernel_launches, "losses": step_losses,
            "kernel_ms_per_step": float(np.median(times["kernel"])),
            "plain_ms_per_step": float(np.median(times["plain"])),
            "kernel_ms_all": times["kernel"], "plain_ms_all": times["plain"],
@@ -937,7 +997,8 @@ def main() -> int:
              fold_launches=train["launches"]["conv3d_dgrad_fold"]),
         conv_entry("conv3d_wgrad", "wgrad", "vangan_torch/ops/csrc/conv3d_wgrad.cu",
                    "vangan_tpu/ops/pallas/conv3d.py:817"),
-        in_entry("instnorm_fwd", "fwd", "vangan_tpu/ops/pallas/instnorm.py:309"),
+        dict(in_entry("instnorm_fwd", "fwd", "vangan_tpu/ops/pallas/instnorm.py:309"),
+             kernel_launches=train["kernel_launches"]["instnorm_fwd"]),
         in_entry("instnorm_bwd", "bwd", "vangan_tpu/ops/pallas/instnorm.py:379"),
         {"name": "soft_skel_fwd", "route": "cuda",
          "source": "vangan_torch/ops/csrc/skeleton_fwd.cu",
@@ -951,6 +1012,7 @@ def main() -> int:
          "source": "vangan_torch/ops/csrc/skeleton_bwd.cu",
          "replaces": "vangan_tpu/ops/pallas/skeleton.py:274",
          "launches": train["launches"]["soft_skel_bwd"],
+         "kernel_launches": train["kernel_launches"]["soft_skel_bwd"],
          "max_abs_err": skel["bwd_max_abs_err"], "ms": skel["bwd_ms"],
          "plain_ms": skel["bwd_plain_ms"], "bound_ms": skel["bwd_bound"][0],
          "bound_by": skel["bwd_bound"][1], "library_ms": None},

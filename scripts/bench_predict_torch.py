@@ -36,7 +36,7 @@ FAMILIES = (  # (family, substrings of the device kernel name), first match wins
     ("conv3d_fwd (ours)", ("conv3d_fwd_",)),
     ("conv3d_dgrad (ours)", ("conv3d_dgrad_",)),
     ("conv3d_wgrad (ours)", ("conv3d_wgrad_",)),
-    ("instnorm_fwd (ours)", ("in_stats_kernel", "in_affine_kernel", "in_apply_kernel")),
+    ("instnorm_fwd (ours)", ("in_fwd_kernel",)),
     ("instnorm_bwd (ours)", ("in_bwd_",)),
     ("soft_skel_fwd (ours)", ("skel_round_kernel",)),
     ("soft_skel_bwd (ours)", ("skel_bwd_",)),

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""Device time of each CUDA kernel of the conv input gradient (K2) and the
-InstanceNorm backward (K5) at the path's bf16 shapes, batch 3, from
-torch.profiler (no host time in the numbers).
+"""Device time of each CUDA kernel of the conv input gradient (K2), the
+InstanceNorm forward (K4) and backward (K5), and the soft-skeleton rounds
+(K6, K7) at the path's shapes, batch 3, from torch.profiler (no host time in
+the numbers).
 
     python scripts/profile_kernels_torch.py
 
@@ -10,9 +11,13 @@ gen_IS and disc_I at 128^3 (chip_smoke.N) (max(Ci, Co) < 128): the device ms per
 ``conv3d_dgrad``'s main and fold kernels; of the forward kernel (K1) running
 the same stride-1 sub-convs, one launch per stride parity with taps (how the
 input gradient ran before it had a kernel of its own); and of cuDNN's
-``conv3d_input``. Then one line per InstanceNorm shape (relu): the
-backward's kernels on its plan, beside the bound (x, g read and dx written
-once at 3.35 TB/s).
+``conv3d_input``. Then one line per InstanceNorm shape (relu, bf16): the
+forward on its plan (``fwd_plan``: small, cluster or stream) beside
+``F.instance_norm`` and its bound (x read and y written once at 3.35 TB/s),
+and the backward's kernels on its plan beside its bound (x, g read and dx
+written once); one f32 128^3 line for the forward's stream route. Last, one
+line for the skeleton of 3 x 128^3 with 15 iterations: the forward rounds
+(K6) and the backward rounds (K7).
 """
 
 from __future__ import annotations
@@ -25,35 +30,41 @@ import subprocess
 import sys
 
 import torch
+import torch.nn.functional as F
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
-from chip_smoke import STEP_BATCH, path_shapes  # noqa: E402
+from chip_smoke import N, SKEL_ITERS, STEP_BATCH, path_shapes  # noqa: E402
 
 from vangan_torch.config import VanGanConfig  # noqa: E402
 from vangan_torch.models.factory import build_discriminator, build_generator  # noqa: E402
 from vangan_torch.models.layers import KERNEL_MAX_CHANNELS, ConvND, InstanceNorm  # noqa: E402
 from vangan_torch.ops import conv3d as C  # noqa: E402
 from vangan_torch.ops import instnorm as I  # noqa: E402
+from vangan_torch.ops import skeleton as S  # noqa: E402
 
 CUDA = torch.profiler.ProfilerActivity.CUDA
 
 
-def kernel_ms(fn, reps: int = 3) -> dict:
-    """Device ms per call of ``fn`` by kernel name (after a warm-up call)."""
+def kernel_ms(fn, reps: int = 3, tries: int = 3) -> dict:
+    """Device ms per call of ``fn`` by kernel name (after a warm-up call); a
+    profile that recorded no device event is taken again, up to ``tries``."""
     fn()
     torch.cuda.synchronize()
-    with torch.profiler.profile(activities=[CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
     out = {}
-    for ev in prof.key_averages():
-        if ev.device_type == torch.autograd.DeviceType.CUDA:
-            m = re.search(r"(\w+_kernel\w*)(<[^(]*>)?", ev.key)
-            name = m.group(0) if m else ev.key[:60]
-            out[name] = out.get(name, 0.0) + ev.self_device_time_total / 1e3 / reps
+    for _ in range(tries):
+        with torch.profiler.profile(activities=[CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        for ev in prof.key_averages():
+            if ev.device_type == torch.autograd.DeviceType.CUDA:
+                m = re.search(r"(\w+_kernel\w*)(<[^(]*>)?", ev.key)
+                name = m.group(0) if m else ev.key[:60]
+                out[name] = out.get(name, 0.0) + ev.self_device_time_total / 1e3 / reps
+        if out:
+            break
     return out
 
 
@@ -110,18 +121,42 @@ def main() -> int:
                       build_discriminator(VanGanConfig(), generator=g)):
             norms |= {(shape[1], shape[2:]) for _, m, shape in path_shapes(model.to(dev).eval())
                       if isinstance(m, InstanceNorm)}
-        for c, dims in sorted(norms):
-            x = torch.randn(STEP_BATCH, c, *dims, device=dev, generator=gd).to(bf16)
-            gy = torch.randn(STEP_BATCH, c, *dims, device=dev, generator=gd).to(bf16)
+        for dtype, c, dims in [(bf16, c, d) for c, d in sorted(norms)] + [
+                (torch.float32, 16, (N,) * 3)]:
+            x = torch.randn(STEP_BATCH, c, *dims, device=dev, generator=gd).to(dtype)
+            gy = torch.randn(STEP_BATCH, c, *dims, device=dev, generator=gd).to(dtype)
             gamma, beta = torch.ones(c, device=dev), torch.zeros(c, device=dev)
             _, stats = I._instance_norm_act_cuda(x, gamma, beta, 1e-3, "relu", 0.2)
-            n = math.prod(dims)
-            row = {"c": c, "in": list(dims), "plan": vars(I.bwd_plan(n, bf16)),
-                   "bound_ms": 6 * STEP_BATCH * c * n / 3.35e12 * 1e3,
-                   "k5": kernel_ms(lambda: I._instance_norm_act_bwd_cuda(x, gy, stats, "relu",
-                                                                        0.2))}
-            row["k5_ms"] = sum(row["k5"].values())
+            n, esize = math.prod(dims), x.element_size()
+            plan = I.fwd_plan(n, dtype, n * esize % 16 == 0)
+            row = {"dtype": str(dtype), "c": c, "in": list(dims), "fwd_plan": vars(plan),
+                   "fwd_bound_ms": 2 * esize * STEP_BATCH * c * n / 3.35e12 * 1e3,
+                   "k4": kernel_ms(lambda: I._instance_norm_act_cuda(x, gamma, beta, 1e-3,
+                                                                    "relu", 0.2)),
+                   "library": kernel_ms(lambda: F.instance_norm(
+                       x, weight=gamma.to(dtype), bias=beta.to(dtype), eps=1e-3))}
+            if dtype == bf16:
+                row["bwd_plan"] = vars(I.bwd_plan(n, bf16))
+                row["bwd_bound_ms"] = 6 * STEP_BATCH * c * n / 3.35e12 * 1e3
+                row["k5"] = kernel_ms(lambda: I._instance_norm_act_bwd_cuda(x, gy, stats, "relu",
+                                                                           0.2))
+            for part in ("k4", "library", "k5"):
+                if part in row:
+                    row[f"{part}_ms"] = sum(row[part].values())
             print(json.dumps(row))
+            del x, gy, stats
+        # the skeleton: 16 forward rounds (K6), 16 backward rounds (K7)
+        shape = (STEP_BATCH, N, N, N, 1)
+        nvox = math.prod(shape)
+        img = (torch.randperm(nvox, device=dev, generator=gd).float() / nvox).reshape(shape)
+        gy = torch.randn(shape, device=dev, generator=gd)
+        _, imgs, skels = S._soft_skel_cuda(img, SKEL_ITERS, keep=True)
+        row = {"shape": list(shape), "iters": SKEL_ITERS,
+               "k6": kernel_ms(lambda: S._soft_skel_cuda(img, SKEL_ITERS, keep=False)),
+               "k7": kernel_ms(lambda: S._soft_skel_bwd_cuda(imgs, skels, gy, shape))}
+        for part in ("k6", "k7"):
+            row[f"{part}_ms"] = sum(row[part].values())
+        print(json.dumps(row))
     return 0
 
 

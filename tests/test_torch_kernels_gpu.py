@@ -88,14 +88,101 @@ def test_instnorm_kernel_matches_plain(cuda, dtype, act, shape):
     x = (torch.randn(*shape, generator=g) * 2 + 0.5).to(cuda, dtype)
     gamma = (torch.randn(shape[1], generator=g) * 0.5 + 1).to(cuda)
     beta = (torch.randn(shape[1], generator=g) * 0.2).to(cuda)
-    before = in_ops.launches
+    before = (in_ops.launches, in_ops.fwd_kernel_launches)
     with torch.inference_mode():
         got = in_ops.instance_norm_act(x, gamma, beta, 1e-3, act, 0.2)
         want = in_ops.instance_norm_act_plain(x, gamma, beta, 1e-3, act, 0.2)
     torch.cuda.synchronize()
-    assert in_ops.launches == before + 1
+    assert (in_ops.launches, in_ops.fwd_kernel_launches) == (before[0] + 1, before[1] + 1)
     assert got.dtype == dtype
     assert _rel_err(got, want) <= TOL[dtype]
+
+
+def _in_forward(cuda, dtype, shape, act, seed=7):
+    """(kernel y, stats) on ``fwd_plan``'s route and the plain y, on seeded
+    data."""
+    g = torch.Generator().manual_seed(seed)
+    x = (torch.randn(*shape, generator=g) * 2 + 0.5).to(cuda, dtype)
+    gamma = (torch.randn(shape[1], generator=g) * 0.5 + 1).to(cuda)
+    beta = (torch.randn(shape[1], generator=g) * 0.2).to(cuda)
+    with torch.inference_mode():
+        y, stats = in_ops._instance_norm_act_cuda(x, gamma, beta, 1e-3, act, 0.2)
+        want = in_ops.instance_norm_act_plain(x, gamma, beta, 1e-3, act, 0.2)
+    torch.cuda.synchronize()
+    return y, stats, want
+
+
+# K4 on each route of fwd_plan: small (aligned and not), clusters of 1, 2, 4,
+# 8 and 16 blocks with ragged last runs, the unaligned 31^3 plane (runs
+# sharing their end vectors), streamed planes (128^3, f32 and bf16;
+# unaligned and ragged) and the stream body with its runs held whole
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [
+    (3, 5, 16, 16, 16),      # small
+    (2, 3, 5, 7, 9),         # small, unaligned
+    (2, 3, 31, 31, 31),      # cluster of 1 (bf16) / 2 (f32), unaligned
+    (1, 3, 33, 35, 37),      # ragged last run
+    (2, 2, 64, 64, 64),      # cluster of 8 (bf16) / 16 (f32)
+    (1, 2, 128, 128, 128),   # stream on a cluster of 16
+    (1, 1, 97, 101, 103),    # stream, unaligned, ragged
+    (2, 1, 50, 50, 50),      # cluster of 4 (bf16) / 8 (f32), ragged
+    (1, 2, 90, 90, 90),      # the stream body, runs held whole (bf16) / re-read (f32)
+    (2, 1, 40, 40, 40),      # cluster of 2 (bf16) / 4 (f32)
+    (1, 1, 80, 80, 79),      # cluster of 16 (bf16) / stream, held whole (f32), unaligned
+])
+def test_instnorm_forward_routes_match_plain(cuda, dtype, shape):
+    n = int(np.prod(shape[2:]))
+    esize = 4 if dtype == torch.float32 else 2
+    plan = in_ops.fwd_plan(n, dtype, n * esize % 16 == 0)
+    before = in_ops.fwd_kernel_launches
+    for act in ("none", "leaky_relu"):
+        got, stats, want = _in_forward(cuda, dtype, shape, act)
+        assert got.dtype == dtype and got.shape == want.shape
+        assert _rel_err(got, want) <= TOL[dtype]
+        assert bool(torch.isfinite(stats).all())
+    assert in_ops.fwd_kernel_launches == before + 2 * plan.launches
+
+
+@pytest.mark.parametrize("shape", [(3, 16, 128, 128, 128), (3, 32, 64, 64, 64),
+                                   (2, 3, 31, 31, 31), (3, 16, 16, 16, 16)])
+def test_instnorm_forward_is_deterministic(cuda, shape):
+    """Every block merges the cluster's partials in rank order: two runs, the
+    same bits (y and the stats the backward reads)."""
+    first = _in_forward(cuda, torch.bfloat16, shape, "relu")
+    second = _in_forward(cuda, torch.bfloat16, shape, "relu")
+    assert torch.equal(first[0], second[0]) and torch.equal(first[1], second[1])
+
+
+def test_instnorm_forward_refuses_a_plan_it_does_not_hold(cuda):
+    """The C entry takes only the plans fwd_plan makes: one whose blocks do
+    not cover the plane, a small block given a cluster, other sizes than the
+    route's, or a stream plan for a plane a cluster holds is refused (1000),
+    not run, and counts no launch."""
+    import ctypes
+    import dataclasses
+
+    from vangan_torch.ops import build
+
+    plan = in_ops.fwd_plan(64 ** 3, torch.bfloat16, True)
+    stream = in_ops.fwd_plan(128 ** 3, torch.bfloat16, True)
+    x = torch.zeros(1, 1, 64, 64, 64, device=cuda, dtype=torch.bfloat16)
+    y = torch.empty_like(x)
+    one, zero = torch.ones(1, device=cuda), torch.zeros(1, device=cuda)
+    stats = torch.empty(4, device=cuda)
+    for bad in (dataclasses.replace(plan, vecs_per_block=plan.vecs_per_block // 2),
+                dataclasses.replace(plan, route="small"),
+                dataclasses.replace(plan, threads=in_ops.FWD_STREAM_THREADS),
+                dataclasses.replace(plan, smem_vecs=plan.smem_vecs // 2),
+                dataclasses.replace(plan, rpt=2),
+                dataclasses.replace(stream, vecs_per_block=plan.vecs_per_block,
+                                    cluster=plan.cluster, smem_vecs=plan.smem_vecs)):
+        launched = ctypes.c_int(0)
+        status = build.library().vg_instnorm_fwd(
+            x.data_ptr(), one.data_ptr(), zero.data_ptr(), y.data_ptr(), stats.data_ptr(), 1,
+            1, 1, 64 ** 3, in_ops.FWD_ROUTES[bad.route], bad.cluster, bad.threads, bad.rpt,
+            bad.vecs_per_block, bad.smem_vecs, 1e-3, 0, 0.2,
+            torch.cuda.current_stream().cuda_stream, ctypes.byref(launched))
+        assert (status, launched.value) == (1000, 0), bad
 
 
 def test_instnorm_kernel_large_offset(cuda):
@@ -260,18 +347,19 @@ def test_instnorm_backward_kernel_matches_plain(cuda, dtype, act, shape):
 @pytest.mark.parametrize("dims", [(1, 1, 1), (2, 5, 17), (33, 2, 5), (17, 17, 33)])
 def test_soft_skel_backward_kernel_matches_autograd(cuda, dims, iters):
     """On distinct values, where any tie rule gives the same input gradient:
-    max |diff| <= 1e-5 * max |g| against autograd of morphology.soft_skel."""
+    max |diff| <= 1e-5 * max |g| against autograd of morphology.soft_skel;
+    one kernel launch per round."""
     rng = np.random.default_rng(5)
     n = int(np.prod(dims)) * 2
     data = (rng.permutation(n).reshape(2, *dims, 1) / n).astype(np.float32)
     x = torch.from_numpy(data).to(cuda).requires_grad_()
     xp = torch.from_numpy(data).to(cuda).requires_grad_()
     gy = torch.from_numpy(rng.normal(size=data.shape).astype(np.float32)).to(cuda)
-    before = (skel_ops.launches, skel_ops.bwd_launches)
+    before = (skel_ops.launches, skel_ops.bwd_launches, skel_ops.bwd_kernel_launches)
     skel_ops.soft_skel(x, iters).backward(gy)
     torch.cuda.synchronize()
-    assert (skel_ops.launches, skel_ops.bwd_launches) == \
-        (before[0] + iters + 1, before[1] + iters + 1)
+    assert (skel_ops.launches, skel_ops.bwd_launches, skel_ops.bwd_kernel_launches) == \
+        (before[0] + iters + 1, before[1] + iters + 1, before[2] + iters + 1)
     morphology.soft_skel(xp, iters).backward(gy)
     scale = float(xp.grad.abs().max())
     assert float((x.grad - xp.grad).abs().max()) <= 1e-5 * max(scale, 1e-30)
@@ -284,6 +372,31 @@ def _faces_volume(rng, shape):
     v[:, :, -1] = 1.0
     v[:, :, :, 0] = 1.0
     return v
+
+
+# K7 against its gather in torch (skeleton.round_bwd_plain), round by round
+# from the same kept volumes: the same tie rule and the same sums in the same
+# order, so the same values (max |diff| == 0), also on binary data, where
+# ties are everywhere and autograd routes them otherwise
+@pytest.mark.parametrize("dims", [(1, 1, 1), (2, 5, 17), (33, 2, 5), (17, 19, 35), (9, 40, 70),
+                                  (40, 3, 33)])
+def test_soft_skel_backward_kernel_matches_round_gather(cuda, dims):
+    rng = np.random.default_rng(12)
+    iters = 3
+    for data in (_faces_volume(rng, (2, *dims, 1)),
+                 (rng.permutation(2 * int(np.prod(dims))).reshape(2, *dims, 1)
+                  / (2 * np.prod(dims))).astype(np.float32)):
+        x = torch.from_numpy(data).to(cuda)
+        gy = torch.from_numpy(rng.normal(size=data.shape).astype(np.float32)).to(cuda)
+        with torch.inference_mode():
+            _, imgs, skels = skel_ops._soft_skel_cuda(x, iters, keep=True)
+            got = skel_ops._soft_skel_bwd_cuda(imgs, skels, gy, x.shape)
+            d_skel, d_img = gy[..., 0], None
+            for t in reversed(range(iters + 1)):
+                d_img, d_skel = skel_ops.round_bwd_plain(
+                    imgs[t], imgs[t + 1], skels[t - 1] if t else None, d_img, d_skel)
+        torch.cuda.synchronize()
+        assert float((got[..., 0] - d_img).abs().max()) == 0.0
 
 
 @pytest.mark.parametrize("iters", [0, 1, 15])

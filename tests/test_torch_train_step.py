@@ -351,3 +351,45 @@ def test_train_step_is_seeded_with_noise_on():
             assert torch.equal(a, b) and torch.isfinite(a).all()
         assert any(not torch.equal(a, p0) for a, p0 in zip(g0.nets[name].parameters(),
                                                              b0[name][0]))
+
+
+def test_train_defaults_to_training_in_both_packages():
+    """``train`` without ``training`` trains, in the JAX package and in the
+    port: from the same init (noise and dropout off), two of three offered
+    batches are taken as train steps by both, with the same losses and
+    parameters after them.
+
+    Tolerances: both steps' losses rtol 1e-4 (as the step above; measured
+    up to 1.4e-5 on the second step); the parameters' moves over the two
+    steps within 5% relative L2 per network of the JAX package's moves
+    (measured 0.6-2.7%: a step-1 Adam update is about lr * sign(g), and
+    elements with g near 0 may take opposite signs in the two
+    frameworks)."""
+    from vangan_tpu.vangan import VanGan as JaxVanGan
+    from vangan_tpu.vangan import train as jax_train
+
+    jax_cfg = tiny_cfg()
+    _, _, real_I, real_S, *_ = _jax_step()
+    jax_gan = JaxVanGan(jax_cfg, steps_per_epoch=STEPS_PER_EPOCH, init_rng=jax.random.PRNGKey(3),
+                        models=tiny_models(deterministic=True))
+    init = jax.tree_util.tree_map(np.asarray, jax.device_get(jax_gan.state.params))
+    gan = _torch_gan(jax_cfg, init)
+    runs = {}
+    for tag, fn, g in (("jax", jax_train, jax_gan), ("torch", train, gan)):
+        batches = iter([(real_I, real_S)] * 3)
+        summary = _Summary()
+        runs[tag] = fn(batches, g, summary, epoch=0, steps=2)
+        assert next(batches)  # the third batch was not taken
+        assert all(training for *_, training in summary.calls)
+    assert int(jax_gan.state.step) == 2 and gan.state.step == 2
+    assert sorted(runs["jax"]) == sorted(runs["torch"]) == sorted(RESULT_KEYS)
+    for key in RESULT_KEYS:
+        want, got = runs["jax"][key], runs["torch"][key]
+        assert len(want) == len(got) == 2
+        np.testing.assert_allclose(got, want, rtol=1e-4, err_msg=key)
+    after = jax.tree_util.tree_map(np.asarray, jax.device_get(jax_gan.state.params))
+    for name in NETWORKS:
+        got = _flat(torch_to_flax(gan.nets[name].state_dict()))
+        want, start = _flat(after[name]), _flat(init[name])
+        assert np.linalg.norm(want - start) > 0
+        assert np.linalg.norm(got - want) <= 0.05 * np.linalg.norm(want - start), name

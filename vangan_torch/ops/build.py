@@ -29,6 +29,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_COUNT = ctypes.POINTER(ctypes.c_int)  # kernel launches made, added to by the entry
 _SIGNATURES = {
     # x, w, bias, y, dtype, B, Ci, Co, X, Y, Z, Xo, Yo, Zo, kx, ky, kz,
     # sx, sy, sz, px, py, pz, reflect, route, co_tile, stream
@@ -42,19 +43,19 @@ _SIGNATURES = {
     # shared_halo, smem_bytes, buf_bytes, stream
     "vg_conv3d_dgrad": [_P, _P, _P, _P] + [_I] * 23 + [_P, _P] + [_I] * 4
                        + [ctypes.c_longlong, _P],
-    # x, gamma, beta, y, partial, ab, dtype, BC, C, N, nsplit, eps, act,
-    # alpha, vec, stream
-    "vg_instnorm_fwd": [_P] * 6 + [_I, _I, _I, ctypes.c_longlong, _I, ctypes.c_float,
-                                   _I, ctypes.c_float, _I, _P],
+    # x, gamma, beta, y, ab, dtype, BC, C, N, route, cluster, threads, rpt,
+    # vecs_per_block, smem_vecs, eps, act, alpha, stream, launched
+    "vg_instnorm_fwd": [_P] * 5 + [_I, _I, _I, ctypes.c_longlong] + [_I] * 6
+                       + [ctypes.c_float, _I, ctypes.c_float, _P, _COUNT],
     # x, g, ab, partial, sums, dx, dtype, BC, N, route, vec, vpt, nsplit, act,
     # alpha, stream
     "vg_instnorm_bwd": [_P] * 6 + [_I, _I, ctypes.c_longlong] + [_I] * 5 + [ctypes.c_float,
                                                                            _P],
     # img, skel_prev, skel_out, img_next, B, X, Y, Z, first, stream
     "vg_skeleton_round_fwd": [_P] * 4 + [_I] * 5 + [_P],
-    # img, e, skel_prev, d_e_next, d_skel, d_img, d_skel_prev, d_e, d_v,
-    # B, X, Y, Z, first, stream
-    "vg_skeleton_round_bwd": [_P] * 9 + [_I] * 5 + [_P],
+    # img, e, skel_prev, d_e_next, d_skel, d_img, d_skel_prev, B, X, Y, Z,
+    # first, stream, launched
+    "vg_skeleton_round_bwd": [_P] * 7 + [_I] * 5 + [_P, _COUNT],
 }
 
 _lib: Optional[ctypes.CDLL] = None
@@ -137,6 +138,9 @@ def check(status: int, name: str) -> None:
     """Raise if a C entry point reported a refused argument or a CUDA error."""
     if status == 1000:
         raise ValueError(f"{name}: arguments outside what the kernel takes")
+    if status == 1001:
+        raise RuntimeError(f"{name}: no thread-block cluster of this size and shared memory "
+                           "is schedulable on this card")
     if status != 0:
         msg = library().vg_error_string(status).decode()
         raise RuntimeError(f"{name}: CUDA error {status} ({msg})")

@@ -6,8 +6,11 @@ and their plain versions.
 ``(B, C, X, Y, Z)`` layout: per-(b, c) mean and variance over X, Y, Z in f32,
 then ``act((x - mean) * a + beta)`` with ``a = gamma * rsqrt(var + eps)``
 and act in {none, relu, leaky_relu}, written in the input dtype. On a CUDA
-tensor it launches ``csrc/instnorm_fwd.cu`` (see the note there) for any C;
-on a CPU tensor it runs ``instance_norm_act_plain``.
+tensor it launches ``csrc/instnorm_fwd.cu`` (see the note there) once, on
+the route ``fwd_plan`` (pure Python) gives the plane size: one block per
+small plane, one thread-block cluster per plane that the cluster holds on
+chip, or a cluster that streams what it cannot hold; on a CPU tensor it runs
+``instance_norm_act_plain``.
 
 Where a gradient is needed the op is a ``torch.autograd.Function``: the
 forward keeps (mean, a, beta, inv) per (b, c), and the backward launches
@@ -20,6 +23,7 @@ reduce pass and a dx pass over every plane.
 
 from __future__ import annotations
 
+import ctypes
 import functools
 import math
 from dataclasses import dataclass
@@ -29,8 +33,9 @@ import torch
 from vangan_torch.ops import build
 
 # kernel launches (chip_smoke.py reads and resets them)
-launches = 0      # instance_norm_act forward calls
-bwd_launches = 0  # backward calls (bwd_plan(...).launches kernel launches each)
+launches = 0          # instance_norm_act forward calls
+fwd_kernel_launches = 0  # the forward's kernel launches, as its C entry reports them
+bwd_launches = 0      # backward calls (bwd_plan(...).launches kernel launches each)
 
 ACTS = {"none": 0, "relu": 1, "leaky_relu": 2}
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -40,6 +45,86 @@ _ELEMS_PER_BLOCK = 16384  # reduce / dx work per block along a (b, c) plane
 BWD_THREADS = 256
 BWD_SMALL_VECS = 4             # 16-byte vectors per thread and tensor a small plane's block holds
 BWD_MAX_SPLIT = BWD_THREADS    # a dx block adds its plane's partials, one per thread
+
+
+# the forward's plan (csrc/instnorm_fwd.cu, which holds the same constants);
+# sizes in 16-byte vectors, chosen by timing alternatives on the H100
+# (PERF.md)
+FWD_ROUTES = {"small": 0, "cluster": 1, "stream": 2}
+FWD_SMALL_THREADS = 256
+FWD_SMALL_VECS = 4         # per thread: a small plane is at most 1024 vectors
+FWD_CLUSTER_THREADS = 256  # a cluster's block
+FWD_CLUSTER_VECS = 4096    # its run, in shared memory (64 KiB: three blocks an SM)
+FWD_STREAM_THREADS = 512   # a streaming cluster's block
+FWD_STREAM_SMEM = 7168     # what it keeps in shared memory (112 KiB: two blocks an SM)
+FWD_STREAM_RPT = 2         # and in registers, per thread
+FWD_CLUSTER_MAX = 16       # the non-portable size
+
+
+@dataclass(frozen=True)
+class FwdPlan:
+    """How the forward kernel runs planes of one size (``fwd_plan``).
+
+    ``route``: ``"small"`` (one block of ``threads`` per plane, in
+    registers), ``"cluster"`` (a cluster of ``cluster`` blocks per plane,
+    the plane on chip) or ``"stream"`` (a cluster of ``FWD_CLUSTER_MAX``
+    larger blocks that keeps the head of each block's run on chip and reads
+    the rest, if any, twice). A block takes
+    ``vecs_per_block`` 16-byte vectors (``vec`` elements each) of its plane:
+    ``smem_vecs`` in shared memory, up to ``threads * rpt`` in registers, the
+    rest streamed. ``elems_per_block`` and ``elems_on_chip`` count elements;
+    ``reread_share`` is the share of a plane that is read twice.
+    ``launches`` is the kernel launches of one call.
+    """
+    route: str
+    cluster: int
+    threads: int
+    vec: int
+    vecs_per_block: int
+    rpt: int
+    smem_vecs: int
+    elems_per_block: int
+    elems_on_chip: int
+    reread_share: float
+    launches: int = 1
+
+
+@functools.lru_cache(maxsize=1024)
+def fwd_plan(n: int, dtype: torch.dtype, aligned: bool) -> FwdPlan:
+    """The forward's route for planes of ``n`` elements of ``dtype``;
+    ``aligned``: every plane starts on a 16-byte boundary (else a plane may
+    span one vector more). Planes of up to ``FWD_SMALL_VECS`` vectors per
+    thread of a small block take one block, in registers; larger ones the
+    smallest cluster (a power of two, up to ``FWD_CLUSTER_MAX``) whose blocks
+    hold their runs of up to ``FWD_CLUSTER_VECS`` in shared memory; planes
+    larger still (128^3) a cluster of ``FWD_CLUSTER_MAX`` streaming blocks, two
+    an SM, that keep ``FWD_STREAM_SMEM`` vectors in shared memory and
+    ``FWD_STREAM_RPT`` a thread in registers and read the rest twice: on the
+    H100 they took 128^3 bf16 planes in less time than a cluster of 16 that
+    holds the whole plane, one block an SM (PERF.md)."""
+    if dtype not in _DTYPES:
+        raise TypeError(f"fwd_plan: no kernel for {dtype}")
+    if n < 1:
+        raise ValueError(f"fwd_plan: no plane of {n} elements")
+    vec = 16 // torch.empty((), dtype=dtype).element_size()
+    vecs = -(-(n + (0 if aligned else vec - 1)) // vec)  # the most a plane spans
+    if vecs <= FWD_SMALL_THREADS * FWD_SMALL_VECS:
+        route, cs, threads, smem = "small", 1, FWD_SMALL_THREADS, 0
+        rpt = 1 << (-(-vecs // threads) - 1).bit_length()
+    else:
+        cs = 1
+        while cs < FWD_CLUSTER_MAX and -(-vecs // cs) > FWD_CLUSTER_VECS:
+            cs *= 2
+        if -(-vecs // cs) <= FWD_CLUSTER_VECS:
+            route, threads, rpt, smem = "cluster", FWD_CLUSTER_THREADS, 1, FWD_CLUSTER_VECS
+        else:
+            route, threads, rpt, smem = ("stream", FWD_STREAM_THREADS, FWD_STREAM_RPT,
+                                         FWD_STREAM_SMEM)
+    vpb = -(-vecs // cs)
+    smem = min(vpb, smem)
+    kept = min(vpb, smem + threads * rpt)
+    return FwdPlan(route, cs, threads, vec, vpb, rpt, smem, vpb * vec, kept * vec,
+                   (vpb - kept) / vpb)
 
 
 @dataclass(frozen=True)
@@ -172,7 +257,9 @@ def _vec(n: int, *tensors) -> int:
 
 
 def _instance_norm_act_cuda(x, gamma, beta, eps, act, alpha):
-    global launches
+    """(y, per-plane (mean, a, beta, inv)) from one launch of the forward
+    kernel on ``fwd_plan``'s route."""
+    global launches, fwd_kernel_launches
     if x.device.type != "cuda":
         raise ValueError(f"instance_norm_act: no kernel for device {x.device}")
     if x.dtype not in _DTYPES:
@@ -181,21 +268,25 @@ def _instance_norm_act_cuda(x, gamma, beta, eps, act, alpha):
         raise ValueError(f"instance_norm_act: shapes x {tuple(x.shape)}, "
                          f"gamma {tuple(gamma.shape)}, beta {tuple(beta.shape)}")
     x = x.contiguous()
+    if x.data_ptr() % 16:  # a view at an odd offset: the kernel reads 16-byte vectors
+        x = x.clone()
     gamma = gamma.detach().to(device=x.device, dtype=torch.float32).contiguous()
     beta = beta.detach().to(device=x.device, dtype=torch.float32).contiguous()
     b, c = x.shape[:2]
     n = math.prod(x.shape[2:])
-    nsplit = _nsplit(n)
-    y = torch.empty_like(x)
-    partial = torch.empty(b * c * nsplit * 3, dtype=torch.float32, device=x.device)
+    plan = fwd_plan(n, x.dtype, n * x.element_size() % 16 == 0)
+    y = torch.empty_like(x, memory_format=torch.contiguous_format)
     stats = torch.empty(b * c * 4, dtype=torch.float32, device=x.device)
+    launched = ctypes.c_int(0)
     with torch.cuda.device(x.device):
         status = build.library().vg_instnorm_fwd(
-            x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), y.data_ptr(), partial.data_ptr(),
-            stats.data_ptr(), _DTYPES[x.dtype], b * c, c, n, nsplit, float(eps), ACTS[act],
-            float(alpha), _vec(n, x, y), torch.cuda.current_stream(x.device).cuda_stream)
-    build.check(status, "instance_norm_act")
+            x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), y.data_ptr(), stats.data_ptr(),
+            _DTYPES[x.dtype], b * c, c, n, FWD_ROUTES[plan.route], plan.cluster, plan.threads,
+            plan.rpt, plan.vecs_per_block, plan.smem_vecs, float(eps), ACTS[act], float(alpha),
+            torch.cuda.current_stream(x.device).cuda_stream, ctypes.byref(launched))
+    build.check(status, f"instance_norm_act ({plan.route}, cluster {plan.cluster})")
     launches += 1
+    fwd_kernel_launches += launched.value
     return y, stats
 
 

@@ -120,7 +120,7 @@ class VanGan:
 
 
 def train(ds: Iterable[Tuple[np.ndarray, np.ndarray]], gan: VanGan, summary, epoch: int,
-          steps: Optional[int] = None, desc: Optional[str] = None, training: bool = False,
+          steps: Optional[int] = None, desc: Optional[str] = None, training: bool = True,
           noise_std: float = 0.0) -> Dict[str, list]:
     """One epoch (vangan.py:510-550): on each batch of ``ds`` (at most
     ``steps``) the train step with noise σ ``noise_std`` (``training``) or
