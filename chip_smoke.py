@@ -204,6 +204,23 @@ def bound(ops, nbytes, rate):
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
+def skel_fwd_bound(n_vox):
+    """(ms, "operations" or "bytes"): the least time for one skeleton of
+    ``n_vox`` voxels, forward; per voxel and round 19 + 27 compares and a few
+    adds, the input read and the output written once, f32."""
+    return bound(50 * (SKEL_ITERS + 1) * n_vox, 8 * n_vox, F32_OP_PER_S)
+
+
+def skel_fwd_floor_ms(n_vox, keep):
+    """The least ms of K6's design (one launch a round) for one skeleton of
+    ``n_vox`` voxels: the f32 volumes it must move at the memory rate. Read:
+    img every round, skel after round 0; written: skel every round, e every
+    round with the residuals kept (``keep``), else in all but the last."""
+    rounds = SKEL_ITERS + 1
+    volumes = 2 * rounds - 1 + (2 * rounds if keep else 2 * rounds - 1)
+    return volumes * 4 * n_vox / HBM_BYTES_PER_S * 1e3
+
+
 def conv_work(co, ci, k, out_dims, in_dims, batch, esize=2):
     """(FLOPs, bytes of x, w, y) of one conv."""
     taps, n_out = math.prod(k), batch * math.prod(out_dims)
@@ -489,11 +506,10 @@ def check_skeleton(skel_ops):
               "binary_faces": vessels}
     n_vox = math.prod(shape)
     rounds = SKEL_ITERS + 1
-    # per voxel and round: 19 + 27 compares and a few adds forward; twice the
-    # compares and the gathers backward; the function's input and output (and
-    # cotangent) read or written once, f32
-    res = {"shape": list(shape), "iters": SKEL_ITERS,
-           "fwd_bound": bound(50 * rounds * n_vox, 8 * n_vox, F32_OP_PER_S),
+    # backward, per voxel and round: twice the forward's compares and the
+    # gathers; the input, output and cotangent read or written once, f32
+    res = {"shape": list(shape), "iters": SKEL_ITERS, "fwd_bound": skel_fwd_bound(n_vox),
+           "fwd_floor_ms": skel_fwd_floor_ms(n_vox, keep=False),
            "bwd_bound": bound(100 * rounds * n_vox, 12 * n_vox, F32_OP_PER_S)}
     with torch.inference_mode():
         for tag, x in inputs.items():

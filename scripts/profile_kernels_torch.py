@@ -17,7 +17,11 @@ forward on its plan (``fwd_plan``: small, cluster or stream) beside
 and the backward's kernels on its plan beside its bound (x, g read and dx
 written once); one f32 128^3 line for the forward's stream route. Last, one
 line for the skeleton of 3 x 128^3 with 15 iterations: the forward rounds
-(K6) and the backward rounds (K7).
+(K6) without residuals (``k6``, the ground truth's skeleton) and with them
+(``k6_keep``, the prediction's, which the backward replays), each beside the
+compare bound of chip_smoke.py (``k6_bound_ms``) and its design's byte floor
+(``k6_floor_ms``: 62 f32 volumes moved, 63 with residuals, at 3.35 TB/s),
+and the backward rounds (K7).
 """
 
 from __future__ import annotations
@@ -35,7 +39,8 @@ import torch.nn.functional as F
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
-from chip_smoke import N, SKEL_ITERS, STEP_BATCH, path_shapes  # noqa: E402
+from chip_smoke import (N, SKEL_ITERS, STEP_BATCH, path_shapes, skel_fwd_bound,  # noqa: E402
+                        skel_fwd_floor_ms)
 
 from vangan_torch.config import VanGanConfig  # noqa: E402
 from vangan_torch.models.factory import build_discriminator, build_generator  # noqa: E402
@@ -153,9 +158,13 @@ def main() -> int:
         _, imgs, skels = S._soft_skel_cuda(img, SKEL_ITERS, keep=True)
         row = {"shape": list(shape), "iters": SKEL_ITERS,
                "k6": kernel_ms(lambda: S._soft_skel_cuda(img, SKEL_ITERS, keep=False)),
+               "k6_keep": kernel_ms(lambda: S._soft_skel_cuda(img, SKEL_ITERS, keep=True)),
                "k7": kernel_ms(lambda: S._soft_skel_bwd_cuda(imgs, skels, gy, shape))}
-        for part in ("k6", "k7"):
+        for part in ("k6", "k6_keep", "k7"):
             row[f"{part}_ms"] = sum(row[part].values())
+        row["k6_bound_ms"] = skel_fwd_bound(nvox)[0]
+        row["k6_floor_ms"] = skel_fwd_floor_ms(nvox, keep=False)
+        row["k6_keep_floor_ms"] = skel_fwd_floor_ms(nvox, keep=True)
         print(json.dumps(row))
     return 0
 

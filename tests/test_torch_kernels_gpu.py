@@ -399,22 +399,48 @@ def test_soft_skel_backward_kernel_matches_round_gather(cuda, dims):
         assert float((got[..., 0] - d_img).abs().max()) == 0.0
 
 
+# K6 against the plain skeleton, max |diff| == 0, on both paths: without
+# residuals (``soft_skel`` under inference mode) and with them (``keep``, the
+# differentiated path), where every kept round is also held against the plain
+# round from the kernel's own inputs (morphology's erosion and update, and
+# skeleton.round_fwd_plain). The later dims straddle the kernel's tiles: X not
+# a multiple of its chunk of 16 planes, Y not of its 16 rows, Z not of a
+# warp's 28 z, a dimension of 1.
+@pytest.mark.parametrize("keep", [False, True])
+@pytest.mark.parametrize("batch", [1, 2, 3])
 @pytest.mark.parametrize("iters", [0, 1, 15])
 @pytest.mark.parametrize("dims", [(1, 1, 1), (2, 5, 17), (33, 2, 5), (5, 33, 1), (17, 17, 33),
-                                  (1, 33, 2)])
-def test_soft_skel_kernel_bit_exact(cuda, dims, iters):
+                                  (1, 33, 2), (37, 19, 29), (20, 1, 30), (17, 35, 57),
+                                  (33, 17, 1)])
+def test_soft_skel_kernel_bit_exact(cuda, dims, iters, batch, keep):
     rng = np.random.default_rng(3)
-    for data in (_faces_volume(rng, (2, *dims, 1)),
-                 rng.uniform(size=(2, *dims, 1)).astype(np.float32)):
+    for data in (_faces_volume(rng, (batch, *dims, 1)),
+                 rng.uniform(size=(batch, *dims, 1)).astype(np.float32)):
         x = torch.from_numpy(data).to(cuda)
         before = skel_ops.launches
         with torch.inference_mode():
-            got = skel_ops.soft_skel(x, iters)
+            if keep:
+                got, imgs, skels = skel_ops._soft_skel_cuda(x, iters, keep=True)
+            else:
+                got = skel_ops.soft_skel(x, iters)
             want = morphology.soft_skel(x, iters)
         torch.cuda.synchronize()
         assert skel_ops.launches == before + iters + 1
         assert got.shape == want.shape == x.shape
         assert float((got - want).abs().max()) == 0.0
+        if not keep:
+            continue
+        assert len(imgs) == len(skels) + 1 == iters + 2
+        with torch.inference_mode():
+            for t in range(iters + 1):
+                v, prev = imgs[t], skels[t - 1] if t else None
+                e = morphology._erode(v[:, None])[:, 0]
+                delta = torch.relu(v - morphology._dilate(e[:, None])[:, 0])
+                skel = delta if prev is None else prev + torch.relu(delta - prev * delta)
+                skel_sep, e_sep = skel_ops.round_fwd_plain(v, prev)
+                for ref_skel, ref_e in ((skel, e), (skel_sep, e_sep)):
+                    assert float((imgs[t + 1] - ref_e).abs().max()) == 0.0
+                    assert float((skels[t] - ref_skel).abs().max()) == 0.0
 
 
 # K2 at every kernel conv shape of the path (tests/test_torch_conv3d_plan.py),

@@ -17,8 +17,9 @@ one launch of ``csrc/skeleton_bwd.cu`` each (the TPU kernel ``_round_bwd``).
 Without a gradient (the ground truth's skeleton) the forward keeps nothing:
 it updates skel in place and ping-pongs two eroded images.
 
-``round_bwd_plain`` is that kernel's gather written in torch, tile by tile
-with the kernel's halos, for the CPU tests.
+``round_fwd_plain`` is one forward round by the forward kernel's separable
+passes and boundary fills, and ``round_bwd_plain`` the backward kernel's
+gather, tile by tile with its halos, both in torch, for the CPU tests.
 """
 
 from __future__ import annotations
@@ -98,6 +99,39 @@ def _soft_skel_bwd_cuda(imgs, skels, g: torch.Tensor, shape) -> torch.Tensor:
             d_skel, d_skel_prev = d_skel_prev, d_skel
     bwd_kernel_launches += launched.value
     return d_img.reshape(b, c, X, Y, Z).movedim(1, -1)
+
+
+def _window3(v, dim, op, fill):
+    """``op`` (torch.minimum or torch.maximum) of the 3-window along ``dim``,
+    with ``fill`` outside the volume."""
+    pad = [0, 0] * (v.dim() - 1 - dim) + [1, 1]
+    w = F.pad(v, pad, value=fill)
+    n = v.shape[dim]
+    return op(op(w.narrow(dim, 0, n), w.narrow(dim, 1, n)), w.narrow(dim, 2, n))
+
+
+def round_fwd_plain(img, skel_prev):
+    """One forward round on (B, X, Y, Z) float32 volumes, ``(img, skel_prev)
+    -> (skel, e)``, by ``csrc/skeleton_fwd.cu``'s separable passes and
+    boundary fills, on whole volumes (min and max are exact, so the kernel's
+    tiling changes no value): e = min(my(mx v), mz(min(mx v, my v))) with
+    +inf outside the volume, the dilation Mx(My(Mz e)) with -inf outside it,
+    then the update rounded op by op. ``skel_prev`` is None in round 0."""
+    inf = float("inf")
+
+    def mn(v, dim):
+        return _window3(v, dim, torch.minimum, inf)
+
+    def mx(v, dim):
+        return _window3(v, dim, torch.maximum, -inf)
+
+    a = mn(img, 1)
+    e = torch.minimum(mn(a, 2), mn(torch.minimum(a, mn(img, 2)), 3))
+    opened = mx(mx(mx(e, 3), 2), 1)
+    delta = torch.clamp(img - opened, min=0.0)
+    skel = delta if skel_prev is None else skel_prev + torch.clamp(
+        delta - skel_prev * delta, min=0.0)
+    return skel, e
 
 
 def round_bwd_plain(img, e, skel_prev, d_e_next, d_skel, tile=BWD_TILE):
