@@ -78,7 +78,32 @@ Phases, each of which raises on failure:
    on the whole batch in bf16, each loss and each network's gradient of the
    kernel path within max(3x the two bf16 paths' distance on one sample,
    1e-3) of the plain path's; ms per step of both paths in turns after a
-   warm-up step, and peak device memory.
+   warm-up step, and peak device memory;
+9. the training CLI: a seeded dataset at the config's volume size (512 x 512
+   x 128 x 1 float32; imaging volumes of uniform noise, segmentation volumes
+   of +-1 random tubes in the half x < 256, so a third of the crops must be
+   re-cropped; 2 training and 1 validation volume per domain, the validation
+   volumes also the test set; JAX-layout partition pickles) in a temporary
+   directory; the host feed alone (``VanGanDataset``, pinned batches) in
+   batches/s at DATA_WORKERS 1 and 4; ``python -m vangan_torch train``
+   (through cli.main) at full width with EPOCHS 2, 3 train steps and 1
+   validation step an epoch, PERIOD_2D_CALLBACK 2 and ``--predict-after``:
+   every kernel counter over the run must equal 6 x ``TRAIN_LAUNCHES`` + 2 x
+   phase 6's test-step launches + 17 convs and 28 norms for each generator
+   call of the panels (6) and of the predict-after batches; the event files
+   must parse back (CRCs checked) to the ten finite losses of each epoch and
+   split, and ``elapse``; ``torch_e2.pt`` must hold the four networks, four
+   Adam states, counts of 6 and step 6; the two panels and the two
+   predict-after TIFFs (finite, in [0, 255]) must exist; ``train
+   --resume-epoch 2`` with EPOCHS 3 must continue the counts to 9; and, at
+   the ``VanGan`` level on phase 6's batch, 2 steps, a checkpoint, a fresh
+   ``VanGan`` loading it (the noise generator's state copied across) and 2
+   more steps must give each network's parameters bit-identical to 4
+   straight steps when two straight runs are bit-identical, else within 3x
+   their relative L2 distance (cuDNN's wide-conv weight gradient may not be
+   deterministic). The ``train_cli`` line has the feed's batches/s, the fit's
+   wall time per train step against phase 8's bare step, the checkpoint's
+   snapshot ms, background write s and bytes, and predict-after Mvox/s.
 
 Then one JSON line of the seven kernels (launches counted in one train step
 of phase 8, the path that runs them all, and for K4 and K7 the kernel
@@ -89,9 +114,11 @@ last, the ok line. Without CUDA, or outside the repository, it exits
 non-zero before printing either.
 """
 
+import dataclasses
 import json
 import math
 import os
+import pickle
 import subprocess
 import sys
 import tempfile
@@ -144,6 +171,13 @@ TRAIN_LAUNCHES = {
 # them: K4 one per call, K7 one per round
 TRAIN_KERNEL_LAUNCHES = {"instnorm_fwd": TRAIN_LAUNCHES["instnorm_fwd"],
                          "soft_skel_bwd": TRAIN_LAUNCHES["soft_skel_bwd"]}
+# phase 9: the training CLI
+VOLUME_SHAPE = (512, 512, 128, 1)  # TARG_RAW_IMG_SIZE and TARG_SYNTH_IMG_SIZE
+TUBES = 120            # segmentation tubes a volume (a few % foreground)
+TRAIN_STEPS, VAL_STEPS = 3, 1
+PREDICT_STRIDE = 25    # the stride of train --predict-after
+PANEL_GEN_CALLS = 6    # a saving epoch's panels: 2 x (translated, cycled, identity)
+FEED_BATCHES = 8       # batches timed of the host feed alone
 
 
 def require(cond, msg):
@@ -923,6 +957,309 @@ def check_train_step(ops):
     return res
 
 
+def tubes(rng):
+    """A +-1 segmentation volume of VOLUME_SHAPE: TUBES axis-aligned tubes of
+    radius 2-4 voxels, all in the half x < X/2 (crops starting beyond it hold
+    no foreground and are re-cropped by the feed's rejection sampler)."""
+    X, Y, Z = VOLUME_SHAPE[:3]
+    vol = np.full((X, Y, Z), -1.0, np.float32)
+    for _ in range(TUBES):
+        axis, r = int(rng.integers(3)), int(rng.integers(2, 5))
+        d = np.arange(-r, r + 1)
+        disk = d[:, None] ** 2 + d[None, :] ** 2 <= r * r
+        x0 = int(rng.integers(r, X // 2 - r))
+        y0, z0 = int(rng.integers(r, Y - r)), int(rng.integers(r, Z - r))
+        if axis == 0:
+            vol[:X // 2, y0 - r:y0 + r + 1, z0 - r:z0 + r + 1][:, disk] = 1.0
+        elif axis == 1:
+            vol[x0 - r:x0 + r + 1, :, z0 - r:z0 + r + 1].transpose(1, 0, 2)[:, disk] = 1.0
+        else:
+            vol[x0 - r:x0 + r + 1, y0 - r:y0 + r + 1, :][disk] = 1.0
+    return vol[..., None]
+
+
+def write_dataset(root):
+    """Seeded .npy volumes and the JAX-layout partition pickles
+    (``data{A,B}_partition.pkl``: split -> object array of paths) in
+    ``root``; returns ({A, B}: partition, segmentation foreground share)."""
+    rng = np.random.default_rng(SEED + 9)
+    parts, fg = {}, []
+    for pid, seg in (("A", False), ("B", True)):
+        part = {}
+        for split, n in (("training", 2), ("validation", 1)):
+            d = os.path.join(root, f"{split}{pid}")
+            os.makedirs(d)
+            paths = []
+            for i in range(n):
+                if seg:
+                    vol = tubes(rng)
+                    fg.append(float((vol > 0).mean()))
+                else:
+                    vol = rng.random(VOLUME_SHAPE, dtype=np.float32) * 2 - 1
+                paths.append(os.path.join(d, f"{'seg' if seg else 'img'}_{split}{i}.npy"))
+                np.save(paths[-1], vol)
+            part[split] = np.array(paths, dtype=object)
+        part["testing"] = part["validation"]  # the predict-after volumes
+        with open(os.path.join(root, f"data{pid}_partition.pkl"), "wb") as f:
+            pickle.dump(part, f)
+        parts[pid] = part
+    return parts, float(np.mean(fg))
+
+
+def predict_batches(shape, stride):
+    """gen batches of one complete stitch (padFactor 0.25, stitcher_batch BATCH)."""
+    from vangan_torch.inference.stitcher import stitch_origins
+
+    padded = [d + 2 * int(0.25 * d) for d in shape[:3]]
+    return -(-len(set(stitch_origins(padded, (N, N, N), (stride,) * 3))) // BATCH)
+
+
+def expected_fit_launches(train_steps, test_launches, val_steps, gen_calls):
+    want = {k: train_steps * v for k, v in TRAIN_LAUNCHES.items()}
+    for k, v in test_launches.items():
+        want[k] += val_steps * v
+    want["conv3d_fwd"] += gen_calls * CONV_PATH_CALLS
+    want["instnorm_fwd"] += gen_calls * IN_PATH_CALLS
+    # K4 one kernel a call, K7 one a round
+    return want, {"instnorm_fwd": want["instnorm_fwd"], "soft_skel_bwd": want["soft_skel_bwd"]}
+
+
+def check_exact_resume(tmp):
+    """4 straight steps twice, and 2 steps, a checkpoint, a fresh VanGan
+    loading it and 2 more, at full width on phase 6's batch."""
+    from vangan_torch.config import VanGanConfig
+    from vangan_torch.training.state import NETWORKS
+    from vangan_torch.vangan import VanGan
+
+    cfg = VanGanConfig(SUBVOL_PATCH_SIZE=(N, N, N), BATCH_SIZE=STEP_BATCH,
+                       cldice_iters=SKEL_ITERS, output_dir=tmp)
+    _, real_I, real_S = step_batch()
+
+    def run(gan, n):
+        for _ in range(n):
+            gan.distributed_train_step(real_I, real_S, NOISE, True)
+        torch.cuda.synchronize()
+
+    def flat(gan):
+        return {n: torch.cat([p.detach().flatten() for p in gan.nets[n].parameters()])
+                for n in NETWORKS}
+
+    straight = []
+    for _ in range(2):
+        gan = VanGan(cfg, device=DEVICE)
+        run(gan, 4)
+        straight.append(flat(gan))
+        del gan
+    first = VanGan(cfg, device=DEVICE)
+    run(first, 2)
+    first.save_checkpoint(epoch=1)
+    ck = first.checkpointer
+    ck.wait_until_finished()
+    resumed = VanGan(dataclasses.replace(cfg, seed=SEED + 3), device=DEVICE)
+    resumed.load_checkpoint(epoch=2)
+    require(resumed.checkpoint_loaded and resumed.state.step == 2, "resume: not loaded")
+    resumed.generator.set_state(first.generator.get_state())
+    del first
+    run(resumed, 2)
+    got = flat(resumed)
+    require(resumed.state.step == 4 and set(resumed.state.counts.values()) == {4},
+            f"resume: step {resumed.state.step}, counts {resumed.state.counts}")
+    del resumed
+    rel = lambda a, b: float((a - b).norm() / b.norm())  # noqa: E731
+    report = {}
+    for n in NETWORKS:
+        a, b = straight
+        same = torch.equal(a[n], b[n])
+        report[n] = {"straight_runs_bit_identical": same, "resumed_bit_identical":
+                     torch.equal(got[n], a[n]), "resumed_rel": rel(got[n], a[n]),
+                     "straight_rel": rel(b[n], a[n])}
+        if same:
+            require(report[n]["resumed_bit_identical"], f"{n}: resumed differs: {report[n]}")
+        else:
+            require(report[n]["resumed_rel"] <= 3 * report[n]["straight_rel"],
+                    f"{n}: resumed too far from straight: {report[n]}")
+    return report, {"snapshot_ms": ck.last_snapshot_ms, "write_s": ck.last_write_s,
+                    "bytes": ck.last_bytes}
+
+
+def check_train_cli(ops, train, test):
+    from vangan_torch import cli
+    from vangan_torch.config import VanGanConfig
+    from vangan_torch.data.pipeline import VanGanDataset
+    from vangan_torch.data.preprocess import read_tiff
+    from vangan_torch.inference import mapping
+    from vangan_torch.monitor.tb import read_scalars
+    from vangan_torch.training import loop
+    from vangan_torch.training.state import NETWORKS
+    from vangan_torch.training.step import RESULT_KEYS
+    from vangan_torch.vangan import VanGan
+
+    res = {"volume": list(VOLUME_SHAPE)}
+    with tempfile.TemporaryDirectory(prefix="vangan_smoke_train_") as tmp:
+        data, out = os.path.join(tmp, "data"), os.path.join(tmp, "out")
+        t0 = time.perf_counter()
+        parts, res["seg_foreground"] = write_dataset(data)
+        res["dataset_write_s"] = time.perf_counter() - t0
+        base = dict(SUBVOL_PATCH_SIZE=(N, N, N), BATCH_SIZE=STEP_BATCH, cldice_iters=SKEL_ITERS,
+                    train_steps=TRAIN_STEPS, val_steps=VAL_STEPS, PERIOD_2D_CALLBACK=2,
+                    output_dir=out)
+        cfgs = {}
+        for epochs in (2, 3):
+            cfgs[epochs] = os.path.join(tmp, f"cfg{epochs}.yaml")
+            VanGanConfig(EPOCHS=epochs, **base).to_yaml(cfgs[epochs])
+
+        # the host feed alone: batches/s once the prefetch buffer is drained
+        res["feed_batches_per_s"] = {}
+        for workers in (1, 4):
+            cfg = VanGanConfig(EPOCHS=2, DATA_WORKERS=workers, **base)
+            ds = VanGanDataset(cfg, parts["A"], parts["B"], seed=cfg.seed, device=DEVICE)
+            try:
+                it = ds.train_batches()
+                for _ in range(cfg.PREFETCH_SIZE + 2):
+                    next(it)
+                t0 = time.perf_counter()
+                for _ in range(FEED_BATCHES):
+                    x, y = next(it)
+                res["feed_batches_per_s"][workers] = FEED_BATCHES / (time.perf_counter() - t0)
+            finally:
+                ds.close()
+            require(x.is_pinned() and y.is_pinned() and
+                    tuple(x.shape) == (STEP_BATCH, N, N, N, 1)
+                    and float(y.amax(dim=(1, 2, 3, 4)).min()) >= cfg.SEG_THRESH,
+                    f"feed batch: pinned {x.is_pinned()}, shape {tuple(x.shape)}")
+
+        # wall time of each train() call of the fit and of the predict-after
+        # mapping, and the checkpointer of each save
+        calls = {"train": [], "validate": [], "predict": [], "saves": []}
+        real_train, real_mapping = loop.train, mapping.run_mapping
+        real_save = VanGan.save_checkpoint
+
+        def timed_train(ds, gan, summary, epoch, steps=None, desc=None, training=True,
+                        noise_std=0.0):
+            t = time.perf_counter()
+            out_ = real_train(ds, gan, summary, epoch, steps, desc, training, noise_std)
+            calls["train" if training else "validate"].append(time.perf_counter() - t)
+            return out_
+
+        def timed_mapping(*args, **kwargs):
+            t = time.perf_counter()
+            real_mapping(*args, **kwargs)
+            calls["predict"].append(time.perf_counter() - t)
+
+        def recorded_save(gan, epoch):
+            real_save(gan, epoch)
+            calls["saves"].append(gan.checkpointer)
+
+        def save_times():
+            """The saves of the last run: each write is done (fit waits)."""
+            out_ = [{"snapshot_ms": c.last_snapshot_ms, "write_s": c.last_write_s,
+                     "bytes": c.last_bytes} for c in calls["saves"]]
+            calls["saves"].clear()
+            return out_
+
+        n_pred = predict_batches(VOLUME_SHAPE, PREDICT_STRIDE)
+        loop.train, mapping.run_mapping, VanGan.save_checkpoint = (timed_train, timed_mapping,
+                                                                   recorded_save)
+        try:
+            torch.cuda.synchronize()
+            reset_counters(ops)
+            cli.main(["train", "--config", cfgs[2], "--data-dir", data, "--device", DEVICE,
+                      "--predict-after"])
+            torch.cuda.synchronize()
+            launches, kernel_launches = counters(ops), kernel_counters(ops)
+            fit_saves = save_times()
+        finally:
+            loop.train, mapping.run_mapping, VanGan.save_checkpoint = (real_train, real_mapping,
+                                                                       real_save)
+        want, want_kernels = expected_fit_launches(2 * TRAIN_STEPS, test["launches"],
+                                                   2 * VAL_STEPS, PANEL_GEN_CALLS + 2 * n_pred)
+        require(launches == want, f"train CLI launched {launches}, expected {want}")
+        require(kernel_launches == want_kernels,
+                f"train CLI launched {kernel_launches} kernels, expected {want_kernels}")
+
+        scalars = {split: read_scalars(os.path.join(out, "TB_Logs", split))
+                   for split in ("train", "validate")}
+        for split, tags in (("train", set(RESULT_KEYS) | {"elapse"}),
+                            ("validate", set(RESULT_KEYS))):
+            require(set(scalars[split]) == tags, f"{split} event tags {sorted(scalars[split])}")
+            for tag, events in scalars[split].items():
+                require([e for e, _ in events] == [0, 1] and all(math.isfinite(v)
+                                                                  for _, v in events),
+                        f"{split}/{tag}: {events}")
+        ckdir = os.path.join(out, "checkpoints")
+        require(os.listdir(ckdir) == ["torch_e2.pt"], f"checkpoints {os.listdir(ckdir)}")
+        ck = torch.load(os.path.join(ckdir, "torch_e2.pt"), map_location=DEVICE,
+                        weights_only=True)
+        ts = ck["train_state"]
+        require(sorted(ck) == sorted([*NETWORKS, "train_state"]) and
+                sorted(ts["opt"]) == sorted(NETWORKS) and
+                all(len(ts["opt"][n]["state"]) == len(ts["opt"][n]["param_groups"][0]["params"])
+                    == len(ck[n]) and
+                    all(set(s_) == {"step", "exp_avg", "exp_avg_sq"}
+                        for s_ in ts["opt"][n]["state"].values()) for n in NETWORKS) and
+                set(ts["counts"].values()) == {2 * TRAIN_STEPS} and
+                ts["step"] == 2 * TRAIN_STEPS,
+                f"torch_e2.pt: keys {sorted(ck)}, counts {ts['counts']}, step {ts['step']}")
+        fit_bytes = os.path.getsize(os.path.join(ckdir, "torch_e2.pt"))
+        del ck, ts
+        for panel in ("2_genIS.png", "2_genSI.png"):
+            require(os.path.isfile(os.path.join(out, "GANMonitor", panel)), f"no {panel}")
+        for pid in ("A", "B"):
+            name = os.path.splitext(os.path.basename(parts[pid]["testing"][0]))[0]
+            vol = read_tiff(os.path.join(out, f"VANGAN_{name}.tiff"))
+            require(vol.shape == (VOLUME_SHAPE[2], *VOLUME_SHAPE[:2], 1) and
+                    bool(np.isfinite(vol).all()) and vol.min() >= 0 and vol.max() <= 255,
+                    f"predict-after {name}: shape {vol.shape}")
+
+        # resume: one more epoch from torch_e2.pt
+        VanGan.save_checkpoint = recorded_save
+        try:
+            torch.cuda.synchronize()
+            reset_counters(ops)
+            cli.main(["train", "--config", cfgs[3], "--data-dir", data, "--device", DEVICE,
+                      "--resume-epoch", "2"])
+            torch.cuda.synchronize()
+            resume_launches = counters(ops)
+            resume_saves = save_times()
+        finally:
+            VanGan.save_checkpoint = real_save
+        want3, _ = expected_fit_launches(TRAIN_STEPS, test["launches"], VAL_STEPS,
+                                         PANEL_GEN_CALLS)
+        require(resume_launches == want3, f"resumed train launched {resume_launches}, "
+                f"expected {want3}")
+        ts3 = torch.load(os.path.join(ckdir, "torch_e3.pt"), map_location="cpu",
+                         weights_only=True)["train_state"]
+        require(set(ts3["counts"].values()) == {3 * TRAIN_STEPS} and
+                ts3["step"] == 3 * TRAIN_STEPS,
+                f"torch_e3.pt: counts {ts3['counts']}, step {ts3['step']}")
+        elapse = read_scalars(os.path.join(out, "TB_Logs", "train"))["elapse"]
+        require([e for e, _ in elapse] == [0, 1, 2], f"elapse after resume: {elapse}")
+
+        torch.cuda.empty_cache()
+        res["exact_resume"], res["checkpoint"] = check_exact_resume(tmp)
+    # the process's first save (the fit's) pays for pinning its host memory;
+    # the later ones reuse the caching host allocator's blocks
+    res["checkpoint"].update(fit_file_bytes=fit_bytes, fit_saves=fit_saves,
+                             resume_saves=resume_saves)
+    bare_train, bare_test = train["kernel_ms_per_step"] / 1e3, test["kernel_ms_per_step"] / 1e3
+    res.update({
+        "launches": launches, "kernel_launches": kernel_launches,
+        "resume_launches": resume_launches, "losses": {
+            split: {k: v[-1][1] for k, v in scalars[split].items() if k != "elapse"}
+            for split in scalars},
+        "epoch_elapse_s": [v for _, v in elapse],
+        "fit_train_s": calls["train"], "fit_validate_s": calls["validate"],
+        "fit_s_per_train_step": [t / TRAIN_STEPS for t in calls["train"]],
+        "bare_train_step_s": bare_train, "bare_test_step_s": bare_test,
+        "fit_over_bare": [t / TRAIN_STEPS / bare_train for t in calls["train"]],
+        "predict_after": {"volumes": 2, "batches": 2 * n_pred, "seconds": calls["predict"],
+                          "mvox_per_s": 2 * math.prod(VOLUME_SHAPE) / sum(calls["predict"])
+                          / 1e6},
+        "counts_after_resume": ts3["counts"], "step_after_resume": ts3["step"]})
+    print("train_cli", json.dumps(res))
+    return res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -960,11 +1297,13 @@ def main() -> int:
     check_generator(model, conv_ops, in_ops)
     del model
     torch.cuda.empty_cache()
-    check_test_step(conv_ops, in_ops, skel_ops)
+    test = check_test_step(conv_ops, in_ops, skel_ops)
     torch.cuda.empty_cache()
     check_predict(conv_ops, in_ops)
     torch.cuda.empty_cache()
     train = check_train_step((conv_ops, in_ops, skel_ops))
+    torch.cuda.empty_cache()
+    check_train_cli((conv_ops, in_ops, skel_ops), train, test)
 
     require("jax" not in sys.modules and "vangan_tpu" not in sys.modules,
             "the port imported JAX or the JAX package")

@@ -28,7 +28,11 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "import vangan_torch.ops.ssim, vangan_torch.ops.norms, vangan_torch.losses\n"
         "import vangan_torch.models.discriminator, vangan_torch.training.step\n"
         "import vangan_torch.training.optimizers, vangan_torch.training.state\n"
-        "import vangan_torch.device\n"
+        "import vangan_torch.device, vangan_torch.checkpoint, vangan_torch.data.pipeline\n"
+        "import vangan_torch.data.preprocess, vangan_torch.training.loop, vangan_torch.monitor\n"
+        "import vangan_torch.monitor.tb, vangan_torch.monitor.gan_monitor\n"
+        "import vangan_torch.monitor.profiling, vangan_torch.monitor.panels\n"
+        "import vangan_torch.inference.mapping\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'vangan_tpu'))\n"
         "assert not bad, bad\n"
@@ -48,6 +52,15 @@ def no_cuda():
 def test_predict_without_cuda_exits_nonzero(no_cuda, tmp_path):
     proc = _python("-m", "vangan_torch", "predict", "--input", str(tmp_path),
                    "--output", str(tmp_path / "out"))
+    assert proc.returncode != 0
+    assert "CUDA is not available" in proc.stderr and "--device cpu" in proc.stderr
+    assert not (tmp_path / "out").exists()
+
+
+@pytest.mark.parametrize("cmd", [["train", "--data-dir", "DATA"], ["sweep", "--input", "DATA"]])
+def test_train_and_sweep_without_cuda_exit_nonzero(no_cuda, tmp_path, cmd):
+    args = [a.replace("DATA", str(tmp_path)) for a in cmd]
+    proc = _python("-m", "vangan_torch", *args, "--output-dir", str(tmp_path / "out"))
     assert proc.returncode != 0
     assert "CUDA is not available" in proc.stderr and "--device cpu" in proc.stderr
     assert not (tmp_path / "out").exists()
@@ -73,6 +86,11 @@ def test_entry_points_default_to_cuda_and_raise_without_it(no_cuda):
         stitch_subvolumes(lambda x: x, np.zeros((16, 16, 16, 1), np.float32),
                           (1, 16, 16, 16, 1), stride=(16, 16, 16), save=False)
     assert VanGan(cfg, device="cpu").device.type == "cpu"
+    from vangan_torch.checkpoint import load_exported
+    from vangan_torch.data.pipeline import VanGanDataset
+
+    for fn in (VanGanDataset, load_exported):
+        assert inspect.signature(fn).parameters["device"].default == "cuda"
 
 
 def test_chip_smoke_without_cuda_exits_nonzero_with_no_result(no_cuda):

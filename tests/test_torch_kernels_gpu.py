@@ -515,3 +515,84 @@ def test_instnorm_backward_is_deterministic(cuda, shape):
     second, _ = _in_backward(cuda, torch.bfloat16, shape, "leaky_relu")
     for a, b in zip(first, second):
         assert torch.equal(a, b)
+
+
+# --- the training slice on the card: the pinned hand-off and checkpoints ---
+
+
+def _tiny_training(tmp_path, seed=0):
+    """A small VanGan on the card (every conv below 128 channels: all on the
+    kernels, which are deterministic) and its config."""
+    from vangan_torch.config import VanGanConfig
+    from vangan_torch.vangan import VanGan
+
+    cfg = VanGanConfig(BATCH_SIZE=2, SUBVOL_PATCH_SIZE=(32, 32, 32), gen_filters=4,
+                       disc_filters=8, cldice_iters=2, output_dir=str(tmp_path), seed=seed)
+    return cfg, VanGan(cfg, device="cuda")
+
+
+def _partitions(tmp_path):
+    rng = np.random.default_rng(0)
+    parts = []
+    for seg in (False, True):
+        paths = []
+        for i in range(2):
+            v = (np.where(rng.uniform(size=(40, 36, 34, 1)) > 0.9, 1.0, -1.0) if seg
+                 else rng.normal(size=(40, 36, 34, 1))).astype(np.float32)
+            paths.append(str(tmp_path / f"{'seg' if seg else 'img'}{i}.npy"))
+            np.save(paths[-1], v)
+        parts.append({"training": paths, "validation": paths})
+    return parts
+
+
+def test_pinned_batches_give_the_pageable_step(cuda, tmp_path):
+    """The feed's pinned batches (device cuda), copied without blocking,
+    give the same steps as the same batches from pageable memory."""
+    from vangan_torch.data.pipeline import VanGanDataset
+
+    parts = _partitions(tmp_path)
+    runs = []
+    for device in ("cuda", "cpu"):
+        cfg, gan = _tiny_training(tmp_path / device)
+        ds = VanGanDataset(cfg, *parts, seed=1, device=device)
+        it = ds.train_batches()
+        try:
+            for _ in range(2):
+                x, y = next(it)
+                assert x.is_pinned() == y.is_pinned() == (device == "cuda")
+                losses = gan.distributed_train_step(x, y, 0.1, True)
+        finally:
+            ds.close()
+        runs.append((gan, {k: float(v) for k, v in losses.items()}))
+    (a, la), (b, lb) = runs
+    assert la == lb
+    for name in a.nets:
+        for p, q in zip(a.nets[name].parameters(), b.nets[name].parameters()):
+            assert torch.equal(p, q)
+
+
+def test_checkpoint_round_trip_with_fused_adam_on_the_card(cuda, tmp_path):
+    """Save after a step, load into a fresh VanGan on the card (the fused
+    Adam's step tensors stay float32 on the device), and the next step of
+    both is the same."""
+    rng = np.random.default_rng(2)
+    batch = [rng.normal(size=(2, 32, 32, 32, 1)).astype(np.float32),
+             np.where(rng.uniform(size=(2, 32, 32, 32, 1)) > 0.8, 1.0, -1.0).astype(np.float32)]
+    _, gan = _tiny_training(tmp_path)
+    gan.distributed_train_step(*batch, 0.1, True)
+    gan.save_checkpoint(epoch=0)
+    _, fresh = _tiny_training(tmp_path, seed=5)
+    fresh.load_checkpoint(epoch=1)
+    assert fresh.checkpoint_loaded and fresh.state.step == 1
+    for name in gan.nets:
+        for p, q in zip(gan.nets[name].parameters(), fresh.nets[name].parameters()):
+            assert torch.equal(p, q)
+            sp, sq = gan.state.opt[name].state[p], fresh.state.opt[name].state[q]
+            assert sq["step"].device.type == "cuda" and sq["step"].dtype == torch.float32
+            assert all(torch.equal(sp[k], sq[k]) for k in ("step", "exp_avg", "exp_avg_sq"))
+    fresh.generator.set_state(gan.generator.get_state())
+    gan.distributed_train_step(*batch, 0.1, True)
+    fresh.distributed_train_step(*batch, 0.1, True)
+    for name in gan.nets:
+        for p, q in zip(gan.nets[name].parameters(), fresh.nets[name].parameters()):
+            assert torch.equal(p, q)

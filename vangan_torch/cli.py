@@ -1,13 +1,22 @@
-"""Command-line interface of the PyTorch port: ``predict``.
+"""Command-line interface of the PyTorch port: ``train``, ``predict``, ``sweep``.
 
+    python -m vangan_torch train --config cfg.yaml --data-dir DATA [--output-dir DIR] \\
+        [--resume-epoch N] [--semi-supervised-dir DIR] [--predict-after] [--device cuda]
     python -m vangan_torch predict --config cfg.yaml --input DIR --output DIR \\
         [--epoch N | --weights FILE] [--fake-imaging] [--stride X Y Z] [--device cuda]
+    python -m vangan_torch sweep --config cfg.yaml --input DIR --start 100 --end 200 \\
+        [--step 2] [--fake-imaging] [--device cuda]
 
-Segments (or, with ``--fake-imaging``, maps to imaging) every ``.npy`` volume
-in ``--input`` by sliding-window stitching and writes one TIFF per volume.
-The flags are those of ``python -m vangan_tpu predict`` plus ``--weights``
-(a weights file of the port) and ``--device`` (default ``cuda``; ``cpu`` runs
-the plain torch versions of the kernels).
+``train`` reads the partitions that ``python -m vangan_tpu preprocess`` wrote
+into ``DATA`` and trains, writing ``checkpoints/torch_e{N}.pt``, panels,
+TensorBoard event files and ``Args_Settings.txt`` under the output dir.
+``predict`` segments (or, with ``--fake-imaging``, maps to imaging) every
+``.npy`` volume in ``--input`` by sliding-window stitching and writes one TIFF
+per volume; ``--epoch N`` serves what ``train`` saved at epoch N. ``sweep``
+runs that inference from every ``--step``-th checkpoint. The flags are those
+of ``python -m vangan_tpu`` plus ``--weights`` (a weights file of the port)
+and ``--device`` (default ``cuda``, which refuses to run without CUDA;
+``cpu`` runs the plain torch versions of the kernels).
 """
 
 from __future__ import annotations
@@ -26,15 +35,83 @@ def _load_cfg(args) -> VanGanConfig:
     return cfg
 
 
-def cmd_predict(args) -> None:
+def _device(args):
     import torch
 
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
-        sys.exit(f"predict: --device {args.device} but CUDA is not available on this "
+        sys.exit(f"{args.cmd}: --device {args.device} but CUDA is not available on this "
                  "host; pass --device cpu to run the plain torch versions on the CPU")
     if device.type not in ("cuda", "cpu"):
-        sys.exit(f"predict: --device must be cuda[:N] or cpu, got {args.device!r}")
+        sys.exit(f"{args.cmd}: --device must be cuda[:N] or cpu, got {args.device!r}")
+    return device
+
+
+def _load_partitions(cfg, data_dir):
+    from vangan_torch.data.preprocess import DataPreprocessor
+
+    imaging = DataPreprocessor(cfg, partition_id="A", domain="imaging")
+    imaging.load_partition(os.path.join(data_dir, "dataA_partition.pkl"))
+    seg = DataPreprocessor(cfg, partition_id="B", domain="segmentation")
+    seg.load_partition(os.path.join(data_dir, "dataB_partition.pkl"))
+    return imaging, seg
+
+
+def cmd_train(args) -> None:
+    device = _device(args)
+    cfg = _load_cfg(args)
+    cfg.require_one_device()
+    os.makedirs(cfg.output_dir, exist_ok=True)
+
+    from vangan_torch.config import save_args
+    from vangan_torch.data.pipeline import VanGanDataset
+    from vangan_torch.monitor import GanMonitor, TBSummary
+    from vangan_torch.monitor.profiling import enable_nan_debugging, trace
+    from vangan_torch.training.loop import fit
+    from vangan_torch.vangan import VanGan
+
+    if cfg.debug_nans:
+        enable_nan_debugging()
+
+    imaging, seg = _load_partitions(cfg, args.data_dir)
+    dataset = VanGanDataset(cfg, imaging.partition, seg.partition, seed=cfg.seed,
+                            semi_supervised_dir=args.semi_supervised_dir, device=device)
+    summary = None
+    try:
+        if cfg.plot_dataset_samples:
+            dataset.plot_sample_dataset(os.path.join(cfg.output_dir, "GANMonitor"))
+        summary = TBSummary(os.path.join(cfg.output_dir, "TB_Logs"))
+        gan = VanGan(cfg, device=device, steps_per_epoch=dataset.train_steps)
+        monitor = GanMonitor(
+            cfg, dataset=dataset, imaging_val_data=imaging.partition["validation"],
+            segmentation_val_data=seg.partition["validation"],
+            monitor_dir=os.path.join(cfg.output_dir, "GANMonitor"),
+        )
+        save_args(cfg, os.path.join(cfg.output_dir, "Args_Settings.txt"))
+
+        start_epoch = 0
+        if args.resume_epoch is not None:
+            gan.load_checkpoint(epoch=args.resume_epoch)
+            start_epoch = args.resume_epoch
+        with trace(cfg.profile_dir):
+            fit(cfg, gan, dataset, summary, monitor, start_epoch=start_epoch)
+    finally:
+        dataset.close()
+        if summary is not None:
+            summary.close()
+
+    # inference on the test sets after training (main.py:237-243)
+    if args.predict_after:
+        from vangan_torch.inference.mapping import run_mapping
+
+        run_mapping(gan, imaging.partition["testing"], cfg.INPUT_IMG_SIZE, filetext="VANGAN_",
+                    filepath=cfg.output_dir, segmentation=True, stride=(25, 25, 25))
+        run_mapping(gan, seg.partition["testing"], cfg.INPUT_IMG_SIZE, filetext="VANGAN_",
+                    filepath=cfg.output_dir, segmentation=False, stride=(25, 25, 25))
+
+
+def cmd_predict(args) -> None:
+    device = _device(args)
 
     from vangan_torch.inference.mapping import run_mapping
     from vangan_torch.vangan import VanGan
@@ -44,7 +121,7 @@ def cmd_predict(args) -> None:
     if any(f.lower().endswith((".tif", ".tiff")) for f in listing):
         raise NotImplementedError(
             "raw TIFF input is not yet ported (it needs the preprocessing of "
-            "ROADMAP.md Queue 1, preprocessing); preprocess to .npy with "
+            "ROADMAP.md Queue 1 item 3); preprocess to .npy with "
             "`python -m vangan_tpu preprocess` first")
     gan = VanGan(cfg, device=device)
     if args.weights is not None:
@@ -63,9 +140,32 @@ def cmd_predict(args) -> None:
                 segmentation=not args.fake_imaging, stride=tuple(args.stride))
 
 
+def cmd_sweep(args) -> None:
+    device = _device(args)
+
+    from vangan_torch.inference.mapping import epoch_sweep
+    from vangan_torch.vangan import VanGan
+
+    cfg = _load_cfg(args)
+    gan = VanGan(cfg, device=device, steps_per_epoch=1)
+    epoch_sweep(cfg, gan, args.input, start=args.start, end=args.end, step=args.step,
+                segmentation=not args.fake_imaging)
+
+
 def main(argv=None) -> None:
     p = argparse.ArgumentParser(prog="vangan_torch")
     sub = p.add_subparsers(dest="cmd", required=True)
+    device_help = "cuda (default) runs the CUDA kernels; cpu the plain versions"
+
+    pt = sub.add_parser("train", help="train VAN-GAN")
+    pt.add_argument("--config", default=None)
+    pt.add_argument("--data-dir", required=True)
+    pt.add_argument("--output-dir", default=None)
+    pt.add_argument("--resume-epoch", type=int, default=None)
+    pt.add_argument("--semi-supervised-dir", default=None)
+    pt.add_argument("--predict-after", action="store_true")
+    pt.add_argument("--device", default="cuda", help=device_help)
+    pt.set_defaults(fn=cmd_train)
 
     pr = sub.add_parser("predict", help="sliding-window inference on .npy volumes")
     pr.add_argument("--config", default=None)
@@ -78,9 +178,19 @@ def main(argv=None) -> None:
     pr.add_argument("--fake-imaging", action="store_true")
     pr.add_argument("--stride", type=int, nargs=3, default=(25, 25, 25))
     pr.add_argument("--output-dir", default=None)
-    pr.add_argument("--device", default="cuda",
-                    help="cuda (default) runs the CUDA kernels; cpu the plain versions")
+    pr.add_argument("--device", default="cuda", help=device_help)
     pr.set_defaults(fn=cmd_predict)
+
+    ps = sub.add_parser("sweep", help="epoch sweep over checkpoints")
+    ps.add_argument("--config", default=None)
+    ps.add_argument("--input", required=True)
+    ps.add_argument("--start", type=int, default=100)
+    ps.add_argument("--end", type=int, default=200)
+    ps.add_argument("--step", type=int, default=2)
+    ps.add_argument("--fake-imaging", action="store_true")
+    ps.add_argument("--output-dir", default=None)
+    ps.add_argument("--device", default="cuda", help=device_help)
+    ps.set_defaults(fn=cmd_sweep)
 
     args = p.parse_args(argv)
     args.fn(args)

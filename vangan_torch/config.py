@@ -9,6 +9,7 @@ anything that imports it, runs without the JAX package.
 from __future__ import annotations
 
 import dataclasses
+import os
 from dataclasses import dataclass
 from typing import Optional, Tuple
 
@@ -22,11 +23,21 @@ class VanGanConfig:
     EPOCHS: int = 200
     BATCH_SIZE: int = 3  # per-device batch
     GLOBAL_BATCH_SIZE: Optional[int] = None  # derived: N_DEVICES * BATCH_SIZE
+    PREFETCH_SIZE: int = 4  # batches the data feed's prefetch thread holds
+    # host sampler threads per split: 1 is the serial stream; W > 1 gives
+    # each worker its own seeded sampler pair (deterministic per seed and W)
+    DATA_WORKERS: int = 1
     INITIAL_LR: float = 2e-4
     INITIATE_LR_DECAY: Optional[float] = None  # derived: 0.5 * EPOCHS
     NO_NOISE: Optional[int] = None  # derived: EPOCHS (epoch when disc noise hits 0)
+    CHANNELS: int = 1
     DIMENSIONS: int = 3
     SUBVOL_PATCH_SIZE: Tuple[int, ...] = (128, 128, 128)
+
+    # epoch-end panels and checkpoint every PERIOD_2D_CALLBACK epochs; the
+    # stitched 3-D dump on PERIOD_3D_CALLBACK (main.py:104-105)
+    PERIOD_2D_CALLBACK: int = 2
+    PERIOD_3D_CALLBACK: int = 2
 
     # loss weights and types (vangan.py:25-34, loss_functions.py defaults)
     lambda_cycle: float = 10.0
@@ -45,7 +56,14 @@ class VanGanConfig:
     identity_loss_SI_type: str = "mae"
     layer_noise: float = 0.1  # discriminator noise sigma
     ncritic: int = 5  # generator update every ncritic steps (WGAN only)
-    train_steps: Optional[int] = None  # steps per epoch of the LR schedule, if known
+
+    # data feed (dataset.py:48-49, 235)
+    SEG_THRESH: float = 0.8  # a segmentation crop is kept when its max reaches this
+    REJECTION_MAX_TRIES: int = 200
+
+    # steps per epoch; None: from the partitions (main.py:189-193)
+    train_steps: Optional[int] = None
+    val_steps: Optional[int] = None
 
     gen_filters: int = 16
     disc_filters: int = 64
@@ -56,6 +74,9 @@ class VanGanConfig:
     # version; a CPU tensor always takes the plain version
     use_pallas_skeleton: bool = True
     stitcher_batch: int = 8  # patches per generator batch in sliding-window inference
+    profile_dir: Optional[str] = None  # torch.profiler trace of the fit (None = off)
+    debug_nans: bool = False  # autograd anomaly detection (vangan.py:290-292)
+    plot_dataset_samples: bool = True  # the feed's sample panels at the start of train
 
     def __post_init__(self) -> None:
         if self.GLOBAL_BATCH_SIZE is None:
@@ -79,6 +100,21 @@ class VanGanConfig:
         """The stitcher's ``(GB, kx, ky, kz, C)`` patch spec (the reference's
         INPUT_IMG_SIZE convention; the stitcher reads kx, ky, kz)."""
         return (self.stitcher_batch, *self.SUBVOL_PATCH_SIZE[:3], 1)
+
+    @property
+    def INPUT_IMG_SIZE(self) -> Tuple[int, ...]:
+        """The global batch's shape ``(GB, X, Y, Z, 1)`` (main.py:87-101)."""
+        return (self.GLOBAL_BATCH_SIZE, *self.SUBVOL_PATCH_SIZE[:3], 1)
+
+    @property
+    def subvol_patch_shape(self) -> Tuple[int, ...]:
+        """Per-sample imaging patch shape with channels (vangan.py:53-54)."""
+        return (*self.SUBVOL_PATCH_SIZE[:3], self.CHANNELS)
+
+    @property
+    def seg_subvol_patch_shape(self) -> Tuple[int, ...]:
+        """Per-sample segmentation patch shape (vangan.py:55-56)."""
+        return (*self.SUBVOL_PATCH_SIZE[:3], 1)
 
     def decay_start_step(self, steps_per_epoch: int) -> int:
         return int(self.INITIATE_LR_DECAY * steps_per_epoch)
@@ -105,3 +141,26 @@ class VanGanConfig:
     def to_yaml(self, path: str) -> None:
         with open(path, "w") as f:
             yaml.safe_dump(dataclasses.asdict(self), f, sort_keys=False)
+
+    def require_one_device(self) -> None:
+        """Training runs on one card: ``N_DEVICES`` > 1 raises. (The losses
+        alone take ``N_DEVICES`` as the JAX package's per-device grouping,
+        which the test step's parity tests use.)"""
+        if self.N_DEVICES != 1:
+            raise NotImplementedError(f"N_DEVICES={self.N_DEVICES}: multi-GPU data parallelism "
+                                      "is not ported yet (ROADMAP.md Queue 1 item 5)")
+
+
+def save_args(cfg, filename: str) -> None:
+    """Dump every config field to a text file (utils.py:396-409 ``Args_Settings.txt``)."""
+
+    def format_value(value):
+        if isinstance(value, (tuple, list)):
+            return f"({', '.join(map(str, value))})"
+        return str(value)
+
+    os.makedirs(os.path.dirname(os.path.abspath(filename)), exist_ok=True)
+    with open(filename, "w") as f:
+        f.write("Command line arguments:\n")
+        for arg, value in dataclasses.asdict(cfg).items():
+            f.write(f"{arg}: {format_value(value)}\n")

@@ -1,5 +1,7 @@
-"""Batch inference over test-set file lists (``GanMonitor.run_mapping``,
-custom_callback.py:466-509): counterpart of ``vangan_tpu.inference.mapping``."""
+"""Batch inference over test-set file lists and the checkpoint epoch sweep:
+counterpart of ``vangan_tpu.inference.mapping`` (``GanMonitor.run_mapping``,
+custom_callback.py:466-509; ``post_training.epoch_sweep``,
+post_training.py:4-39)."""
 
 from __future__ import annotations
 
@@ -46,3 +48,32 @@ def run_mapping(
             blend=blend,
             device=vangan.device,
         )
+
+
+def epoch_sweep(
+    cfg,
+    vangan,
+    test_path,
+    start: int = 100,
+    end: int = 200,
+    step: int = 2,
+    segmentation: bool = True,
+    sub_img_size: Optional[Sequence[int]] = None,
+) -> None:
+    """Inference from every ``step``-th checkpoint in [start, end], for model
+    selection (post_training.py:4-39): outputs go to
+    ``<output_dir>/Epoch_Sampling/e{N}/``."""
+    if isinstance(test_path, (list, tuple, np.ndarray)):
+        test_files = [str(p) for p in test_path]
+    else:
+        test_files = [os.path.join(test_path, f) for f in sorted(os.listdir(test_path))]
+
+    sweep_dir = os.path.join(cfg.output_dir, "Epoch_Sampling")
+    os.makedirs(sweep_dir, exist_ok=True)
+    for epoch in range(start, end + 1, step):
+        vangan.load_checkpoint(epoch=epoch)
+        out_dir = os.path.join(sweep_dir, f"e{epoch}")
+        os.makedirs(out_dir, exist_ok=True)
+        run_mapping(vangan, test_files, sub_img_size or cfg.INPUT_IMG_SIZE,
+                    segmentation=segmentation, stride=(50, 50, 50), padFactor=0.1,
+                    filetext="VANGAN_", filepath=out_dir)

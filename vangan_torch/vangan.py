@@ -1,11 +1,12 @@
 """The ``VanGan`` facade of the port: the four networks on one device.
 
 Counterpart of ``vangan_tpu.vangan.VanGan`` and its free ``train`` loop
-(vangan.py:20-550) as far as the port goes: serving (``gen_IS_batched``,
-``gen_SI_batched``, weights by epoch), training (``distributed_train_step``,
-``train(..., training=True)``) and evaluation (``distributed_test_step``,
-``train(..., training=False)``). The data feed, checkpoints of the optimizer
-state and the epoch loop are not ported yet (ROADMAP.md Queue 1).
+(vangan.py:20-550): serving (``gen_IS_batched``, ``gen_SI_batched``, weights
+by epoch), training (``distributed_train_step``, ``train(...,
+training=True)``), evaluation (``distributed_test_step``, ``train(...,
+training=False)``) and checkpoints of the whole training state by epoch
+(``save_checkpoint``, ``load_checkpoint``). ``training.loop.fit`` runs the
+epochs.
 """
 
 from __future__ import annotations
@@ -17,6 +18,7 @@ from typing import Dict, Iterable, Optional, Tuple
 import numpy as np
 import torch
 
+from vangan_torch.checkpoint import VanGanCheckpointer
 from vangan_torch.config import VanGanConfig
 from vangan_torch.device import resolve_device
 from vangan_torch.losses import LossScales
@@ -55,8 +57,13 @@ class VanGan:
         self.nets = {name: models[name].to(self.device).eval() for name in NETWORKS}
         self.scales = LossScales.from_config(cfg)
         self.state = make_train_state(self.nets, cfg, self.steps_per_epoch)
-        # noise and dropout draws of the train step
+        # noise and dropout draws of the train step: restarted from seed + 1
+        # by every construction and not checkpointed, as the JAX package's
+        # _step_rng (vangan.py:96)
         self.generator = torch.Generator(device=self.device).manual_seed(cfg.seed + 1)
+        self.current_epoch = 0
+        self.checkpoint_loaded = False
+        self._checkpointer: Optional[VanGanCheckpointer] = None
 
     gen_IS = property(lambda self: self.nets["gen_IS"])
     gen_SI = property(lambda self: self.nets["gen_SI"])
@@ -81,23 +88,26 @@ class VanGan:
         with torch.inference_mode():
             return self.gen_SI(x)
 
+    def _on_device(self, batch) -> torch.Tensor:
+        """A batch (numpy, or a torch tensor: pinned host memory from the
+        data feed is copied without blocking the host) on the device."""
+        return torch.as_tensor(batch, dtype=torch.float32).to(self.device, non_blocking=True)
+
     def distributed_train_step(self, real_I, real_S, noise_std: float,
                                update_gen: bool) -> Dict[str, torch.Tensor]:
         """One optimisation step of the four networks on a (B, X, Y, Z, 1)
         imaging and segmentation batch (numpy or torch), discriminator noise
         σ ``noise_std``, the generators updated only with ``update_gen``:
         the losses as a dict of 0-d tensors on the device."""
-        x = torch.as_tensor(real_I, dtype=torch.float32).to(self.device)
-        y = torch.as_tensor(real_S, dtype=torch.float32).to(self.device)
-        return step.train_step(self.nets, self.cfg, self.scales, self.state, x, y,
+        return step.train_step(self.nets, self.cfg, self.scales, self.state,
+                               self._on_device(real_I), self._on_device(real_S),
                                float(noise_std), bool(update_gen), self.generator)
 
     def distributed_test_step(self, real_I, real_S) -> Dict[str, torch.Tensor]:
         """The losses of one (B, X, Y, Z, 1) imaging and segmentation batch
         (numpy or torch), without gradients: a dict of 0-d tensors on the device."""
-        x = torch.as_tensor(real_I, dtype=torch.float32).to(self.device)
-        y = torch.as_tensor(real_S, dtype=torch.float32).to(self.device)
-        return step.test_step(self.nets, self.cfg, self.scales, x, y)
+        return step.test_step(self.nets, self.cfg, self.scales, self._on_device(real_I),
+                              self._on_device(real_S))
 
     def weights_path(self, epoch: int) -> str:
         """Where weights of ``epoch`` live: ``<output_dir>/checkpoints/torch_e{epoch}.pt``."""
@@ -118,6 +128,41 @@ class VanGan:
             if name in state:
                 net.load_state_dict(state[name], strict=True)
 
+    # --- checkpoints of the whole training state (vangan.py:247-268) ---
+
+    @property
+    def checkpointer(self) -> VanGanCheckpointer:
+        """The checkpointer of ``<output_dir>/checkpoints``, made at first use."""
+        if self._checkpointer is None:
+            self._checkpointer = VanGanCheckpointer(self.cfg.output_dir)
+        return self._checkpointer
+
+    def checkpoint_state(self) -> dict:
+        """The four networks' state_dicts under their names and ``train_state``
+        (the optimizers, update counts and step): what a checkpoint holds.
+        Makes the Adam moments of networks not yet updated."""
+        self.state.init_moments()
+        return {**{name: net.state_dict() for name, net in self.nets.items()},
+                "train_state": self.state.state_dict()}
+
+    def save_checkpoint(self, epoch: int) -> None:
+        """Write ``torch_e{epoch+1}.pt`` asynchronously (the checkpointer's ``save``)."""
+        self.checkpointer.save(self.checkpoint_state(), epoch)
+
+    def load_checkpoint(self, epoch: Optional[int] = None, expect_partial: bool = False,
+                        newpath: Optional[str] = None) -> None:
+        """Restore ``torch_e{epoch}.pt`` (of ``newpath`` if given): the
+        networks, optimizers, counts and step; a missing file leaves the
+        state as it is, after "Error: Checkpoint not found!"."""
+        restored = self.checkpointer.load(self.checkpoint_state(), epoch, newpath=newpath,
+                                          expect_partial=expect_partial)
+        if restored is None:
+            return
+        for name, net in self.nets.items():
+            net.load_state_dict(restored[name], strict=True)
+        self.state.load_state_dict(restored["train_state"])
+        self.checkpoint_loaded = True
+
 
 def train(ds: Iterable[Tuple[np.ndarray, np.ndarray]], gan: VanGan, summary, epoch: int,
           steps: Optional[int] = None, desc: Optional[str] = None, training: bool = True,
@@ -134,7 +179,7 @@ def train(ds: Iterable[Tuple[np.ndarray, np.ndarray]], gan: VanGan, summary, epo
 
     def drain() -> None:
         if pending:
-            keys = list(pending[0])
+            keys = sorted(pending[0])  # the JAX package's order: device_get sorts dict keys
             rows = torch.stack([torch.stack([r[k] for k in keys]) for r in pending])
             for row in rows.cpu().tolist():  # one device-to-host copy per chunk
                 append_dict(results, dict(zip(keys, row)))
