@@ -21,7 +21,8 @@ Phases, each of which raises on failure:
    workspace) of K1, K2 (its Ci tile, parities in launch order, fold planes
    and launches) and K3, and the achieved TFLOP/s (FLOPs / kernel ms) of the
    kernel and the library call; the bf16 K3 must give bit-identical dW in two
-   runs; a shape that takes the thin body is also run and timed on the
+   runs, on either route (split-K slices summed in a fixed order); a shape that
+   takes the thin body is also run and timed on the
    tensor-core body, the evidence for that choice;
 3. the InstanceNorm kernels against their plain versions at every (C, size)
    of the two networks (28 and 4 norms), batch 3, for each activation: the
@@ -67,8 +68,8 @@ Phases, each of which raises on failure:
    dropout on, bf16): one step must call every kernel an exact count (see
    ``TRAIN_LAUNCHES``) and launch K4 and K7 an exact count of kernels, as
    their C entries count them (``TRAIN_KERNEL_LAUNCHES``), give ten finite
-   losses, and leave every network's
-   parameters finite and changed; from the same weights and noise seed, on
+   losses, and leave every parameter tensor of every network finite and
+   changed; from the same weights and noise seed, on
    the batch's first sample (the f32 plain path does not fit in 80 GB at
    batch 3): in f32 each loss of the kernel path within 1e-3 relative of the
    plain path's and each network's flat gradient within 3x the plain path's
@@ -77,8 +78,10 @@ Phases, each of which raises on failure:
    f32 plain gradient than max(3 x the bf16 plain path's distance, 1e-3);
    on the whole batch in bf16, each loss and each network's gradient of the
    kernel path within max(3x the two bf16 paths' distance on one sample,
-   1e-3) of the plain path's; ms per step of both paths in turns after a
-   warm-up step, and peak device memory;
+   1e-3) of the plain path's, and each gradient closer to it than the plain
+   path's one-sample gradient is (what a step that dropped samples would
+   read); ms per step of both paths in turns after a warm-up step, and peak
+   device memory;
 9. the training CLI: a seeded dataset at the config's volume size (512 x 512
    x 128 x 1 float32; imaging volumes of uniform noise, segmentation volumes
    of +-1 random tubes in the half x < 256, so a third of the crops must be
@@ -105,13 +108,39 @@ Phases, each of which raises on failure:
    wall time per train step against phase 8's bare step, the checkpoint's
    snapshot ms, background write s and bytes, and predict-after Mvox/s.
 
+10. BASELINE config 4 (``gen_i2s = gen_s2i = "vnet"``: the i2s V-Net with
+   32 filters and InstanceNorm, the s2i V-Net with 16, BatchNorm and
+   deconvs; config 2's PatchGANs), at full width: phase 8's checks on its
+   train step (3 x 128^3 bf16, noise sigma 0.1, dropout on; the counts of
+   ``C4_TRAIN_LAUNCHES``; every BatchNorm running statistic must also stay
+   finite and move), and its f32 checks again on the whole batch cropped to
+   96^3 (``C4_F32_CROP``), phase 6's on its
+   test step (``C4_TEST_LAUNCHES``; the bf16 losses against the plain
+   path's largest distance from f32 over three runs, see
+   ``check_test_step``), phases 2-3's on every kernel conv and
+   norm shape of the two V-Nets (9 and 12 kernel convs, 18 and 0 norms a
+   call), ``F.max_pool3d``'s tied-window gradient on the card equal to the
+   CPU's (first element in X, Y, Z order, as ``reduce_window``), phase 9's
+   exact resume (parameters and running statistics), and phase 7's
+   ``predict`` with a V-Net gen_IS;
+11. the other generators, each alone at full width, batch 1, 128^3, in
+   training, bf16 forward and backward: the ResU-Net with deconv and with
+   the attention gate, and the ResNet generator; kernel counts
+   exact (derived from the call: each kernel conv once forward and once for
+   its weight gradient, once for its input gradient where the input needs
+   one, with a fold for a reflect pad, each norm once each way), outputs by
+   phase 5's rules, gradients by phase 8's, ms of both paths; and phase 2's
+   checks and times at the ResNet's 4 kernel conv shapes (its 343-tap stem
+   and head on the CUDA-core bodies; the ResNet is one generator whatever the
+   role, as in the JAX factory, so it runs once).
+
 Then one JSON line of the seven kernels (launches counted in one train step
-of phase 8, the path that runs them all, and for K4 and K7 the kernel
-launches beside the calls; ms, plain ms, library ms and the
-bound summed over the convs / norms of one gen_IS and one disc_I call at
-batch 3 (phases 2-3), one 3 x 128^3 skeleton for soft_skel) and,
-last, the ok line. Without CUDA, or outside the repository, it exits
-non-zero before printing either.
+of phase 8, the path that runs them all, and of phase 10 as
+``config4_launches``, and for K4 and K7 the kernel launches beside the
+calls; ms, plain ms, library ms and the bound summed over the convs / norms
+of one gen_IS and one disc_I call at batch 3 (phases 2-3), one 3 x 128^3
+skeleton for soft_skel) and, last, the ok line. Without CUDA, or outside
+the repository, it exits non-zero before printing either.
 """
 
 import dataclasses
@@ -171,6 +200,48 @@ TRAIN_LAUNCHES = {
 # them: K4 one per call, K7 one per round
 TRAIN_KERNEL_LAUNCHES = {"instnorm_fwd": TRAIN_LAUNCHES["instnorm_fwd"],
                          "soft_skel_bwd": TRAIN_LAUNCHES["soft_skel_bwd"]}
+# one test step (phase 6): 4 generator and 4 discriminator calls, 2 skeletons
+TEST_LAUNCHES = {"conv3d_fwd": 4 * CONV_PATH_CALLS + 4 * DISC_CONV_CALLS,
+                 "instnorm_fwd": 4 * IN_PATH_CALLS + 4 * DISC_IN_CALLS,
+                 "soft_skel_fwd": 2 * (SKEL_ITERS + 1)}
+# phase 10: BASELINE config 4, V-Net generators (gen_filters 16), derived
+# from the path. The i2s V-Net (32 filters, InstanceNorm, nearest upsample +
+# 3^3 zero-padded 'same' conv) has 9 kernel convs a call: down0 and down1
+# x2, up2.conv1, upconv3, up3 x2 and head (the rest have >= 128 channels),
+# and 18 InstanceNorms (2 in each of 9 blocks). The s2i V-Net (16 filters,
+# BatchNorm, deconvs) has 12: down0-down2 x2, up1.conv1, up2 x2, up3 x2 and
+# head; no InstanceNorm. In one train step each generator runs twice and
+# each discriminator three times, as in phase 8:
+# - K2 for every kernel conv but each generator's down0.conv0, which reads
+#   data or a detached fake (8 and 11 a call), and the 2 generator-branch
+#   conv0s; a fold launch for those with a reflect pad: all block convs (6
+#   and 10 a call; upconv3 pads with zeros, head is 1^3) and conv0;
+# - K3 for every kernel conv of the generators and of the 4 discriminator
+#   calls with live parameters;
+# - K4 and K5 once per norm; K6 and K7 as in phase 8.
+C4_IS_CONVS, C4_IS_INS, C4_SI_CONVS = 9, 18, 12
+C4_TRAIN_LAUNCHES = {
+    "conv3d_fwd": 2 * C4_IS_CONVS + 2 * C4_SI_CONVS + 6 * DISC_CONV_CALLS,
+    "conv3d_dgrad": 2 * 8 + 2 * 11 + 2 * 1,
+    "conv3d_dgrad_fold": 2 * 6 + 2 * 10 + 2 * 1,
+    "conv3d_wgrad": 2 * C4_IS_CONVS + 2 * C4_SI_CONVS + 4 * DISC_CONV_CALLS,
+    "instnorm_fwd": 2 * C4_IS_INS + 6 * DISC_IN_CALLS,
+    "instnorm_bwd": 2 * C4_IS_INS + 6 * DISC_IN_CALLS,
+    "soft_skel_fwd": 2 * (SKEL_ITERS + 1),
+    "soft_skel_bwd": SKEL_ITERS + 1,
+}
+C4_TRAIN_KERNEL_LAUNCHES = {"instnorm_fwd": C4_TRAIN_LAUNCHES["instnorm_fwd"],
+                            "soft_skel_bwd": C4_TRAIN_LAUNCHES["soft_skel_bwd"]}
+C4_TEST_LAUNCHES = {"conv3d_fwd": 2 * C4_IS_CONVS + 2 * C4_SI_CONVS + 4 * DISC_CONV_CALLS,
+                    "instnorm_fwd": 2 * C4_IS_INS + 4 * DISC_IN_CALLS,
+                    "soft_skel_fwd": 2 * (SKEL_ITERS + 1)}
+C4 = {"gen_i2s": "vnet", "gen_s2i": "vnet"}
+# its f32 checks on the whole batch, cropped to 96^3 (the V-Net halves 4
+# times): the bf16 i2s V-Net's gradient is no closer to f32 than 1.2-1.3
+# relative L2 on either path, so its bf16 rules hold nothing at batch 3
+C4_F32_CROP = 96
+# phase 11: the ResNet generator's kernel convs (stem_conv, down0, up2, head)
+RESNET_CONVS = 4
 # phase 9: the training CLI
 VOLUME_SHAPE = (512, 512, 128, 1)  # TARG_RAW_IMG_SIZE and TARG_SYNTH_IMG_SIZE
 TUBES = 120            # segmentation tubes a volume (a few % foreground)
@@ -349,10 +420,12 @@ def check_convs(net, shapes, expected, tol):
                     require(rel <= limit, f"conv {op} {names} {dtype}: rel err {rel:.3e} "
                             f"> {limit}")
                     if op == "wgrad" and dtype == torch.bfloat16:
-                        # split-K in a fixed order: the same bits every run
-                        require(torch.equal(got, kern()), f"conv wgrad {names}: dW differs "
-                                "between two runs on the same inputs")
-                        row["wgrad_bf16_bit_identical"] = True
+                        # both routes sum split-K in a fixed order: the same
+                        # bits every run
+                        same = torch.equal(got, kern())
+                        require(same, f"conv wgrad {names}: dW differs between two runs on "
+                                "the same inputs")
+                        row["wgrad_bf16_bit_identical"] = same
                     row[f"{op}_{tag}_ms"] = cuda_ms(kern)
                     row[f"{op}_{tag}_plain_ms"] = cuda_ms(plain)
                     row[f"{op}_{tag}_library_ms"] = cuda_ms(library)
@@ -654,12 +727,23 @@ def step_batch():
     return shape, real_I, real_S
 
 
-def check_test_step(conv_ops, in_ops, skel_ops):
+def check_test_step(conv_ops, in_ops, skel_ops, want=TEST_LAUNCHES, tag="test_step",
+                    bf16_spread_runs=0, **cfg_kw):
+    """The test step of the config with ``cfg_kw`` (phase 6: config 2).
+
+    A bf16 loss of the kernel path may be 3x as far from the f32 plain loss
+    as the bf16 plain path's is. With ``bf16_spread_runs`` the plain path's
+    distance is the largest of that one and of as many more plain runs, each
+    from the weights scaled by (1 + 1e-3 N(0, 1)) (a quarter of bf16's
+    rounding step, so about a quarter of the weights round the other way)
+    against its own f32 run: where the network amplifies rounding, as the
+    i2s V-Net's InstanceNorms of ReLU'd planes do, one plain run is one draw
+    of that noise, not its scale."""
     from vangan_torch.config import VanGanConfig
     from vangan_torch.vangan import VanGan
 
     cfg = VanGanConfig(SUBVOL_PATCH_SIZE=(N, N, N), BATCH_SIZE=STEP_BATCH,
-                       cldice_iters=SKEL_ITERS)
+                       cldice_iters=SKEL_ITERS, **cfg_kw)
     gan = VanGan(cfg, device=DEVICE)
     shape, real_I, real_S = step_batch()
 
@@ -675,24 +759,36 @@ def check_test_step(conv_ops, in_ops, skel_ops):
     k16 = run(True, torch.bfloat16)
     launches = {"conv3d_fwd": conv_ops.launches, "instnorm_fwd": in_ops.launches,
                 "soft_skel_fwd": skel_ops.launches}
-    want = {"conv3d_fwd": 4 * CONV_PATH_CALLS + 4 * DISC_CONV_CALLS,
-            "instnorm_fwd": 4 * IN_PATH_CALLS + 4 * DISC_IN_CALLS,
-            "soft_skel_fwd": 2 * (SKEL_ITERS + 1)}
-    require(launches == want, f"one test step launched {launches}, expected {want}")
+    require(launches == want, f"{tag}: one step launched {launches}, expected {want}")
     require(len(k16) == 10 and all(math.isfinite(v) for v in k16.values()),
-            f"test step losses not all finite: {k16}")
+            f"{tag}: losses not all finite: {k16}")
     p16 = run(False, torch.bfloat16)
     k32 = run(True, torch.float32)
     ref = run(False, torch.float32)  # TF32 off: the f32 reference
+    plain_dist = {key: abs(p16[key] - r) for key, r in ref.items()}
+    if bf16_spread_runs:
+        init = {name: {k: v.clone() for k, v in net.state_dict().items()}
+                for name, net in gan.nets.items()}
+        pg = torch.Generator(device=DEVICE).manual_seed(SEED + 10)
+        for _ in range(bf16_spread_runs):
+            with torch.no_grad():
+                for net in gan.nets.values():
+                    for prm in net.parameters():
+                        prm.mul_(1 + 1e-3 * torch.randn(prm.shape, device=DEVICE, generator=pg))
+            q16, q32 = run(False, torch.bfloat16), run(False, torch.float32)
+            for key in plain_dist:
+                plain_dist[key] = max(plain_dist[key], abs(q16[key] - q32[key]))
+            for name, net in gan.nets.items():
+                net.load_state_dict(init[name])
     losses = {}
     for key, r in ref.items():
         f32_rel = abs(k32[key] - r) / max(abs(r), 1e-30)
-        require(f32_rel <= 1e-3, f"test step {key}: f32 kernel {k32[key]} vs plain {r}")
-        bound = max(3 * abs(p16[key] - r), 1e-3 * abs(r))
+        require(f32_rel <= 1e-3, f"{tag} {key}: f32 kernel {k32[key]} vs plain {r}")
+        bound = max(3 * plain_dist[key], 1e-3 * abs(r))
         require(abs(k16[key] - r) <= bound,
-                f"test step {key}: bf16 kernel {k16[key]}, bf16 plain {p16[key]}, f32 {r}")
+                f"{tag} {key}: bf16 kernel {k16[key]}, bf16 plain {p16[key]}, f32 {r}")
         losses[key] = {"f32_plain": r, "f32_kernel_rel": f32_rel, "bf16_kernel": k16[key],
-                       "bf16_plain": p16[key]}
+                       "bf16_plain": p16[key], "bf16_plain_dist": plain_dist[key]}
 
     times, peak = {"kernel": [], "plain": []}, {}
     for path in ("plain", "kernel", "kernel", "plain", "plain", "kernel"):  # in turns
@@ -708,18 +804,22 @@ def check_test_step(conv_ops, in_ops, skel_ops):
            "plain_ms_per_step": float(np.median(times["plain"])),
            "kernel_ms_all": times["kernel"], "plain_ms_all": times["plain"],
            "kernel_peak_gib": peak["kernel"], "plain_peak_gib": peak["plain"]}
-    print("test_step", json.dumps(res))
+    print(tag, json.dumps(res))
     return res
 
 
-def check_predict(conv_ops, in_ops):
+def check_predict(conv_ops, in_ops, calls=(CONV_PATH_CALLS, IN_PATH_CALLS), tag="predict",
+                  **cfg_kw):
+    """``predict`` through cli.main with the gen_IS of the config with
+    ``cfg_kw`` (phase 7: config 2's), which makes ``calls`` kernel convs and
+    InstanceNorms a batch."""
     from vangan_torch import cli
     from vangan_torch.config import VanGanConfig
     from vangan_torch.data.preprocess import read_tiff
     from vangan_torch.inference.stitcher import stitch_origins, stitch_subvolumes
     from vangan_torch.vangan import VanGan
 
-    cfg = VanGanConfig(SUBVOL_PATCH_SIZE=(N, N, N), stitcher_batch=BATCH)
+    cfg = VanGanConfig(SUBVOL_PATCH_SIZE=(N, N, N), stitcher_batch=BATCH, **cfg_kw)
     with tempfile.TemporaryDirectory(prefix="vangan_smoke_") as tmp:
         in_dir, out_dir = os.path.join(tmp, "in"), os.path.join(tmp, "out")
         os.makedirs(in_dir)
@@ -749,9 +849,9 @@ def check_predict(conv_ops, in_ops):
         require(out.shape == (VOLUME,) * 3 + (1,), f"TIFF shape {out.shape}")
         require(bool(np.isfinite(out).all()), "TIFF has non-finite voxels")
         require(out.min() >= 0.0 and out.max() <= 255.0, "TIFF outside [0, 255]")
-        require(launches == {"conv3d_fwd": CONV_PATH_CALLS * n_batches,
-                             "instnorm_fwd": IN_PATH_CALLS * n_batches},
-                f"predict launches {launches}, expected {n_batches} gen_IS batches")
+        require(launches == {"conv3d_fwd": calls[0] * n_batches,
+                             "instnorm_fwd": calls[1] * n_batches},
+                f"{tag} launches {launches}, expected {n_batches} gen_IS batches")
 
         gan = VanGan(cfg, device=DEVICE)
         gan.load_weights(weights)
@@ -764,12 +864,12 @@ def check_predict(conv_ops, in_ops):
                 complete=True, padFactor=0.25, save=False, batch_size=cfg.stitcher_batch,
                 device=DEVICE))
         close = bf16_vs_reference(torch.from_numpy(np.transpose(out, (1, 2, 0, 3))),
-                                  plain[torch.bfloat16], plain[torch.float32], "predict")
+                                  plain[torch.bfloat16], plain[torch.float32], tag)
     res = {"volume": [VOLUME] * 3, "patches": len(origins), "unique_patches": n_unique,
            "batches": n_batches, "seconds": seconds,
            "mvox_per_s": VOLUME ** 3 / seconds / 1e6, "launches": launches,
            "grey_levels": close}
-    print("predict", json.dumps(res))
+    print(tag, json.dumps(res))
     return res
 
 
@@ -806,7 +906,14 @@ def reset_counters(ops):
     skel_ops.launches = skel_ops.bwd_launches = skel_ops.bwd_kernel_launches = 0
 
 
-def check_train_step(ops):
+def check_train_step(ops, want=TRAIN_LAUNCHES, want_kernels=TRAIN_KERNEL_LAUNCHES,
+                     tag="train_step", f32_crop=None, **cfg_kw):
+    """The train step of the config with ``cfg_kw`` (phase 8: config 2).
+    Every parameter tensor must move in the step, and every running
+    statistic (BatchNorm buffer) must stay finite and move. With
+    ``f32_crop`` the f32 checks also run on the whole batch, cropped to
+    ``f32_crop``^3 (where the f32 plain path fits), so that they hold the
+    kernels' sums over the samples."""
     import copy
 
     from vangan_torch.config import VanGanConfig
@@ -815,7 +922,7 @@ def check_train_step(ops):
     from vangan_torch.vangan import VanGan
 
     cfg = VanGanConfig(SUBVOL_PATCH_SIZE=(N, N, N), BATCH_SIZE=STEP_BATCH,
-                       cldice_iters=SKEL_ITERS)
+                       cldice_iters=SKEL_ITERS, **cfg_kw)
     gan = VanGan(cfg, device=DEVICE)
     init = {name: copy.deepcopy(net.state_dict()) for name, net in gan.nets.items()}
     shape, real_I, real_S = step_batch()
@@ -836,27 +943,44 @@ def check_train_step(ops):
     out = gan.distributed_train_step(real_I, real_S, NOISE, True)
     torch.cuda.synchronize()
     launches, kernel_launches = counters(ops), kernel_counters(ops)
-    require(launches == TRAIN_LAUNCHES, f"one train step launched {launches}, "
-            f"expected {TRAIN_LAUNCHES}")
-    require(kernel_launches == TRAIN_KERNEL_LAUNCHES, f"one train step launched "
-            f"{kernel_launches} kernels, expected {TRAIN_KERNEL_LAUNCHES}")
+    require(launches == want, f"{tag}: one step launched {launches}, expected {want}")
+    require(kernel_launches == want_kernels, f"{tag}: one step launched "
+            f"{kernel_launches} kernels, expected {want_kernels}")
     step_losses = {k: float(v) for k, v in out.items()}
     require(len(step_losses) == 10 and all(math.isfinite(v) for v in step_losses.values()),
-            f"train step losses not all finite: {step_losses}")
+            f"{tag}: losses not all finite: {step_losses}")
+    moved_report = {}
     for name, net in gan.nets.items():
         params = list(net.parameters())
         require(all(bool(torch.isfinite(p).all()) for p in params),
-                f"{name}: non-finite parameters after the step")
+                f"{tag} {name}: non-finite parameters after the step")
         moved = sum(not torch.equal(p.detach(), init[name][k].to(p.device))
                     for (k, _), p in zip(net.named_parameters(), params))
-        require(moved > 0, f"{name}: no parameter changed in the step")
+        require(moved == len(params),
+                f"{tag} {name}: {moved} of {len(params)} parameters changed in the step")
+        buffers = list(net.named_buffers())
+        for bname, b in buffers:
+            require(bool(torch.isfinite(b).all()) and
+                    not torch.equal(b, init[name][bname].to(b.device)),
+                    f"{tag} {name}.{bname}: running statistic not finite or not moved")
+        moved_report[name] = {"params_moved": moved, "params": len(params),
+                              "buffers_moved": len(buffers)}
 
-    def grads_of(kernels, dtype, n):
+    def grads_of(kernels, dtype, n, crop=N, perturb=0.0):
         """Gradients (flat f32 per network) and losses of the first ``n``
-        samples, from the seeded weights and noise draws."""
+        samples cropped to ``crop``^3, from the seeded weights and noise
+        draws; with ``perturb``, every weight scaled by (1 + perturb N(0, 1))."""
         reset(kernels, dtype)
-        g, res = step.compute_grads(gan.nets, cfg, gan.scales, real_I[:n], real_S[:n], NOISE,
-                                    gan.generator)
+        if perturb:
+            with torch.no_grad():
+                pg = torch.Generator(device=DEVICE).manual_seed(SEED + 6)
+                for net in gan.nets.values():
+                    for prm in net.parameters():
+                        prm.mul_(1 + perturb * torch.randn(prm.shape, device=DEVICE,
+                                                           generator=pg))
+        box = (slice(0, n), slice(0, crop), slice(0, crop), slice(0, crop))
+        g, res = step.compute_grads(gan.nets, cfg, gan.scales, real_I[box].contiguous(),
+                                    real_S[box].contiguous(), NOISE, gan.generator)
         return ({name: torch.cat([t.float().flatten() for t in g[name]]) for name in NETWORKS},
                 {k: float(v) for k, v in res.items()})
 
@@ -875,16 +999,12 @@ def check_train_step(ops):
     # the plain f32 gradient's own spread: the same step with every weight
     # scaled by (1 + 1e-6 N(0, 1)), below the f32 kernel-vs-plain forward
     # difference (phase 5: up to 4e-5 on tanh outputs)
-    reset(False, f32)
-    with torch.no_grad():
-        pg = torch.Generator(device=DEVICE).manual_seed(SEED + 6)
-        for net in gan.nets.values():
-            for prm in net.parameters():
-                prm.mul_(1 + 1e-6 * torch.randn(prm.shape, device=DEVICE, generator=pg))
-    g, _ = step.compute_grads(gan.nets, cfg, gan.scales, real_I[:1], real_S[:1], NOISE,
-                              gan.generator)
-    perturbed = {n: torch.cat([t.float().flatten() for t in g[n]]) for n in NETWORKS}
-    del g
+    perturbed, _ = grads_of(False, f32, 1, perturb=1e-6)
+    crop = {}
+    if f32_crop:
+        for kernels in (True, False):
+            crop[kernels] = grads_of(kernels, f32, STEP_BATCH, f32_crop)
+        crop["perturbed"] = grads_of(False, f32, STEP_BATCH, f32_crop, 1e-6)[0]
     rel = lambda a, b: float((a - b).norm() / b.norm())  # noqa: E731
     rel_loss = lambda a, b: abs(a - b) / max(abs(b), 1e-30)  # noqa: E731
     one, full = 1, STEP_BATCH
@@ -900,6 +1020,9 @@ def check_train_step(ops):
                                              losses[False, bf16, one][key]),
             "batch3_bf16_kernel": k16_3, "batch3_bf16_plain": p16_3,
             "batch3_bf16_kernel_vs_plain": rel_loss(k16_3, p16_3)}
+        if crop:
+            report["losses"][key]["crop_f32_batch3_rel"] = rel_loss(crop[True][1][key],
+                                                                    crop[False][1][key])
     for n in NETWORKS:
         ref = grads[False, f32, one][n]
         p16_3 = grads[False, bf16, full][n]
@@ -912,23 +1035,38 @@ def check_train_step(ops):
             "batch3_bf16_kernel_vs_plain": rel(grads[True, bf16, full][n], p16_3),
             # what a fault that drops two samples' share would read
             "control_batch1_vs_batch3_plain": rel(grads[False, bf16, one][n], p16_3)}
-    del grads
-    print("train_step_agreement", json.dumps(report))
+        if crop:
+            report["grads"][n].update({
+                "crop_f32_batch3_kernel_vs_plain": rel(crop[True][0][n], crop[False][0][n]),
+                "crop_f32_batch3_plain_perturbed_vs_plain": rel(crop["perturbed"][n],
+                                                                crop[False][0][n])})
+    del grads, crop
+    print(f"{tag}_agreement", json.dumps(report))
     for key, v in report["losses"].items():
-        require(v["f32_rel"] <= 1e-3, f"train step {key}: f32 kernel {v['f32_kernel']} vs "
+        require(v["f32_rel"] <= 1e-3, f"{tag} {key}: f32 kernel {v['f32_kernel']} vs "
                 f"plain {v['f32_plain']}")
         # at batch 3 no f32 reference fits: the bf16 paths may differ there
         # by 3x what they differ by on one sample
         require(v["batch3_bf16_kernel_vs_plain"] <= max(3 * v["bf16_kernel_vs_plain"], 1e-3),
-                f"train step {key} at batch {STEP_BATCH}: bf16 kernel vs plain: {v}")
+                f"{tag} {key} at batch {STEP_BATCH}: bf16 kernel vs plain: {v}")
+        require(v.get("crop_f32_batch3_rel", 0.0) <= 1e-3,
+                f"{tag} {key}: f32 kernel vs plain at batch {STEP_BATCH} on the crop: {v}")
     for n, v in report["grads"].items():
         require(v["f32_kernel_vs_plain"] <= SPREAD_FACTOR * v["f32_plain_perturbed_vs_plain"],
-                f"{n}: f32 kernel gradient {v['f32_kernel_vs_plain']:.3e} from plain, the "
-                f"plain path's spread {v['f32_plain_perturbed_vs_plain']:.3e}")
+                f"{tag} {n}: f32 kernel gradient {v['f32_kernel_vs_plain']:.3e} from plain, "
+                f"the plain path's spread {v['f32_plain_perturbed_vs_plain']:.3e}")
         require(v["bf16_kernel_vs_f32"] <= max(3 * v["bf16_plain_vs_f32"], 1e-3),
-                f"{n}: bf16 kernel gradient too far from f32: {v}")
+                f"{tag} {n}: bf16 kernel gradient too far from f32: {v}")
         require(v["batch3_bf16_kernel_vs_plain"] <= max(3 * v["bf16_kernel_vs_plain"], 1e-3),
-                f"{n}: bf16 kernel gradient at batch {STEP_BATCH} too far from plain: {v}")
+                f"{tag} {n}: bf16 kernel gradient at batch {STEP_BATCH} too far from plain: {v}")
+        # below what a step that dropped samples would read
+        require(v["batch3_bf16_kernel_vs_plain"] < v["control_batch1_vs_batch3_plain"],
+                f"{tag} {n}: bf16 kernel gradient at batch {STEP_BATCH} as far from plain "
+                f"as one sample's: {v}")
+        if f32_crop:
+            require(v["crop_f32_batch3_kernel_vs_plain"] <=
+                    SPREAD_FACTOR * v["crop_f32_batch3_plain_perturbed_vs_plain"],
+                    f"{tag} {n}: f32 kernel gradient at batch {STEP_BATCH} on the crop: {v}")
 
     # ms per step of both paths in turns, after a warm-up step of each
     times, peak = {"kernel": [], "plain": []}, {"kernel": 0.0, "plain": 0.0}
@@ -948,12 +1086,12 @@ def check_train_step(ops):
         peak[path] = max(peak[path], torch.cuda.max_memory_allocated() / 2**30)
     gan.set_use_kernels(True)
     res = {"batch": list(shape), "noise_std": NOISE, "launches": launches,
-           "kernel_launches": kernel_launches, "losses": step_losses,
+           "kernel_launches": kernel_launches, "losses": step_losses, "moved": moved_report,
            "kernel_ms_per_step": float(np.median(times["kernel"])),
            "plain_ms_per_step": float(np.median(times["plain"])),
            "kernel_ms_all": times["kernel"], "plain_ms_all": times["plain"],
            "kernel_peak_gib": peak["kernel"], "plain_peak_gib": peak["plain"]}
-    print("train_step", json.dumps(res))
+    print(tag, json.dumps(res))
     return res
 
 
@@ -1024,15 +1162,16 @@ def expected_fit_launches(train_steps, test_launches, val_steps, gen_calls):
     return want, {"instnorm_fwd": want["instnorm_fwd"], "soft_skel_bwd": want["soft_skel_bwd"]}
 
 
-def check_exact_resume(tmp):
+def check_exact_resume(tmp, **cfg_kw):
     """4 straight steps twice, and 2 steps, a checkpoint, a fresh VanGan
-    loading it and 2 more, at full width on phase 6's batch."""
+    loading it and 2 more, at full width on phase 6's batch, in the config
+    with ``cfg_kw``: each network's parameters and running statistics."""
     from vangan_torch.config import VanGanConfig
     from vangan_torch.training.state import NETWORKS
     from vangan_torch.vangan import VanGan
 
     cfg = VanGanConfig(SUBVOL_PATCH_SIZE=(N, N, N), BATCH_SIZE=STEP_BATCH,
-                       cldice_iters=SKEL_ITERS, output_dir=tmp)
+                       cldice_iters=SKEL_ITERS, output_dir=tmp, **cfg_kw)
     _, real_I, real_S = step_batch()
 
     def run(gan, n):
@@ -1041,7 +1180,8 @@ def check_exact_resume(tmp):
         torch.cuda.synchronize()
 
     def flat(gan):
-        return {n: torch.cat([p.detach().flatten() for p in gan.nets[n].parameters()])
+        return {n: torch.cat([p.detach().flatten() for p in (*gan.nets[n].parameters(),
+                                                             *gan.nets[n].buffers())])
                 for n in NETWORKS}
 
     straight = []
@@ -1260,6 +1400,195 @@ def check_train_cli(ops, train, test):
     return res
 
 
+def check_max_pool_ties():
+    """``F.max_pool3d`` on the card sends a tied window's gradient to its
+    first element in X, Y, Z order, as the CPU's does (and the JAX package's
+    ``reduce_window``, tests/test_torch_vnet.py): ReLU'd data at the i2s
+    V-Net's first pool (32 x 128^3), most windows all zeros; values and
+    gradients equal to the CPU's, f32 and bf16."""
+    g = torch.Generator().manual_seed(SEED + 9)
+    x = torch.relu(torch.randn(1, 32, N, N, N, generator=g) - 2.0)
+    gy = torch.randn(1, 32, N // 2, N // 2, N // 2, generator=g)
+    tied = float((x.reshape(1, 32, N // 2, 2, N // 2, 2, N // 2, 2) == 0)
+                 .all(dim=7).all(dim=5).all(dim=3).float().mean())
+    res = {"tied_window_share": tied}
+    for dtype in (torch.float32, torch.bfloat16):
+        grads, outs = [], []
+        for dev in ("cpu", DEVICE):
+            xd = x.to(dev, dtype, copy=True).requires_grad_()
+            y = F.max_pool3d(xd, 2)
+            y.backward(gy.to(dev, dtype))
+            outs.append(y.detach().cpu())
+            grads.append(xd.grad.cpu())
+        require(torch.equal(outs[0], outs[1]) and torch.equal(grads[0], grads[1]),
+                f"max_pool3d {dtype}: the card's values or tied-window gradients differ "
+                "from the CPU's")
+        res[f"{dtype}".replace("torch.", "") + "_equal_to_cpu"] = True
+    print("max_pool_ties", json.dumps(res))
+    return res
+
+
+def check_generator_family(name, model, ops):
+    """One generator alone at full width, batch 1, N^3, in training (its
+    dropout drawn from one seed on both paths): forward and backward of
+    ``sum(out * gy)``. Every kernel is called the count the path derives:
+    each kernel conv (max(Ci, Co) < 128) once forward and once for its
+    weight gradient, once for its input gradient where the input needs one
+    (all but the convs reading the input), with a fold launch where it pads
+    by reflection; each InstanceNorm once each way. Outputs by phase 5's
+    rules (f32 within 1e-3, bf16 by ``bf16_vs_reference``), gradients by
+    phase 8's (f32 within SPREAD_FACTOR x the plain path's spread, bf16 no
+    further from f32 than max(3x the bf16 plain path's distance, 1e-3)); ms
+    per forward + backward of both paths."""
+    import copy
+
+    from vangan_torch.models.layers import KERNEL_MAX_CHANNELS, ConvND, InstanceNorm
+
+    rng = np.random.default_rng(SEED + 7)
+    x = torch.from_numpy(rng.uniform(-1, 1, (1, N, N, N, 1)).astype(np.float32)).to(DEVICE)
+    gy = torch.from_numpy(rng.normal(size=(1, N, N, N, 1)).astype(np.float32)).to(DEVICE)
+    model = model.to(DEVICE)
+    init = copy.deepcopy(model.state_dict())
+    seen = {"convs": 0, "dx": 0, "fold": 0, "norms": 0}
+
+    def on_conv(mod, inp):
+        if max(mod.weight.shape[:2]) < KERNEL_MAX_CHANNELS:
+            seen["convs"] += 1
+            if inp[0].requires_grad:
+                seen["dx"] += 1
+                pads = [p for lohi in (mod.padding if not isinstance(mod.padding, str)
+                                       else ()) for p in lohi]
+                seen["fold"] += mod.pad_mode == "reflect" and any(pads)
+
+    def on_norm(mod, inp):
+        seen["norms"] += 1
+
+    def run(kernels, dtype, perturb=False):
+        model.load_state_dict(init)
+        model.dtype = dtype
+        model.set_use_kernels(kernels)
+        if perturb:
+            with torch.no_grad():
+                pg = torch.Generator(device=DEVICE).manual_seed(SEED + 6)
+                for prm in model.parameters():
+                    prm.mul_(1 + 1e-6 * torch.randn(prm.shape, device=DEVICE, generator=pg))
+        model.zero_grad(set_to_none=True)
+        y = model(x, True, torch.Generator(device=DEVICE).manual_seed(SEED + 8))
+        (y * gy).sum().backward()
+        grads = torch.cat([(torch.zeros_like(p) if p.grad is None else p.grad).float().flatten()
+                           for p in model.parameters()])
+        model.zero_grad(set_to_none=True)
+        return y.detach(), grads
+
+    hooks = [m.register_forward_pre_hook(on_conv) for m in model.modules()
+             if isinstance(m, ConvND)]
+    hooks += [m.register_forward_pre_hook(on_norm) for m in model.modules()
+              if isinstance(m, InstanceNorm)]
+    torch.cuda.synchronize()
+    reset_counters(ops)
+    k16, gk16 = run(True, torch.bfloat16)
+    torch.cuda.synchronize()
+    launches, kernel_launches = counters(ops), kernel_counters(ops)
+    for h in hooks:
+        h.remove()
+    want = {"conv3d_fwd": seen["convs"], "conv3d_dgrad": seen["dx"],
+            "conv3d_dgrad_fold": seen["fold"], "conv3d_wgrad": seen["convs"],
+            "instnorm_fwd": seen["norms"], "instnorm_bwd": seen["norms"],
+            "soft_skel_fwd": 0, "soft_skel_bwd": 0}
+    require(launches == want and kernel_launches == {"instnorm_fwd": seen["norms"],
+                                                     "soft_skel_bwd": 0},
+            f"{name}: launched {launches} ({kernel_launches} kernels), expected {want}")
+    require(k16.shape == x.shape and bool(torch.isfinite(k16).all()) and
+            bool(torch.isfinite(gk16).all()), f"{name}: output or gradient not finite")
+    p16, gp16 = run(False, torch.bfloat16)
+    k32, gk32 = run(True, torch.float32)
+    ref, gref = run(False, torch.float32)
+    _, gpert = run(False, torch.float32, perturb=True)
+    rel = lambda a, b: float((a - b).norm() / b.norm())  # noqa: E731
+    f32_max = float((k32 - ref).abs().max())
+    res = {"launches": launches, "f32_kernel_vs_plain_max": f32_max,
+           **bf16_vs_reference(k16, p16, ref, name),
+           "grads": {"f32_kernel_vs_plain": rel(gk32, gref),
+                     "f32_plain_perturbed_vs_plain": rel(gpert, gref),
+                     "bf16_kernel_vs_f32": rel(gk16, gref),
+                     "bf16_plain_vs_f32": rel(gp16, gref)}}
+    require(f32_max <= 1e-3, f"{name}: f32 kernel vs plain output max {f32_max:.3e}")
+    v = res["grads"]
+    require(v["f32_kernel_vs_plain"] <= SPREAD_FACTOR * v["f32_plain_perturbed_vs_plain"],
+            f"{name}: f32 kernel gradient too far from plain: {v}")
+    require(v["bf16_kernel_vs_f32"] <= max(3 * v["bf16_plain_vs_f32"], 1e-3),
+            f"{name}: bf16 kernel gradient too far from f32: {v}")
+    times = {"kernel": [], "plain": []}
+    for path in ("plain", "kernel", "kernel", "plain", "plain", "kernel"):  # in turns
+        times[path].append(cuda_ms(lambda: run(path == "kernel", torch.bfloat16), reps=1))
+    res.update({"kernel_ms_fwd_bwd": float(np.median(times["kernel"])),
+                "plain_ms_fwd_bwd": float(np.median(times["plain"]))})
+    model.set_use_kernels(True)
+    print("generator_family", name, json.dumps(res))
+    return res
+
+
+def check_config4(ops, tol):
+    """Phase 10: BASELINE config 4 (V-Net generators) at full width."""
+    from vangan_torch.config import VanGanConfig
+    from vangan_torch.models.factory import build_generator
+
+    conv_ops, in_ops, skel_ops = ops
+    # the main path: config 4's train step, counters read just after it
+    train = check_train_step(ops, C4_TRAIN_LAUNCHES, C4_TRAIN_KERNEL_LAUNCHES,
+                             "config4_train_step", f32_crop=C4_F32_CROP, **C4)
+    torch.cuda.empty_cache()
+    test = check_test_step(conv_ops, in_ops, skel_ops, C4_TEST_LAUNCHES, "config4_test_step",
+                           bf16_spread_runs=2, **C4)
+    torch.cuda.empty_cache()
+    g = torch.Generator().manual_seed(SEED)
+    shapes = {}
+    for role in ("i2s", "s2i"):
+        model = build_generator("vnet", VanGanConfig(), role=role, generator=g).to(DEVICE)
+        shapes[role] = path_shapes(model.eval())
+        del model
+    rows = {"convs": check_convs("vnet_i2s", shapes["i2s"], C4_IS_CONVS, tol) +
+            check_convs("vnet_s2i", shapes["s2i"], C4_SI_CONVS, tol),
+            "instnorms": check_instnorms("vnet_i2s", shapes["i2s"], C4_IS_INS, tol) +
+            check_instnorms("vnet_s2i", shapes["s2i"], 0, tol)}
+    pool = check_max_pool_ties()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="vangan_smoke_c4_") as tmp:
+        resume, _ = check_exact_resume(tmp, **C4)
+    print("config4_exact_resume", json.dumps(resume))
+    torch.cuda.empty_cache()
+    predict = check_predict(conv_ops, in_ops, (C4_IS_CONVS, C4_IS_INS), "config4_predict", **C4)
+    torch.cuda.empty_cache()
+    return {"train": train, "test": test, "rows": rows, "max_pool": pool, "resume": resume,
+            "predict": predict}
+
+
+def check_other_generators(ops, tol):
+    """Phase 11: the ResU-Net with deconv and with the attention gate, and
+    the ResNet generator, each alone at full width; and K1-K3
+    at the ResNet's kernel conv shapes (its 7^3 stem and head take the
+    CUDA-core bodies: 343 taps), timed against their plain versions and
+    cuDNN as in phase 2."""
+    from vangan_torch.config import VanGanConfig
+    from vangan_torch.models.factory import build_generator
+    from vangan_torch.models.resunet import ResUNet3D
+
+    g = torch.Generator().manual_seed(SEED)
+    families = {
+        "resunet_deconv": lambda: ResUNet3D(16, 4, upsample_mode="deconv", generator=g),
+        "resunet_attention": lambda: ResUNet3D(16, 4, use_attention_gate=True, generator=g),
+        # the factory's ResNet takes no role (vangan_tpu/models/factory.py)
+        "resnet": lambda: build_generator("resnet", VanGanConfig(), generator=g),
+    }
+    out = {}
+    for name, build_fn in families.items():
+        out[name] = check_generator_family(name, build_fn(), ops)
+        torch.cuda.empty_cache()
+    resnet = build_generator("resnet", VanGanConfig(), generator=g).to(DEVICE).eval()
+    out["resnet_convs"] = check_convs("resnet", path_shapes(resnet), RESNET_CONVS, tol)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -1304,6 +1633,9 @@ def main() -> int:
     train = check_train_step((conv_ops, in_ops, skel_ops))
     torch.cuda.empty_cache()
     check_train_cli((conv_ops, in_ops, skel_ops), train, test)
+    torch.cuda.empty_cache()
+    c4 = check_config4((conv_ops, in_ops, skel_ops), tol)
+    check_other_generators((conv_ops, in_ops, skel_ops), tol)
 
     require("jax" not in sys.modules and "vangan_tpu" not in sys.modules,
             "the port imported JAX or the JAX package")
@@ -1321,6 +1653,7 @@ def main() -> int:
         total = lambda key: sum(len(r["convs"]) * r[key] for r in conv_rows)  # noqa: E731
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
                 "launches": train["launches"][name],
+                "config4_launches": c4["train"]["launches"][name],
                 "max_abs_err": max(r[f"{op}_bf16_abs_err"] for r in conv_rows),
                 "ms": total(f"{op}_bf16_ms"), "plain_ms": total(f"{op}_bf16_plain_ms"),
                 **summed_bound([(len(r["convs"]), r["bound"][op]) for r in conv_rows]),
@@ -1332,7 +1665,8 @@ def main() -> int:
             r[f"bwd_{part}_bf16_abs_err"] for r in in_rows for part in ("dx", "dgamma", "dbeta")]
         entry = {"name": name, "route": "cuda",
                  "source": f"vangan_torch/ops/csrc/instnorm_{op}.cu", "replaces": replaces,
-                 "launches": train["launches"][name], "max_abs_err": max(errs_),
+                 "launches": train["launches"][name],
+                 "config4_launches": c4["train"]["launches"][name], "max_abs_err": max(errs_),
                  "ms": total(f"{op}_bf16_ms"), "plain_ms": total(f"{op}_bf16_plain_ms"),
                  **summed_bound([(len(r["uses"]), r["bound"][op]) for r in in_rows]),
                  "library_ms": None}
@@ -1349,16 +1683,19 @@ def main() -> int:
                    "vangan_tpu/ops/pallas/conv3d.py:577"),
         dict(conv_entry("conv3d_dgrad", "dgrad", "vangan_torch/ops/csrc/conv3d_dgrad.cu",
                         "vangan_tpu/ops/pallas/conv3d.py:904"),
-             fold_launches=train["launches"]["conv3d_dgrad_fold"]),
+             fold_launches=train["launches"]["conv3d_dgrad_fold"],
+             config4_fold_launches=c4["train"]["launches"]["conv3d_dgrad_fold"]),
         conv_entry("conv3d_wgrad", "wgrad", "vangan_torch/ops/csrc/conv3d_wgrad.cu",
                    "vangan_tpu/ops/pallas/conv3d.py:817"),
         dict(in_entry("instnorm_fwd", "fwd", "vangan_tpu/ops/pallas/instnorm.py:309"),
-             kernel_launches=train["kernel_launches"]["instnorm_fwd"]),
+             kernel_launches=train["kernel_launches"]["instnorm_fwd"],
+             config4_kernel_launches=c4["train"]["kernel_launches"]["instnorm_fwd"]),
         in_entry("instnorm_bwd", "bwd", "vangan_tpu/ops/pallas/instnorm.py:379"),
         {"name": "soft_skel_fwd", "route": "cuda",
          "source": "vangan_torch/ops/csrc/skeleton_fwd.cu",
          "replaces": "vangan_tpu/ops/pallas/skeleton.py:185",
          "launches": train["launches"]["soft_skel_fwd"],
+         "config4_launches": c4["train"]["launches"]["soft_skel_fwd"],
          "max_abs_err": max(skel["tanh_noise_max_abs_err"], skel["binary_faces_max_abs_err"]),
          "ms": skel["tanh_noise_ms"], "plain_ms": skel["tanh_noise_plain_ms"],
          "bound_ms": skel["fwd_bound"][0], "bound_by": skel["fwd_bound"][1],
@@ -1368,6 +1705,8 @@ def main() -> int:
          "replaces": "vangan_tpu/ops/pallas/skeleton.py:274",
          "launches": train["launches"]["soft_skel_bwd"],
          "kernel_launches": train["kernel_launches"]["soft_skel_bwd"],
+         "config4_launches": c4["train"]["launches"]["soft_skel_bwd"],
+         "config4_kernel_launches": c4["train"]["kernel_launches"]["soft_skel_bwd"],
          "max_abs_err": skel["bwd_max_abs_err"], "ms": skel["bwd_ms"],
          "plain_ms": skel["bwd_plain_ms"], "bound_ms": skel["bwd_bound"][0],
          "bound_by": skel["bwd_bound"][1], "library_ms": None},

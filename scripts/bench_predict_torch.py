@@ -41,6 +41,7 @@ FAMILIES = (  # (family, substrings of the device kernel name), first match wins
     ("soft_skel_fwd (ours)", ("skel_round_kernel",)),
     ("soft_skel_bwd (ours)", ("skel_bwd_",)),
     ("pooling", ("max_pool", "pool3d")),
+    ("batch norm (library)", ("batch_norm", "bn_fw", "bn_bw")),
     ("library conv (cuDNN)", ("cudnn", "conv", "xmma", "gemm", "implicit")),
     ("upsample", ("upsample",)),
     ("concat / copy", ("cat", "copy", "Memcpy", "Memset")),
@@ -53,6 +54,30 @@ def family(name: str) -> str:
         if any(k in name for k in keys):
             return fam
     return "other"
+
+
+def library_op_ms(prof) -> dict:
+    """Device ms of the library ops that the V-Net adds, from a profile taken
+    with ``record_shapes=True``: the transposed convs (forward and backward:
+    the convs with a 2^3 kernel, which only the deconvs have), BatchNorm and
+    max-pool, each forward and backward (``device_time_total`` of the aten
+    op, its kernels included; the families above count them by kernel name,
+    the transposed convs under cuDNN)."""
+    ops = {"aten::native_batch_norm": "batch_norm fwd",
+           "aten::native_batch_norm_backward": "batch_norm bwd",
+           "aten::max_pool3d_with_indices": "max_pool fwd",
+           "aten::max_pool3d_with_indices_backward": "max_pool bwd"}
+    deconv = {"aten::convolution": "conv_transpose fwd",
+              "aten::convolution_backward": "conv_transpose bwd"}
+    out = {}
+    for ev in prof.key_averages(group_by_input_shape=True):
+        name = ops.get(ev.key)
+        if ev.key in deconv and any(len(s) == 5 and list(s[2:]) == [2, 2, 2]
+                                    for s in ev.input_shapes):
+            name = deconv[ev.key]
+        if name:
+            out[name] = out.get(name, 0.0) + ev.device_time_total / 1e3
+    return out
 
 
 def run(gan, vol, args, kernels: bool) -> dict:

@@ -1,18 +1,21 @@
 #!/usr/bin/env python3
 """Time (and optionally profile) the port's full-width test step on one GPU.
 
-    python scripts/bench_test_step_torch.py [--batch 3] [--profile]
+    python scripts/bench_test_step_torch.py [--batch 3] [--gen resUnet] [--profile]
 
 The evaluation step of BASELINE config 2 (``VanGan.distributed_test_step``:
-two ResU-Net generators f=16 applied twice each, two PatchGAN discriminators
-f=64 applied twice each, the full loss set with 15-iteration clDice; bf16,
+two ResU-Net generators f=16 applied twice each, or with ``--gen vnet`` the
+V-Nets of config 4, or ``--gen resnet`` the ResNet generators; two PatchGAN
+discriminators f=64 applied twice each, the full loss set with 15-iteration
+clDice; bf16,
 128^3 patches) from seeded weights on a seeded batch (``real_I`` uniform in
 [-1, 1], ``real_S`` binary in {-1, 1}). It prints the card's name and power
 limit, then one JSON line per step on the kernel path and the plain path in
 turns (plain, kernel, kernel, plain; ms per step by CUDA events, peak device
 memory), one JSON line of CUDA-event ms per layer of the step on each path
 (median of 3), and with ``--profile`` a torch.profiler breakdown of one
-kernel-path step by kernel family. The device's idle share is taken against
+kernel-path step by kernel family (and the device ms of the transposed
+convs, BatchNorm and max-pool). The device's idle share is taken against
 the CUDA-event time of a kernel-path step without the profiler, whose start
 inflates the wall time of the profiled step.
 """
@@ -30,7 +33,7 @@ import torch
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from bench_predict_torch import family  # noqa: E402
+from bench_predict_torch import family, library_op_ms  # noqa: E402
 
 from vangan_torch.config import VanGanConfig  # noqa: E402
 from vangan_torch.losses import (  # noqa: E402
@@ -99,7 +102,8 @@ def profile(gan, real_I, real_S, step_ms: float) -> dict:
     gan.set_use_kernels(True)
     gan.distributed_test_step(real_I, real_S)
     torch.cuda.synchronize()
-    with tprofile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with tprofile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                  record_shapes=True) as prof:
         gan.distributed_test_step(real_I, real_S)
         torch.cuda.synchronize()
     by_family, device_ms = {}, 0.0
@@ -111,13 +115,16 @@ def profile(gan, real_I, real_S, step_ms: float) -> dict:
         device_ms += ms
     return {"step_ms": step_ms, "device_busy_ms": device_ms,
             "idle_share": 1.0 - device_ms / step_ms,
-            "by_family_ms": dict(sorted(by_family.items(), key=lambda kv: -kv[1]))}
+            "by_family_ms": dict(sorted(by_family.items(), key=lambda kv: -kv[1])),
+            "library_op_ms": library_op_ms(prof)}
 
 
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--batch", type=int, default=3)
     p.add_argument("--profile", action="store_true")
+    p.add_argument("--gen", choices=("resUnet", "vnet", "resnet"), default="resUnet",
+                   help="both generators' kind: resUnet (config 2), vnet (config 4), resnet")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         print("bench_test_step_torch: CUDA is not available", file=sys.stderr)
@@ -127,7 +134,7 @@ def main(argv=None) -> int:
                          check=True, timeout=60)
     print(smi.stdout.strip())
 
-    cfg = VanGanConfig(BATCH_SIZE=args.batch)
+    cfg = VanGanConfig(BATCH_SIZE=args.batch, gen_i2s=args.gen, gen_s2i=args.gen)
     gan = VanGan(cfg, device="cuda")
     rng = np.random.default_rng(cfg.seed)
     shape = (cfg.GLOBAL_BATCH_SIZE, *cfg.SUBVOL_PATCH_SIZE, 1)
@@ -135,7 +142,7 @@ def main(argv=None) -> int:
     seg = rng.uniform(size=shape) > 0.7
     real_S = torch.from_numpy(np.where(seg, 1.0, -1.0).astype(np.float32)).cuda()
     print(json.dumps({"batch": list(shape), "cldice_iters": cfg.cldice_iters,
-                      "compute_dtype": cfg.compute_dtype}))
+                      "compute_dtype": cfg.compute_dtype, "gen": args.gen}))
     kernel_ms = []
     for kernels in (False, True, True, False):
         res = step(gan, real_I, real_S, kernels)

@@ -6,8 +6,9 @@
 
 Reads ``<output_dir>/checkpoints/checkpoint_e<N>`` (the orbax checkpoint of a
 ``vangan_tpu`` VanGanState), maps the ``gen_IS``, ``gen_SI``, ``disc_I`` and
-``disc_S`` parameter trees with ``vangan_torch.weights.load_flax_networks``
-into the port's networks built from the same config, and writes
+``disc_S`` parameter trees, and the ``batch_stats`` of a BatchNorm generator
+(the s2i V-Net), with ``vangan_torch.weights.load_flax_networks`` into the
+port's networks built from the same config, and writes
 ``<output_dir>/checkpoints/torch_e<N>.pt`` (or ``--out``), which
 ``python -m vangan_torch predict --epoch N`` (or ``--weights FILE``) serves
 and ``VanGan.load_weights`` evaluates. With ``--train-state`` the file is a
@@ -47,7 +48,7 @@ def convert(cfg: VanGanConfig, epoch: int, out: Optional[str] = None,
     gan = VanGan(cfg, device="cpu")
     out = out or gan.weights_path(epoch)
     if not train_state:
-        load_flax_networks(gan, stored["params"])
+        load_flax_networks(gan, stored["params"], stored.get("model_state"))
         gan.save_weights(out)
         return out
     load_flax_train_state(gan, stored)

@@ -32,8 +32,25 @@ levels, discriminators f=8, clDice with 2 iterations), float32, on the CPU.
 - A bundle of the port's ``export_models`` loads in the JAX package's
   ``load_exported``, and the reverse, with outputs within atol 1e-4 (the
   tolerance of ``test_torch_resunet.py``).
+- BASELINE config 4 (V-Net generators; the s2i one with BatchNorm
+  ``batch_stats`` and deconvs) at f=2 on 32^3: its export bundles load both
+  ways with every variable (parameters and running statistics) equal after
+  the layout map, and both generators' outputs within atol 2e-3 of flax in
+  float64 (``test_torch_vnet.flax_float64_apply``, the witness; at 4 levels
+  the port's float32 V-Net is up to 5.6e-4 from it,
+  ``test_torch_vnet.py::test_vnet_at_the_factory_depth_matches_flax_float64``),
+  the s2i one also within 2e-3 of flax in float32 (flax's float32 i2s
+  V-Net is 2.8e-1 from its own float64 run at this depth,
+  ``test_torch_vnet.py::test_flax_float32_is_the_less_precise_side``); a
+  JAX train state (``batch_stats`` and Adam moments set from a seed)
+  carries bit for bit, the deconv kernels' moments flipped and transposed
+  like the kernels; the
+  converter script carries ``batch_stats`` with and without
+  ``--train-state``; and a resume with dropout on is exact, buffers
+  included.
 """
 
+import dataclasses
 import functools
 import os
 import subprocess
@@ -56,7 +73,7 @@ from vangan_torch import checkpoint
 from vangan_torch.config import VanGanConfig
 from vangan_torch.training.state import NETWORKS
 from vangan_torch.vangan import VanGan
-from vangan_torch.weights import load_flax_train_state, torch_to_flax
+from vangan_torch.weights import load_flax_train_state, torch_to_flax, torch_to_flax_variables
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -78,13 +95,15 @@ def _batches(cfg, n, seed=0):
 
 def _state_tensors(gan):
     """Every tensor of the training state, by name: parameters, Adam moments
-    and steps, and the counts and step as tensors."""
+    and steps, BatchNorm buffers, and the counts and step as tensors."""
     out = {}
     for name in NETWORKS:
         for pname, p in gan.nets[name].named_parameters():
             out[f"{name}.{pname}"] = p.detach()
             for k, t in gan.state.opt[name].state[p].items():
                 out[f"{name}.{pname}.{k}"] = t
+        for bname, b in gan.nets[name].named_buffers():
+            out[f"{name}.{bname}"] = b
         out[f"{name}.count"] = torch.tensor(gan.state.counts[name])
     out["step"] = torch.tensor(gan.state.step)
     return out
@@ -266,7 +285,8 @@ def test_carries_a_jax_train_state(flatten_opt):
                 assert np.ndim(want) == 1
                 want = unravel(want)
             got = torch_to_flax({pn: gan.state.opt[name].state[p][t]
-                                 for pn, p in gan.nets[name].named_parameters()})
+                                 for pn, p in gan.nets[name].named_parameters()},
+                                gan.nets[name])
             got_flat, want_flat = ravel_pytree(got)[0], ravel_pytree(want)[0]
             assert np.array_equal(np.asarray(got_flat), np.asarray(want_flat)), (name, key)
         assert gan.state.counts[name] == int(adam.count) == 2
@@ -331,9 +351,10 @@ def _carried(two, perturb=False):
 
 def _port_update(gan, batch):
     """Each network's parameter update (flax layout, raveled) of one step."""
-    before = {n: _flat(torch_to_flax(gan.nets[n].state_dict())) for n in NETWORKS}
+    flat = lambda n: _flat(torch_to_flax(gan.nets[n].state_dict(), gan.nets[n]))  # noqa: E731
+    before = {n: flat(n) for n in NETWORKS}
     gan.distributed_train_step(*batch, 0.0, True)
-    return {n: _flat(torch_to_flax(gan.nets[n].state_dict())) - before[n] for n in NETWORKS}
+    return {n: flat(n) - before[n] for n in NETWORKS}
 
 
 def test_flax_checkpoint_converts_to_a_resumable_port_checkpoint(tmp_path):
@@ -428,3 +449,164 @@ def test_converter_script_has_train_state_flag():
     proc = subprocess.run([sys.executable, os.path.join(REPO, "scripts", "flax_ckpt_to_torch.py"),
                            "--help"], capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0 and "--train-state" in proc.stdout
+
+
+# --- BASELINE config 4: V-Net generators with BatchNorm state and deconvs ---
+
+_C4 = dict(BATCH_SIZE=1, SUBVOL_PATCH_SIZE=(32, 32, 32), gen_filters=2, disc_filters=4,
+           cldice_iters=2, compute_dtype="float32", gen_i2s="vnet", gen_s2i="vnet")
+
+
+def _config4_cfgs(tmp_path):
+    return (VanGanConfig(**_C4, output_dir=str(tmp_path)),
+            JaxConfig(**_C4, output_dir=str(tmp_path)))
+
+
+@functools.lru_cache(maxsize=None)
+def _config4_jax_state():
+    """A JAX config-4 state (host arrays): factory init, gen_SI's
+    ``batch_stats`` and every Adam moment set from a seed, step and counts 2."""
+    from test_torch_vnet import _stats
+
+    jcfg = JaxConfig(**_C4)
+    state = make_step_fns(jcfg, _jax_factory_models(jcfg), steps_per_epoch=10).init(
+        jax.random.PRNGKey(0))
+    rng = np.random.default_rng(3)
+    model_state = dict(state.model_state)
+    model_state["gen_SI"] = {"batch_stats": _stats(model_state["gen_SI"]["batch_stats"], rng)}
+    state = state.replace(step=jnp.asarray(2, state.step.dtype), model_state=model_state,
+                          opt_state=jax.tree_util.tree_map(
+                              lambda a: jnp.asarray(rng.normal(size=a.shape), a.dtype) if a.ndim
+                              else jnp.asarray(2, a.dtype), state.opt_state))
+    return jax.tree_util.tree_map(np.asarray, state)
+
+
+def _x32():
+    return np.random.default_rng(8).uniform(-1, 1, size=(2, 32, 32, 32, 1)).astype(np.float32)
+
+
+def _stats_of(net):
+    return torch_to_flax_variables(net.state_dict(), net)["batch_stats"]
+
+
+def _assert_trees_equal(a, b):
+    la, lb = jax.tree_util.tree_leaves_with_path(a), jax.tree_util.tree_leaves_with_path(b)
+    assert [jax.tree_util.keystr(p) for p, _ in la] == [jax.tree_util.keystr(p) for p, _ in lb]
+    for (path, x), (_, y) in zip(la, lb):
+        assert np.array_equal(np.asarray(x), np.asarray(y)), jax.tree_util.keystr(path)
+
+
+def _assert_config4_outputs(nets, flax_generators):
+    """Each port generator within 2e-3 of its flax counterpart (module,
+    variables) in float64, and the s2i one of flax in float32 too."""
+    from test_torch_vnet import flax_float64_apply
+
+    x = _x32()
+    for name, (module, variables) in flax_generators.items():
+        with torch.no_grad():
+            got = nets[name](torch.from_numpy(x)).numpy()
+        np.testing.assert_allclose(got, flax_float64_apply(module, variables, x)[0], rtol=0,
+                                   atol=2e-3, err_msg=name)
+        if name == "gen_SI":
+            want = np.asarray(module.apply(variables, jnp.asarray(x), train=False))
+            np.testing.assert_allclose(got, want, rtol=0, atol=2e-3)
+
+
+def test_config4_jax_bundle_loads_in_the_port(tmp_path):
+    _, jcfg = _config4_cfgs(tmp_path)
+    state = _config4_jax_state()
+    path = jax_checkpoint.export_models(jcfg, state, epoch=0)
+    cfg, nets = checkpoint.load_exported(path, device="cpu")
+    assert (cfg.gen_i2s, cfg.gen_s2i) == ("vnet", "vnet")
+    for name in NETWORKS:
+        got = torch_to_flax_variables(nets[name].state_dict(), nets[name])
+        _assert_trees_equal(got, {"params": state.params[name], **state.model_state[name]})
+    models = _jax_factory_models(jcfg)
+    _assert_config4_outputs(nets, {name: (models[name], {"params": state.params[name],
+                                                         **state.model_state[name]})
+                                   for name in ("gen_IS", "gen_SI")})
+
+
+def test_config4_port_bundle_loads_in_jax(tmp_path):
+    cfg, _ = _config4_cfgs(tmp_path)
+    gan = VanGan(cfg, device="cpu")
+    g = torch.Generator().manual_seed(4)
+    with torch.no_grad():  # non-trivial running statistics
+        for bname, b in gan.gen_SI.named_buffers():
+            b.copy_(torch.rand(b.shape, generator=g) + (0.5 if bname.endswith("var") else -0.5))
+    path = checkpoint.export_models(cfg, gan.nets, epoch=1)
+    _, nets = jax_checkpoint.load_exported(path)
+    for name in NETWORKS:
+        _assert_trees_equal(jax.tree_util.tree_map(np.asarray, nets[name][1]),
+                            torch_to_flax_variables(gan.nets[name].state_dict(), gan.nets[name]))
+    _assert_config4_outputs(gan.nets, {name: nets[name] for name in ("gen_IS", "gen_SI")})
+
+
+def test_config4_train_state_carries_batch_stats_and_deconv_moments(tmp_path):
+    cfg, _ = _config4_cfgs(tmp_path)
+    state = _config4_jax_state()
+    gan = VanGan(cfg, device="cpu")
+    load_flax_train_state(gan, state)
+    _assert_trees_equal(_stats_of(gan.gen_SI), state.model_state["gen_SI"]["batch_stats"])
+    assert gan.state.step == 2
+    for name in NETWORKS:
+        net, adam = gan.nets[name], _adam(state.opt_state[name])
+        unravel = ravel_pytree(state.params[name])[1]
+        for key, t in (("mu", "exp_avg"), ("nu", "exp_avg_sq")):
+            want = getattr(adam, key)
+            want = jax.tree_util.tree_map(np.asarray, unravel(want) if np.ndim(want) == 1
+                                          else want)
+            got = torch_to_flax({pn: gan.state.opt[name].state[p][t]
+                                 for pn, p in net.named_parameters()}, net)
+            _assert_trees_equal(got, want)
+            if name == "gen_SI":  # the deconv's moment in torch's layout, by hand
+                kernel = want["deconv0"]["kernel"]
+                moment = gan.state.opt[name].state[net.deconv0.weight][t].numpy()
+                assert np.array_equal(moment, np.transpose(np.flip(kernel, (0, 1, 2)),
+                                                           (3, 4, 0, 1, 2)))
+        assert gan.state.counts[name] == 2
+
+
+@pytest.mark.parametrize("train_state", [False, True])
+def test_config4_converter_carries_batch_stats(tmp_path, train_state):
+    import importlib.util
+
+    cfg, jcfg = _config4_cfgs(tmp_path)
+    state = jax.tree_util.tree_map(jnp.asarray, _config4_jax_state())
+    jck = jax_checkpoint.VanGanCheckpointer(jcfg.output_dir)
+    jck.save(state, epoch=1)
+    jck.wait_until_finished()
+    spec = importlib.util.spec_from_file_location(
+        "flax_ckpt_to_torch", os.path.join(REPO, "scripts", "flax_ckpt_to_torch.py"))
+    script = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(script)
+    script.convert(cfg, 2, train_state=train_state)
+    gan = VanGan(cfg, device="cpu")
+    if train_state:
+        gan.load_checkpoint(epoch=2)
+    else:
+        gan.load_weights(gan.weights_path(2))
+    _assert_trees_equal(_stats_of(gan.gen_SI),
+                        _config4_jax_state().model_state["gen_SI"]["batch_stats"])
+
+
+def test_config4_resume_is_exact_with_dropout(tmp_path):
+    """The factory V-Nets (spatial dropout 0.5) and discriminator noise on:
+    2 steps, save, load into a fresh VanGan, 2 more == 4 straight steps,
+    every parameter, moment and running statistic bit for bit."""
+    cfg, _ = _config4_cfgs(tmp_path)
+    batches = _batches(tiny_cfg(SUBVOL_PATCH_SIZE=(32, 32, 32), BATCH_SIZE=1), 4, seed=6)
+    straight = VanGan(cfg, device="cpu")
+    for x, y in batches:
+        straight.distributed_train_step(x, y, 0.1, True)
+    first = VanGan(cfg, device="cpu")
+    for x, y in batches[:2]:
+        first.distributed_train_step(x, y, 0.1, True)
+    first.save_checkpoint(epoch=0)
+    resumed = VanGan(dataclasses.replace(cfg, seed=5), device="cpu")
+    resumed.load_checkpoint(epoch=1)
+    resumed.generator.set_state(first.generator.get_state())
+    for x, y in batches[2:]:
+        resumed.distributed_train_step(x, y, 0.1, True)
+    assert len(list(resumed.gen_SI.buffers())) == 36
+    _assert_states_equal(resumed, straight)

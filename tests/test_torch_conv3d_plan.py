@@ -89,7 +89,7 @@ def test_dgrad_parities(name, launches):
 def _kernel_takes(plan):
     """What the C entry points accept for a plan (they return 1000 otherwise)."""
     if plan.route in ("f32", "thin"):
-        return True
+        return plan.op != "wgrad" or 1 <= plan.split <= 65535
     limit = {"fwd": C.FWD_MAX_CO_TILE, "dgrad": C.DGRAD_MAX_CI_TILE,
              "wgrad": C.WGRAD_MAX_CO_TILE}[plan.op]
     static = C.DGRAD_STATIC_SMEM if plan.op == "dgrad" else 0
@@ -138,9 +138,14 @@ def test_bf16_path_shapes_take_a_route_the_kernel_takes(name):
 
 @pytest.mark.parametrize("name", sorted(PATH_CONVS))
 def test_f32_always_takes_the_f32_route(name):
+    """... and only its weight gradient has a workspace: one slice of
+    partial tiles per block along the voxels."""
+    ci, co, k = PATH_CONVS[name][:3]
     for part, plan in _plans(name, torch.float32).items():
         assert plan.route == "f32", (part, plan)
-        assert plan.workspace_bytes == 0
+        assert _kernel_takes(plan), (part, plan)
+        want = plan.split * co * ci * k ** 3 * 4 if part == "wgrad" else 0
+        assert plan.workspace_bytes == want and plan.workspace_bytes <= C.WORKSPACE_CAP
 
 
 @pytest.mark.parametrize("name", sorted(PATH_CONVS))
@@ -184,13 +189,38 @@ def test_plan_refuses_what_it_cannot_plan():
         C.conv_plan("fwd", 16, 16, (3, 3, 3), (1, 1, 1), (8,) * 3, torch.float16)
 
 
-def test_wrapper_workspace_shape_matches_plan():
+@pytest.mark.parametrize("dtype", [BF16, torch.float32])
+def test_wrapper_workspace_shape_matches_plan(dtype):
     for name in PATH_CONVS:
-        plan = _plans(name, BF16)["wgrad"]
+        plan = _plans(name, dtype)["wgrad"]
         ci, co, k = PATH_CONVS[name][:3]
         shape = C.wgrad_workspace_shape(plan, (co, ci, k, k, k))
         assert shape == (plan.workspace_slices, co, ci * k ** 3)
         assert math.prod(shape) * 4 == plan.workspace_bytes
+
+
+@pytest.mark.parametrize("dtype", [BF16, torch.float32])
+@pytest.mark.parametrize("ci,co,k,dims,batch", [(1, 32, 7, 128, 1), (32, 1, 7, 128, 1),
+                                                (64, 32, 4, 64, 3), (3, 5, 2, 3, 1)])
+def test_cuda_core_wgrad_split(dtype, ci, co, k, dims, batch):
+    """The CUDA-core weight gradient (float32; bfloat16 above 64 taps) fills
+    the card with blocks along the voxels, no more blocks than voxel chunks,
+    each with a slice of the workspace: the ResNet generator's 343-tap convs,
+    a 64-tap one in f32 and a tiny one."""
+    plan = C.conv_plan("wgrad", ci, co, (k,) * 3, (1, 1, 1), (dims,) * 3, dtype, batch)
+    if dtype == BF16 and k ** 3 <= C.MMA_MAX_TAPS:
+        assert plan.route == "mma"
+        return
+    assert plan.route in ("f32", "thin") and _kernel_takes(plan)
+    ncols = ci * k ** 3
+    mt, nt = min(C.WGRAD_CORE_TILES,  # the least padded tile, first on a tie, as the source
+                 key=lambda t: -(-co // t[0]) * t[0] * -(-ncols // t[1]) * t[1])
+    tiles = -(-co // mt) * -(-ncols // nt)
+    chunks = -(-batch * dims ** 3 // C.WGRAD_CORE_CHUNK)
+    assert plan.split <= chunks
+    assert plan.split * tiles >= min(C.WGRAD_CORE_TARGET_BLOCKS, chunks * tiles)
+    assert plan.workspace_slices == plan.split
+    assert plan.workspace_bytes == plan.split * co * ncols * 4 <= C.WORKSPACE_CAP
 
 
 @pytest.mark.parametrize("co,ci,k,co_tile", [(20, 19, (3, 1, 2), 24), (1, 16, (1, 1, 1), 8),

@@ -53,7 +53,7 @@ def test_factory_leaves_match_at_full_width():
                                             jnp.zeros((1, 32, 32, 32, 1))))["params"]
     params = jax.tree_util.tree_map(lambda s: np.zeros(s.shape, np.float32), shapes)
     tm = build_discriminator(VanGanConfig(compute_dtype="float32"))
-    sd = flax_to_torch(params)
+    sd = flax_to_torch(params, tm)
     assert len(sd) == len(tm.state_dict()) == 14
     assert {k: tuple(v.shape) for k, v in sd.items()} == \
         {k: tuple(v.shape) for k, v in tm.state_dict().items()}
@@ -63,7 +63,8 @@ def test_factory_leaves_match_at_full_width():
 def test_weight_mapping_round_trips():
     fm = FlaxDisc(filters=8, layout="NXCYZ", dtype=jnp.float32)
     params = fm.init(jax.random.PRNGKey(0), jnp.zeros((1, 16, 16, 16, 1)))["params"]
-    back = torch_to_flax(flax_to_torch(params))
+    tm = PatchGANDiscriminator3D(filters=8)
+    back = torch_to_flax(flax_to_torch(params, tm), tm)
     flat_a = jax.tree_util.tree_leaves_with_path(params)
     flat_b = jax.tree_util.tree_leaves_with_path(back)
     assert [jax.tree_util.keystr(p) for p, _ in flat_a] == \

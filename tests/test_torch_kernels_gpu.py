@@ -61,6 +61,15 @@ def _rel_err(got, want):
     ((3, 3, 3), 1, ((2, 2),) * 3, "reflect", 4, 4, False, (3, 2, 4)),
     # the discriminator's conv0 (1 -> 64 at 128^3 on the path), cut in size
     ((4, 4, 4), 2, ((1, 1),) * 3, "reflect", 1, 64, False, (18, 16, 20)),
+    # the other generators' shapes, cut in size: the ResNet's 7^3 reflect
+    # stem and head (343 taps: the CUDA-core bodies), its 4^3 TF SAME
+    # upsample conv (pads (1, 2)), the i2s V-Net's 3^3 zero 'same' upconv
+    # and its 3^3 reflect conv, both 64 -> 32
+    ((7, 7, 7), 1, ((3, 3),) * 3, "reflect", 1, 8, False, (11, 9, 10)),
+    ((7, 7, 7), 1, ((3, 3),) * 3, "reflect", 8, 1, True, (9, 10, 11)),
+    ((4, 4, 4), 1, "same", "zeros", 64, 32, False, (9, 8, 10)),
+    ((3, 3, 3), 1, "same", "zeros", 64, 32, True, (9, 10, 8)),
+    ((3, 3, 3), 1, ((1, 1),) * 3, "reflect", 64, 32, True, (9, 8, 10)),
 ])
 def test_conv3d_kernel_matches_plain(cuda, dtype, k, stride, padding, pad_mode, ci, co,
                                      bias, dims):
@@ -82,7 +91,9 @@ def test_conv3d_kernel_matches_plain(cuda, dtype, k, stride, padding, pad_mode, 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("act", ["none", "relu", "leaky_relu"])
 @pytest.mark.parametrize("shape", [(2, 3, 5, 7, 9), (1, 16, 8, 8, 16), (2, 1, 40, 40, 40),
-                                   (2, 512, 6, 5, 7)])  # the discriminator's down2
+                                   (2, 512, 6, 5, 7),  # the discriminator's down2
+                                   # the i2s V-Net's and ResNet's deep planes
+                                   (3, 256, 16, 16, 16), (3, 512, 8, 8, 8)])
 def test_instnorm_kernel_matches_plain(cuda, dtype, act, shape):
     g = torch.Generator().manual_seed(1)
     x = (torch.randn(*shape, generator=g) * 2 + 0.5).to(cuda, dtype)
@@ -210,6 +221,15 @@ CONV_CASES = [
     # the discriminator's conv0 (1 -> 64 at 128^3 on the path), cut in size
     ((4, 4, 4), 2, ((1, 1),) * 3, "reflect", 1, 64, False, (18, 16, 20)),
     ((3, 3, 3), 1, ((1, 1),) * 3, "reflect", 96, 32, False, (6, 5, 7)),
+    # the other generators' shapes, cut in size: the ResNet's 7^3 reflect
+    # stem and head (343 taps: the CUDA-core bodies), its 4^3 TF SAME
+    # upsample conv (pads (1, 2)), the i2s V-Net's 3^3 zero 'same' upconv
+    # and its 3^3 reflect conv, both 64 -> 32
+    ((7, 7, 7), 1, ((3, 3),) * 3, "reflect", 1, 8, False, (11, 9, 10)),
+    ((7, 7, 7), 1, ((3, 3),) * 3, "reflect", 8, 1, True, (9, 10, 11)),
+    ((4, 4, 4), 1, "same", "zeros", 64, 32, False, (9, 8, 10)),
+    ((3, 3, 3), 1, "same", "zeros", 64, 32, True, (9, 10, 8)),
+    ((3, 3, 3), 1, ((1, 1),) * 3, "reflect", 64, 32, True, (9, 8, 10)),
 ]
 
 
@@ -299,6 +319,32 @@ def test_conv3d_bf16_routes_match_plain(cuda, k, stride, padding, pad_mode, batc
     dw = conv_ops.conv3d_wgrad_plain(x.detach(), gy, w.shape, s, pads, pad_mode)
     assert _rel_err(x.grad, dx) <= 2e-2
     assert _rel_err(w.grad, dw) <= 2e-2
+
+
+@pytest.mark.parametrize("dtype,k,ci,co,dims,batch", [
+    (torch.float32, (3, 3, 3), 16, 24, (13, 7, 9), 2),
+    (torch.float32, (4, 4, 4), 32, 64, (17, 16, 18), 3),
+    # the ResNet generator's 343-tap stem and head: the CUDA-core body in bf16
+    (torch.bfloat16, (7, 7, 7), 1, 8, (20, 18, 22), 2),
+    (torch.bfloat16, (7, 7, 7), 8, 1, (20, 18, 22), 2)])
+def test_conv3d_wgrad_cuda_core_is_bit_identical(cuda, dtype, k, ci, co, dims, batch):
+    """K3's CUDA-core body writes its split-K partial tiles to a workspace
+    that one launch sums in a fixed order: two runs on the same inputs give
+    the same bits, and dW is within 1e-4 (f32) / 2e-2 (bf16) of the plain
+    version ('same' reflect pads, unit stride)."""
+    g = torch.Generator().manual_seed(9)
+    s = (1, 1, 1)
+    pads = tuple((kk // 2, kk - 1 - kk // 2) for kk in k)
+    x = torch.randn(batch, ci, *dims, generator=g).to(cuda, dtype)
+    gy = torch.randn(batch, co, *dims, generator=g).to(cuda, dtype)
+    plan = conv_ops.conv_plan("wgrad", ci, co, k, s, dims, dtype, batch)
+    assert plan.route in ("f32", "thin") and plan.split > 1
+    first = conv_ops.conv3d_wgrad(x, gy, (co, ci, *k), s, pads, "reflect")
+    second = conv_ops.conv3d_wgrad(x, gy, (co, ci, *k), s, pads, "reflect")
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+    want = conv_ops.conv3d_wgrad_plain(x, gy, (co, ci, *k), s, pads, "reflect")
+    assert _rel_err(first, want) <= (1e-4 if dtype == torch.float32 else 2e-2)
 
 
 @pytest.mark.parametrize("k,stride,padding,pad_mode,batch,ci,co,bias,dims,routes",
@@ -466,6 +512,82 @@ def test_conv3d_dgrad_at_path_shapes(cuda, dtype, name):
         (before[0] + 1, before[1] + plan.launches - 1)
     assert got.shape == want.shape and got.dtype == dtype
     assert _rel_err(got, want) <= TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("act", ["none", "relu", "leaky_relu"])
+@pytest.mark.parametrize("shape", [(3, 256, 16, 16, 16), (3, 512, 8, 8, 8)])
+def test_instnorm_backward_at_deep_planes(cuda, dtype, act, shape):
+    """K5 on the i2s V-Net's and the ResNet's deep planes (3 x 512 x 8^3,
+    3 x 256 x 16^3) against instance_norm_act_bwd_plain, rel 1e-4 (f32) /
+    2e-2 (bf16). With this many voxels some pre-activations lie at act's
+    kink, where the two sides' f32 pre-activations may fall on different
+    sides and either one-sided slope is a subgradient: dx leaves out the
+    voxels within 1e-6 of max |pre| of it, and dgamma / dbeta may differ
+    per channel by those voxels' share, as ``chip_smoke.py``'s phase 3."""
+    g = torch.Generator().manual_seed(4)
+    x = (torch.randn(*shape, generator=g) * 2 + 0.5).to(cuda, dtype)
+    gamma = (torch.randn(shape[1], generator=g) * 0.5 + 1).to(cuda)
+    beta = (torch.randn(shape[1], generator=g) * 0.2).to(cuda)
+    gy = torch.randn(*shape, generator=g).to(cuda, dtype)
+    with torch.inference_mode():
+        _, stats = in_ops._instance_norm_act_cuda(x, gamma, beta, 1e-3, act, 0.2)
+        got = in_ops._instance_norm_act_bwd_cuda(x, gy, stats, act, 0.2)
+        want = in_ops.instance_norm_act_bwd_plain(x, gy, gamma, beta, 1e-3, act, 0.2)
+    torch.cuda.synchronize()
+    xd = x.double()
+    var, mean = torch.var_mean(xd, dim=(2, 3, 4), unbiased=False, keepdim=True)
+    xhat = (xd - mean) * torch.rsqrt(var + 1e-3)
+    pre = xhat * gamma.double().reshape(1, -1, 1, 1, 1) + beta.double().reshape(1, -1, 1, 1, 1)
+    kink = pre.abs() <= 1e-6 * float(pre.abs().max())
+    if act == "none":
+        kink = torch.zeros_like(kink)
+    gk = gy.double().abs() * kink
+    slack = (None, (gk * xhat.abs()).sum(dim=(0, 2, 3, 4)), gk.sum(dim=(0, 2, 3, 4)))
+    for part, a, b, sl in zip(("dx", "dgamma", "dbeta"), got, want, slack):
+        diff = (a.double() - b.double()).abs()
+        diff = diff[~kink] if sl is None else (diff - sl).clamp(min=0.0)
+        assert float(diff.max()) <= TOL[dtype] * float(b.double().abs().max()), part
+
+
+# the kernel convs that the other generators add to the path, at their full
+# size, batch 1: (ci, co, k, stride, padding, pad_mode, n); the ResNet's 7^3
+# stem and head take the CUDA-core bodies (343 taps)
+OTHER_PATH_CONVS = {
+    "vnet_i2s.down0.conv1": (32, 32, 3, 1, ((1, 1),) * 3, "reflect", 128),
+    "vnet_i2s.upconv3": (64, 32, 3, 1, "same", "zeros", 128),
+    "vnet_i2s.up3.conv0": (64, 32, 3, 1, ((1, 1),) * 3, "reflect", 128),
+    "vnet_i2s.head": (32, 1, 1, 1, "same", "zeros", 128),
+    "resnet.stem_conv": (1, 32, 7, 1, ((3, 3),) * 3, "reflect", 128),
+    "resnet.down0": (32, 64, 3, 2, ((1, 1),) * 3, "reflect", 128),
+    "resnet.up2": (64, 32, 4, 1, "same", "zeros", 128),
+    "resnet.head": (32, 1, 7, 1, ((3, 3),) * 3, "reflect", 128),
+}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name", sorted(OTHER_PATH_CONVS))
+def test_conv3d_kernels_at_other_generator_shapes(cuda, dtype, name):
+    """K1, K2 and K3 through the autograd Function at each of these shapes
+    against the plain versions, with the tolerances of the tests above."""
+    ci, co, k, stride, padding, pad_mode, n = OTHER_PATH_CONVS[name]
+    k, s, dims = (k,) * 3, (stride,) * 3, (n,) * 3
+    pads = norm_padding(padding, k, s, dims)
+    g = torch.Generator().manual_seed(10)
+    x = torch.randn(1, ci, *dims, generator=g).to(cuda, dtype).requires_grad_()
+    w = (torch.randn(co, ci, *k, generator=g) * (2.0 / (ci * np.prod(k))) ** 0.5).to(cuda)
+    w.requires_grad_()
+    y = conv3d(x, w, None, stride, padding, pad_mode)
+    with torch.no_grad():
+        want = conv3d_plain(x, w, None, s, pads, pad_mode)
+    assert _rel_err(y, want) <= TOL[dtype]
+    gy = torch.randn(y.shape, generator=g).to(cuda, dtype)
+    y.backward(gy)
+    torch.cuda.synchronize()
+    dx = conv_ops.conv3d_dgrad_plain(gy, w.detach(), x.shape, s, pads, pad_mode)
+    dw = conv_ops.conv3d_wgrad_plain(x.detach(), gy, w.shape, s, pads, pad_mode)
+    assert _rel_err(x.grad, dx) <= TOL[dtype]
+    assert _rel_err(w.grad, dw) <= (1e-3 if dtype == torch.float32 else 2e-2)
 
 
 def _in_backward(cuda, dtype, shape, act, seed=6):

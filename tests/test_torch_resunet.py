@@ -49,7 +49,8 @@ def test_forward_matches_flax():
 def test_weight_mapping_round_trips():
     fm = _flax_model()
     params = fm.init(jax.random.PRNGKey(0), jnp.zeros((1, 16, 16, 16, 1)))["params"]
-    back = torch_to_flax(flax_to_torch(params))
+    tm = ResUNet3D(filters=4, num_layers=2)
+    back = torch_to_flax(flax_to_torch(params, tm), tm)
     flat_a = jax.tree_util.tree_leaves_with_path(params)
     flat_b = jax.tree_util.tree_leaves_with_path(back)
     assert [jax.tree_util.keystr(p) for p, _ in flat_a] == \
@@ -66,7 +67,7 @@ def test_factory_leaf_count_matches():
                                             jnp.zeros((1, 32, 32, 32, 1))))["params"]
     params = jax.tree_util.tree_map(lambda s: np.zeros(s.shape, np.float32), shapes)
     tm = build_generator("resUnet", VanGanConfig(gen_filters=4, compute_dtype="float32"))
-    sd = flax_to_torch(params)
+    sd = flax_to_torch(params, tm)
     assert len(sd) == len(tm.state_dict()) == 97
     assert {k: tuple(v.shape) for k, v in sd.items()} == \
         {k: tuple(v.shape) for k, v in tm.state_dict().items()}
@@ -86,14 +87,37 @@ def test_seeded_init_is_deterministic():
 @pytest.mark.parametrize("kwargs", [{"upsample_mode": "deconv"},
                                     {"use_attention_gate": True}])
 def test_unported_options_raise(kwargs):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ResUNet3D(filters=4, num_layers=2, **kwargs)
+    """The two options that raised before they were ported now build and
+    match flax (atol 1e-4, as above); ``test_torch_generators.py`` also
+    runs them in training and together."""
+    rng = np.random.default_rng(2)
+    x = rng.uniform(-1, 1, size=(2, 16, 16, 16, 1)).astype(np.float32)
+    fm = FlaxResUNet3D(**{"upsample_mode": "simple", **kwargs}, dropout_type="none", filters=4,
+                       num_layers=2, output_activation="tanh", layout="NXCYZ",
+                       dtype=jnp.float32)
+    params = fm.init(jax.random.PRNGKey(1), jnp.asarray(x))["params"]
+    want = np.asarray(fm.apply({"params": params}, jnp.asarray(x)))
+    tm = ResUNet3D(filters=4, num_layers=2, **kwargs)
+    load_flax_params(tm, params)
+    with torch.inference_mode():
+        got = tm(torch.from_numpy(x)).numpy()
+    np.testing.assert_allclose(got, want, atol=1e-4, rtol=0)
 
 
 def test_other_generator_families_raise():
+    """The other families build now, and run; only the V-Net's ``addnoise``
+    still raises, naming ROADMAP."""
+    from vangan_torch.models.vnet import VNet3D
+
+    cfg = VanGanConfig(gen_filters=2, compute_dtype="float32")
+    x = torch.zeros(1, 16, 16, 16, 1)
     for kind in ("resnet", "vnet"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            build_generator(kind, VanGanConfig(gen_filters=4))
+        for role in ("i2s", "s2i"):
+            with torch.inference_mode():
+                y = build_generator(kind, cfg, role=role)(x)
+            assert y.shape == x.shape and bool(torch.isfinite(y).all())
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        VNet3D(addnoise=True)
 
 
 def test_config_defaults_match_jax_config():

@@ -185,7 +185,7 @@ def test_checkpoint_converter_serves_jax_generators(rng, tmp_path):
             with torch.inference_mode():
                 got = gan.nets[name](torch.from_numpy(x)).numpy()
             np.testing.assert_allclose(got, want, atol=1e-4, rtol=0)
-        back = torch_to_flax(gan.nets[name].state_dict())
+        back = torch_to_flax(gan.nets[name].state_dict(), gan.nets[name])
         for (_, a), (_, b) in zip(jax.tree_util.tree_leaves_with_path(params[name]),
                                   jax.tree_util.tree_leaves_with_path(back)):
             np.testing.assert_array_equal(np.asarray(a), b)

@@ -104,7 +104,7 @@ def _torch_gan(jax_cfg, params=None, deterministic=True, seed=0):
 
 def _as_flax(net, tensors):
     """A list of tensors in ``net.parameters()`` order as a flax tree."""
-    return torch_to_flax(dict(zip((n for n, _ in net.named_parameters()), tensors)))
+    return torch_to_flax(dict(zip((n for n, _ in net.named_parameters()), tensors)), net)
 
 
 def _leaves(tree):
@@ -252,7 +252,7 @@ def test_train_step_matches_jax(port_grads):
         np.testing.assert_allclose(float(result[key]), want_losses[key], rtol=1e-4, err_msg=key)
     _, port, _ = port_grads
     for name in NETWORKS:
-        got = _leaves(torch_to_flax(gan.nets[name].state_dict()))
+        got = _leaves(torch_to_flax(gan.nets[name].state_dict(), gan.nets[name]))
         want, g = _leaves(want_params[name]), _leaves(grads[name])
         g_port = _leaves(_as_flax(gan.nets[name], port[name]))
         gmax = max(np.abs(v).max() for v in g.values())
@@ -389,7 +389,7 @@ def test_train_defaults_to_training_in_both_packages():
         np.testing.assert_allclose(got, want, rtol=1e-4, err_msg=key)
     after = jax.tree_util.tree_map(np.asarray, jax.device_get(jax_gan.state.params))
     for name in NETWORKS:
-        got = _flat(torch_to_flax(gan.nets[name].state_dict()))
+        got = _flat(torch_to_flax(gan.nets[name].state_dict(), gan.nets[name]))
         want, start = _flat(after[name]), _flat(init[name])
         assert np.linalg.norm(want - start) > 0
         assert np.linalg.norm(got - want) <= 0.05 * np.linalg.norm(want - start), name

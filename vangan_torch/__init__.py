@@ -4,8 +4,10 @@
 ``vangan_tpu``'s preprocessing: the data feed (``data.pipeline``), the epoch
 loop (``training.loop.fit``), monitoring (``monitor``) and checkpoints of the
 whole training state (``checkpoint``); ``predict`` runs sliding-window
-segmentation of whole volumes with the ResU-Net ``gen_IS`` (or ``gen_SI``),
-and ``sweep`` does so from every saved epoch. The small-channel
+segmentation of whole volumes with ``gen_IS`` (or ``gen_SI``), and
+``sweep`` does so from every saved epoch. The generators are those of the
+config's ``gen_i2s`` / ``gen_s2i``: the ResU-Net, the V-Net or the ResNet
+generator (``models.factory``). The small-channel
 convolutions, every InstanceNorm and the clDice skeleton run forward and
 backward on hand-written CUDA kernels (``vangan_torch/ops/csrc``). The
 package imports torch and never JAX.

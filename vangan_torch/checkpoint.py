@@ -177,8 +177,10 @@ class VanGanCheckpointer:
 #
 # The JAX package's layout: ``exports/e{epoch+1}/`` holds config.yaml,
 # manifest.json and one ``{name}.npz`` per network whose keys are
-# ``params`` + the flax keystr of each leaf (``['enc1']['conv']['kernel']``),
-# so a bundle written by either package loads in the other.
+# ``params`` + the flax keystr of each leaf (``['enc1']['conv']['kernel']``)
+# and ``state`` + the keystr of each leaf of its mutable collections
+# (``['batch_stats']['down0']['bn0']['mean']``), so a bundle written by
+# either package loads in the other.
 
 _KEY_RE = re.compile(r"\['([^']*)'\]")
 
@@ -195,7 +197,7 @@ def export_models(cfg, nets: Mapping[str, torch.nn.Module], epoch: int,
                   out_dir: Optional[str] = None) -> str:
     """Write the four networks and the config as a bundle,
     ``{out_dir or cfg.output_dir}/exports/e{epoch+1}/``; returns its path."""
-    from vangan_torch.weights import torch_to_flax
+    from vangan_torch.weights import torch_to_flax_variables
 
     path = os.path.join(out_dir or cfg.output_dir, "exports", f"e{epoch + 1}")
     os.makedirs(path, exist_ok=True)
@@ -207,9 +209,11 @@ def export_models(cfg, nets: Mapping[str, torch.nn.Module], epoch: int,
     manifest = {"format": 1, "epoch": epoch + 1, "networks": {}}
     for name in NETWORKS:
         builder, kind, role = roles[name]
-        params = torch_to_flax(nets[name].state_dict())
+        variables = torch_to_flax_variables(nets[name].state_dict(), nets[name])
+        params = variables.pop("params")
         np.savez(os.path.join(path, f"{name}.npz"),
-                 **{f"params{k}": v for k, v in _keystr_leaves(params).items()})
+                 **{f"params{k}": v for k, v in _keystr_leaves(params).items()},
+                 **{f"state{k}": v for k, v in _keystr_leaves(variables).items()})
         manifest["networks"][name] = {"builder": builder, "kind": kind, "role": role,
                                       "file": f"{name}.npz"}
     with open(os.path.join(path, "manifest.json"), "w") as f:
@@ -237,16 +241,19 @@ def load_exported(path: str, device="cuda") -> Tuple[Any, Dict[str, torch.nn.Mod
             module = build_generator(meta["kind"], cfg, role=meta["role"])
         else:
             module = build_discriminator(cfg)
-        tree: dict = {}
+        trees: dict = {"params": {}, "state": {}}
         with np.load(os.path.join(path, meta["file"])) as data:
             for key in data.files:
-                if key.startswith("state"):
-                    raise ValueError(f"{path}/{meta['file']}: {key} is a mutable collection, "
-                                     "which no network of the port has")
-                *mods, leaf = _KEY_RE.findall(key[len("params"):])
-                node = tree
+                prefix = "params" if key.startswith("params") else "state"
+                *mods, leaf = _KEY_RE.findall(key[len(prefix):])
+                node = trees[prefix]
                 for m in mods:
                     node = node.setdefault(m, {})
                 node[leaf] = data[key]
-        nets[name] = load_flax_params(module, tree).to(device).eval()
+        unknown = set(trees["state"]) - {"batch_stats"}
+        if unknown:
+            raise ValueError(f"{path}/{meta['file']}: mutable collections {sorted(unknown)}, "
+                             "which no network of the port has")
+        nets[name] = load_flax_params(module, trees["params"],
+                                      trees["state"].get("batch_stats")).to(device).eval()
     return cfg, nets

@@ -5,9 +5,12 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+import torch.nn as nn
 
 from vangan_torch.models.discriminator import PatchGANDiscriminator3D
+from vangan_torch.models.resnet_generator import ResNetGenerator3D
 from vangan_torch.models.resunet import ResUNet3D
+from vangan_torch.models.vnet import VNet3D
 
 
 def compute_dtype(cfg) -> torch.dtype:
@@ -15,19 +18,29 @@ def compute_dtype(cfg) -> torch.dtype:
 
 
 def build_generator(kind: str, cfg, role: str = "i2s",
-                    generator: Optional[torch.Generator] = None) -> ResUNet3D:
+                    generator: Optional[torch.Generator] = None) -> nn.Module:
     """Build a generator ('i2s' imaging->segmentation or 's2i'), as
-    vangan.py:88-164 configures it; parameters are drawn from ``generator``."""
+    vangan.py:88-164 configures it (``vangan_tpu.models.factory``): 'resUnet',
+    'vnet' (the s2i V-Net with BatchNorm, deconv upsampling and f filters;
+    the i2s V-Net with InstanceNorm, nearest upsampling and 2f) or 'resnet'.
+    Parameters are drawn from ``generator``. Each is called as
+    ``net(x, train=False, generator=None)``."""
     if role not in ("i2s", "s2i"):
         raise ValueError(f"role must be 'i2s' or 's2i', got {role!r}")
+    dtype, f = compute_dtype(cfg), cfg.gen_filters
+    if kind == "resnet":
+        return ResNetGenerator3D(filters=2 * f, num_downsampling_blocks=3,
+                                 num_residual_blocks=6, num_upsample_blocks=3, dtype=dtype,
+                                 generator=generator)
+    if kind == "vnet":
+        i2s = role == "i2s"
+        return VNet3D(use_batch_norm=not i2s, upsample_mode="simple" if i2s else "deconv",
+                      dropout=0.5, dropout_type="spatial", use_attention_gate=False,
+                      filters=2 * f if i2s else f, num_layers=4, addnoise=False, dtype=dtype,
+                      generator=generator)
     if kind == "resUnet":
-        return ResUNet3D(filters=cfg.gen_filters, num_layers=4, upsample_mode="simple",
-                         use_attention_gate=False, dtype=compute_dtype(cfg),
-                         generator=generator)
-    if kind in ("resnet", "vnet"):
-        raise NotImplementedError(
-            f"generator {kind!r} is not ported yet "
-            "(ROADMAP.md Queue 1, other families and modes)")
+        return ResUNet3D(filters=f, num_layers=4, upsample_mode="simple",
+                         use_attention_gate=False, dtype=dtype, generator=generator)
     raise ValueError(f"Generator type not recognised: {kind!r}")
 
 

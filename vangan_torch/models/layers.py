@@ -1,12 +1,15 @@
-"""torch building blocks of the ResU-Net generator and the PatchGAN discriminator.
+"""torch building blocks of the generators (ResU-Net, V-Net, ResNet) and the
+PatchGAN discriminator.
 
 Counterparts of ``vangan_tpu.models.layers`` on torch's ``(B, C, X, Y, Z)``
 layout. Submodules carry the flax names (``conv``, ``norm_act.inorm``,
 ``shortcut``, ...) and parameters are created in flax's shapes, so a flax
 parameter tree maps onto ``state_dict`` by a rename and a transpose
 (``vangan_torch.weights``). Parameters are float32; a conv runs in its input's
-dtype (the compute dtype) with the weight cast to it, and InstanceNorm keeps
-its statistics in float32.
+dtype (the compute dtype) with the weight cast to it, and InstanceNorm and
+BatchNorm keep their statistics in float32. Layers whose behaviour differs
+in training (dropout, noise, BatchNorm) take an explicit ``train`` argument,
+not ``module.training``, and draw from an explicit ``torch.Generator``.
 
 Each ``ConvND`` and ``InstanceNorm`` has a ``use_kernels`` switch: True (the
 default) sends the op to the hand-written kernels where the JAX package sends
@@ -17,7 +20,8 @@ and its autograd everywhere, for comparing the two on the card.
 
 from __future__ import annotations
 
-from typing import Optional, Sequence, Tuple, Union
+import functools
+from typing import Callable, Optional, Sequence, Tuple, Union
 
 import torch
 import torch.nn as nn
@@ -31,13 +35,20 @@ from vangan_torch.ops.instnorm import instance_norm_act, instance_norm_act_plain
 KERNEL_MAX_CHANNELS = 128
 
 
-def he_normal_(t: torch.Tensor, fan_in: int,
-               generator: Optional[torch.Generator] = None) -> torch.Tensor:
-    """Keras/flax he_normal: truncated normal in [-2, 2] std, std corrected
-    so the truncated distribution has variance 2 / fan_in."""
-    std = (2.0 / fan_in) ** 0.5 / 0.87962566103423978
+def variance_scaling_(t: torch.Tensor, fan_in: int, scale: float,
+                      generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """flax's truncated-normal ``variance_scaling`` (fan_in): truncated at
+    [-2, 2] std, std corrected so the truncated distribution has variance
+    ``scale / fan_in``."""
+    std = (scale / fan_in) ** 0.5 / 0.87962566103423978
     with torch.no_grad():
         return nn.init.trunc_normal_(t, 0.0, std, -2.0 * std, 2.0 * std, generator=generator)
+
+
+def he_normal_(t: torch.Tensor, fan_in: int,
+               generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """Keras/flax he_normal: variance 2 / fan_in."""
+    return variance_scaling_(t, fan_in, 2.0, generator)
 
 
 def uniform_pads(p: int) -> Tuple[Tuple[int, int], ...]:
@@ -91,16 +102,25 @@ class ConvND(nn.Module):
 
 class InstanceNorm(nn.Module):
     """Per-sample, per-channel normalisation over X, Y, Z (eps 1e-3, learned
-    ``weight`` = flax ``scale`` and ``bias``) with an activation epilogue."""
+    ``weight`` = flax ``scale`` and ``bias``) with an activation epilogue.
+    ``gamma_init`` is ``"ones"`` or ``"he_normal"`` (``he_normal_1d``, fan_in
+    = channels: the ResNet generator's, generator.py:14,40)."""
 
     def __init__(self, channels: int, act: str = "none", epsilon: float = 1e-3,
-                 leaky_slope: float = 0.2):
+                 leaky_slope: float = 0.2, gamma_init: str = "ones",
+                 generator: Optional[torch.Generator] = None):
         super().__init__()
         self.act = act
         self.epsilon = epsilon
         self.leaky_slope = leaky_slope
         self.use_kernels = True
-        self.weight = nn.Parameter(torch.ones(channels))
+        if gamma_init == "ones":
+            gamma = torch.ones(channels)
+        elif gamma_init == "he_normal":
+            gamma = he_normal_(torch.empty(channels), channels, generator)
+        else:
+            raise ValueError(f"gamma_init must be 'ones' or 'he_normal', got {gamma_init!r}")
+        self.weight = nn.Parameter(gamma)
         self.bias = nn.Parameter(torch.zeros(channels))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -218,6 +238,161 @@ def spatial_dropout(x: torch.Tensor, rate: float, train: bool = False,
     u = torch.rand((*x.shape[:2], 1, 1, 1), device=x.device,
                    generator=_need_generator(generator, "spatial_dropout"))
     return torch.where(u < keep, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+def standard_dropout(x: torch.Tensor, rate: float, train: bool = False,
+                     generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """Element-wise dropout, flax ``nn.Dropout`` without broadcast dims: in
+    training each element is dropped with probability ``rate`` and kept ones
+    are scaled by 1 / (1 - rate)."""
+    if not train or rate == 0:
+        return x
+    keep = 1.0 - rate
+    u = torch.rand(x.shape, device=x.device,
+                   generator=_need_generator(generator, "standard_dropout"))
+    return torch.where(u < keep, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+def make_dropout(dropout_type: Optional[str], rate: float) -> Optional[Callable]:
+    """The reference's dropout_type dispatch (layers.py:338-349):
+    ``"spatial"`` | ``"standard"`` | ``"none"`` (or None, no layer). The
+    result is called as ``do(x, train=..., generator=...)``."""
+    if dropout_type == "spatial":
+        return functools.partial(spatial_dropout, rate=rate)
+    if dropout_type == "standard":
+        return functools.partial(standard_dropout, rate=rate)
+    if dropout_type in ("none", None):
+        return None
+    raise ValueError(f"dropout_type must be 'spatial', 'standard' or 'none', got {dropout_type!r}")
+
+
+def max_pool_2x(x: torch.Tensor) -> torch.Tensor:
+    """MaxPooling3D(2) on (B, C, X, Y, Z) (vnet.py:35-42, VALID windows). A
+    tied window sends its gradient to its first element in X, Y, Z order,
+    as ``reduce_window``'s does."""
+    return F.max_pool3d(x, 2)
+
+
+class BatchNorm(nn.Module):
+    """flax ``nn.BatchNorm`` as the V-Net uses it (vnet.py:66-73): statistics
+    per channel over (B, X, Y, Z), eps 1e-3 (Keras'), momentum 0.99, learned
+    ``weight`` (flax ``scale``) and ``bias``, running ``mean`` and ``var``
+    buffers (flax ``batch_stats``), all float32.
+
+    With ``train`` it normalises by the batch's statistics and moves the
+    buffers to ``0.99 * buffer + 0.01 * statistic`` with the biased variance
+    (``F.batch_norm`` would move them by the unbiased one, so the update is
+    made here, from the statistics ``native_batch_norm`` returns); without
+    it, by the buffers. PyTorch's batch norm (a library op, as XLA's is in
+    the JAX package) computes the statistics and the normalisation in
+    float32 and keeps only the input and the statistics for the backward;
+    flax computes the variance as E[x^2] - E[x]^2 in float32, which differs
+    in rounding only.
+    """
+
+    def __init__(self, channels: int, epsilon: float = 1e-3, momentum: float = 0.99):
+        super().__init__()
+        self.epsilon = epsilon
+        self.momentum = momentum
+        self.weight = nn.Parameter(torch.ones(channels))
+        self.bias = nn.Parameter(torch.zeros(channels))
+        self.register_buffer("mean", torch.zeros(channels))
+        self.register_buffer("var", torch.ones(channels))
+
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        # float32 parameters and statistics, float64 for a float64 input
+        p = functools.partial(torch.Tensor.to, dtype=torch.promote_types(x.dtype, torch.float32))
+        if not train:
+            return F.batch_norm(x, p(self.mean), p(self.var), p(self.weight), p(self.bias),
+                                False, 0.0, self.epsilon)
+        y, mean, invstd = torch.native_batch_norm(x, p(self.weight), p(self.bias), None, None,
+                                                  True, 0.0, self.epsilon)
+        with torch.no_grad():
+            var = torch.clamp(invstd.reciprocal().square() - self.epsilon, min=0.0)
+            self.mean.copy_(self.momentum * self.mean + (1 - self.momentum) * mean)
+            self.var.copy_(self.momentum * self.var + (1 - self.momentum) * var)
+        return y
+
+
+class ConvTranspose(nn.Module):
+    """flax ``nn.ConvTranspose`` with ``kernel_size == strides`` (the
+    generators' 2^3 stride-2 upsampling, vnet.py:148, resunet.py:96): the
+    windows do not overlap, so 'SAME' and 'VALID' both give ``s * n``.
+    ``weight`` is torch's (Ci, Co, kx, ky, kz), flax's ``kernel``
+    (kx, ky, kz, Ci, Co) flipped on its three spatial axes (flax does not
+    flip; ``weights.py`` maps it), and ``bias``. ``kernel_init``:
+    ``"lecun_normal"`` (flax's default) or ``"he_normal"``, fan_in Ci * taps."""
+
+    def __init__(self, in_channels: int, features: int, kernel_size: int = 2,
+                 strides: int = 2, kernel_init: str = "lecun_normal",
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        if kernel_size != strides:
+            raise ValueError(f"ConvTranspose takes kernel_size == strides, got {kernel_size}, "
+                             f"{strides}")
+        scales = {"lecun_normal": 1.0, "he_normal": 2.0}
+        if kernel_init not in scales:
+            raise ValueError(f"kernel_init must be one of {sorted(scales)}, got {kernel_init!r}")
+        self.strides = strides
+        w = torch.empty(in_channels, features, *(kernel_size,) * 3)
+        self.weight = nn.Parameter(variance_scaling_(w, in_channels * kernel_size ** 3,
+                                                     scales[kernel_init], generator))
+        self.bias = nn.Parameter(torch.zeros(features))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.conv_transpose3d(x, self.weight.to(x.dtype), self.bias.to(x.dtype),
+                                  stride=self.strides)
+
+
+class AttentionGate(nn.Module):
+    """Oktay attention gate (layers.py:487-505): ``inp_1 * sigmoid(conv_out(
+    relu(conv1(inp_1) + conv2(inp_2))))``, 1^3 convs with bias."""
+
+    def __init__(self, in1_channels: int, in2_channels: int, n_intermediate_filters: int,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        n = n_intermediate_filters
+        self.conv1 = ConvND(in1_channels, n, 1, 1, padding="same", generator=generator)
+        self.conv2 = ConvND(in2_channels, n, 1, 1, padding="same", generator=generator)
+        self.conv_out = ConvND(n, 1, 1, 1, padding="same", generator=generator)
+
+    def forward(self, inp_1: torch.Tensor, inp_2: torch.Tensor) -> torch.Tensor:
+        f = F.relu(self.conv1(inp_1) + self.conv2(inp_2))
+        return inp_1 * torch.sigmoid(self.conv_out(f))
+
+
+class AttentionConcat(nn.Module):
+    """``[conv_below, gate(skip_connection, conv_below)]`` on channels
+    (layers.py:508-521); the gate has as many intermediate filters as
+    ``conv_below`` has channels."""
+
+    def __init__(self, below_channels: int, skip_channels: int,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.gate = AttentionGate(skip_channels, below_channels, below_channels, generator)
+
+    def forward(self, conv_below: torch.Tensor, skip_connection: torch.Tensor) -> torch.Tensor:
+        return torch.cat([conv_below, self.gate(skip_connection, conv_below)], dim=1)
+
+
+class CycleGANResidualBlock(nn.Module):
+    """The ResNet generator's post-activation residual block
+    (layers.py:579-602): two reflect-padded 3^3 convs without bias, each
+    followed by InstanceNorm with he_normal gamma (ReLU after the first),
+    and an identity skip."""
+
+    def __init__(self, dim: int, generator: Optional[torch.Generator] = None):
+        super().__init__()
+        g = generator
+        self.conv1 = ConvND(dim, dim, 3, 1, padding=uniform_pads(1), pad_mode="reflect",
+                            use_bias=False, generator=g)
+        self.inorm1 = InstanceNorm(dim, act="relu", gamma_init="he_normal", generator=g)
+        self.conv2 = ConvND(dim, dim, 3, 1, padding=uniform_pads(1), pad_mode="reflect",
+                            use_bias=False, generator=g)
+        self.inorm2 = InstanceNorm(dim, gamma_init="he_normal", generator=g)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return x + self.inorm2(self.conv2(self.inorm1(self.conv1(x))))
 
 
 class DiscDownsample(nn.Module):

@@ -34,9 +34,9 @@ generators' stem convs read data or detached inputs and need no dx):
   order and fold tables (``dgrad_tables``); ``dgrad_weights`` arranges
   every parity's weights in one gather;
 - dW, ``conv3d_wgrad`` (the TPU kernel ``_conv_wgrad``):
-  ``csrc/conv3d_wgrad.cu``, accumulated and returned in f32; on the
-  tensor-core route bit-identical from run to run (split-K partial tiles
-  summed in a fixed order, no atomics);
+  ``csrc/conv3d_wgrad.cu``, accumulated and returned in f32; bit-identical
+  from run to run on both routes (split-K partial tiles summed in a fixed
+  order, no atomics);
 - dbias: a plain f32 sum of the cotangent, as in JAX.
 
 On a CPU tensor each of these runs its plain version (``conv3d_dgrad_plain``,
@@ -86,6 +86,9 @@ MAX_SMEM = 227 * 1024   # shared memory a block may use (H100)
 DGRAD_STATIC_SMEM = 656  # the input gradient's static shared memory (its Geo struct)
 SMS = 132
 WGRAD_TARGET_BLOCKS = 4 * SMS  # two waves of two resident blocks per SM
+WGRAD_CORE_TARGET_BLOCKS = 10 * SMS  # the CUDA-core body's blocks (one 4x4 tile a thread)
+WGRAD_CORE_TILES = ((16, 256), (32, 128), (64, 64))  # its (Co, columns) tiles, as the source
+WGRAD_CORE_CHUNK = 32  # voxels per chunk of the CUDA-core body
 WORKSPACE_CAP = 64 << 20       # bytes of the weight gradient's split-K workspace
 
 
@@ -101,8 +104,10 @@ class ConvPlan:
     gradient), ``co_tiles`` of them; the weight gradient splits
     the (sample, brick) pairs over ``split`` blocks and ``tap_warps`` warps
     share out the taps (the other warps split the voxels), writing
-    ``workspace_bytes`` of f32 partial tiles. ``pad_share`` is the share of
-    the issued MMA work that is padding (ragged bricks, Co tiles, Ci chunks).
+    ``workspace_bytes`` of f32 partial tiles. On the CUDA-core route the
+    weight gradient's ``split`` blocks along the voxels write one slice of
+    the workspace each. ``pad_share`` is the share of the issued MMA work
+    that is padding (ragged bricks, Co tiles, Ci chunks).
 
     The input gradient's plan also holds, on every route: ``parities``, each
     stride parity as (p, sub-kernel extents, positions of the padded input
@@ -136,8 +141,9 @@ class ConvPlan:
 
     @property
     def workspace_slices(self) -> int:
-        return self.split * (MMA_WARPS // self.tap_warps) if self.route == "mma" and \
-            self.op == "wgrad" else 0
+        if self.op != "wgrad":
+            return 0
+        return self.split * (MMA_WARPS // self.tap_warps) if self.route == "mma" else self.split
 
 
 def _halo_voxels(k, stride) -> int:
@@ -193,8 +199,8 @@ def _conv_plan(op, ci, co, k, stride, out_dims, dtype, batch, thin_max_ci, in_di
                            pads, pad_mode)
     taps = math.prod(k)
     if dtype == torch.float32:
-        return ConvPlan(op, "f32")
-    thin = ConvPlan(op, "thin")
+        return _core_plan(op, "f32", ci, co, taps, out_dims, batch)
+    thin = _core_plan(op, "thin", ci, co, taps, out_dims, batch)
     if taps > MMA_MAX_TAPS or (op == "fwd" and ci <= thin_max_ci):
         return thin
     chunks = -(-ci // CI_CHUNK)
@@ -226,6 +232,23 @@ def _conv_plan(op, ci, co, k, stride, out_dims, dtype, batch, thin_max_ci, in_di
         return thin
     return ConvPlan(op, "mma", tap_warps=tap_warps, tap_groups=tap_groups, split=split,
                     workspace_bytes=split * per_split, **common)
+
+
+def _core_plan(op, route, ci, co, taps, out_dims, batch) -> ConvPlan:
+    """The CUDA-core body's plan. For the weight gradient: its blocks' split
+    over the voxels, each block one slice of the workspace (``split``, Co,
+    Ci * taps) that a second launch sums in slice order; the tile is the
+    source's least padded one."""
+    if op != "wgrad":
+        return ConvPlan(op, route)
+    ncols = ci * taps
+    mt, nt = min(WGRAD_CORE_TILES, key=lambda t: -(-co // t[0]) * t[0] * -(-ncols // t[1]) * t[1])
+    tiles = -(-co // mt) * -(-ncols // nt)
+    chunks = -(-batch * math.prod(out_dims) // WGRAD_CORE_CHUNK)
+    per_split = co * ncols * 4
+    split = max(1, min(-(-WGRAD_CORE_TARGET_BLOCKS // tiles), chunks, 65535,
+                       WORKSPACE_CAP // per_split))
+    return ConvPlan(op, route, split=split, workspace_bytes=split * per_split)
 
 
 def _dgrad_plan(ci, co, k, stride, g_dims, dtype, batch, thin_max_ci, in_dims, pads,
@@ -355,7 +378,8 @@ def dgrad_weights(w: torch.Tensor, stride: Sequence[int], ci_tile: int,
 
 
 def wgrad_workspace_shape(plan: ConvPlan, w_shape: Sequence[int]) -> Tuple[int, int, int]:
-    """(slices, Co, Ci * taps): the f32 partial tiles of a tensor-core K3."""
+    """(slices, Co, Ci * taps): the f32 partial tiles of K3, which its sum
+    launch adds in slice order."""
     co, ci = w_shape[:2]
     return plan.workspace_slices, co, ci * math.prod(w_shape[2:])
 
@@ -566,19 +590,15 @@ def _conv3d_wgrad_cuda(x, g, w_shape, stride, pads, pad_mode):
     x = x.contiguous()
     g = g.to(x.dtype).contiguous()
     plan = conv_plan("wgrad", ci, co, (kx, ky, kz), stride, g.shape[2:], x.dtype, x.shape[0])
-    if plan.route == "mma":  # every element written: by the sum over the workspace
-        dw = torch.empty(tuple(w_shape), dtype=torch.float32, device=x.device)
-        ws = torch.empty(wgrad_workspace_shape(plan, w_shape), dtype=torch.float32,
-                         device=x.device)
-    else:  # the CUDA-core body adds into dW with atomics
-        dw = torch.zeros(tuple(w_shape), dtype=torch.float32, device=x.device)
-        ws = None
+    # every element of dW is written, by the sum over the workspace's slices
+    dw = torch.empty(tuple(w_shape), dtype=torch.float32, device=x.device)
+    ws = torch.empty(wgrad_workspace_shape(plan, w_shape), dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
         status = build.library().vg_conv3d_wgrad(
-            x.data_ptr(), g.data_ptr(), dw.data_ptr(), None if ws is None else ws.data_ptr(),
-            _DTYPES[x.dtype], x.shape[0], ci, co, *x.shape[2:], *g.shape[2:], kx, ky, kz,
-            *stride, *[lo for lo, _ in pads], int(pad_mode == "reflect"), ROUTES[plan.route],
-            plan.co_tile, plan.tap_warps, plan.split, 0 if ws is None else ws.numel() * 4,
+            x.data_ptr(), g.data_ptr(), dw.data_ptr(), ws.data_ptr(), _DTYPES[x.dtype],
+            x.shape[0], ci, co, *x.shape[2:], *g.shape[2:], kx, ky, kz, *stride,
+            *[lo for lo, _ in pads], int(pad_mode == "reflect"), ROUTES[plan.route],
+            plan.co_tile, plan.tap_warps, plan.split, ws.numel() * 4,
             torch.cuda.current_stream(x.device).cuda_stream)
     build.check(status, "conv3d_wgrad")
     wgrad_launches += 1

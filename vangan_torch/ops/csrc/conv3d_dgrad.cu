@@ -63,7 +63,6 @@ constexpr int MAXT = 2 * MAXFOLDPAD + 2;   // fold targets per axis
 constexpr int MMA_MAX_CI_TILE = 64;
 constexpr int THREADS = 128;          // route 0: positions per block
 constexpr int CI_T = 16;              // route 0: input channels per thread
-constexpr int SMEM_FLOATS = 12288;    // route 0: 48 KB of staged weights
 constexpr int FOLD_THREADS = 256;
 constexpr size_t MAX_SMEM = 227 * 1024;
 
@@ -83,6 +82,10 @@ struct Geo {
   long long slab;    // fold-buffer floats per (b, ci)
 };
 static_assert(sizeof(Geo) == 656, "ops/conv3d.py::DGRAD_STATIC_SMEM");
+
+// route 0: staged weights, in floats. A launch that does not opt in to more
+// takes 48 KB of shared memory, static included: the kernel's Geo, too.
+constexpr int SMEM_FLOATS = (48 * 1024 - (int)sizeof(Geo)) / (int)sizeof(float);
 
 // Everything a launch needs, passed by value (__grid_constant__).
 struct Args {

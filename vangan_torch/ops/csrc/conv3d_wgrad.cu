@@ -40,10 +40,12 @@
 // walks its share of the voxels in chunks of NT: per chunk it stages g
 // (MT x NT) and the gathered x columns (NT x NTILE) in shared memory, and
 // each thread accumulates a 4 x 4 register tile in f32 (no TF32). The voxel
-// range is split over gridDim.x blocks and the partial tiles are added into
-// dW with f32 atomics (dW is zeroed by the caller), so on this route the sum
-// order, and the last bits of dW, vary from run to run. Three tile shapes
-// (16 x 256, 32 x 128, 64 x 64); the host picks the one with least padding.
+// range is split over gridDim.x blocks (the caller's `split`, from
+// ops/conv3d.py::conv_plan); each block writes its partial tile to its own
+// slice of the workspace (split, Co, Ci * taps) and the sum launch of route
+// 1 adds the slices in slice order: no atomics, dW bit-identical from run to
+// run here too. Three tile shapes (16 x 256, 32 x 128, 64 x 64); the host
+// picks the one with least padding.
 
 #include "conv3d_common.cuh"
 
@@ -55,7 +57,6 @@ using vg::to_f;
 
 constexpr int THREADS = 256;
 constexpr int NT = 32;    // voxels per chunk
-constexpr int TARGET_BLOCKS = 132 * 10;
 constexpr int MMA_MAX_CO_TILE = 32;
 constexpr int TAPS_PER_WARP = 4;
 constexpr int G_STRIDE = vg::BRICK + 8;  // g tile row: 256 voxels + 16 bytes against bank conflicts
@@ -63,7 +64,7 @@ constexpr size_t MAX_SMEM = 227 * 1024;
 
 template <typename T, int MT, int NTILE>
 __global__ void __launch_bounds__(THREADS)
-conv3d_wgrad_kernel(const T* __restrict__ x, const T* __restrict__ g, float* __restrict__ dw,
+conv3d_wgrad_kernel(const T* __restrict__ x, const T* __restrict__ g, float* __restrict__ ws,
                     int B, int Ci, int Co, int X, int Y, int Z, int Xo, int Yo, int Zo,
                     int kx, int ky, int kz, int sx, int sy, int sz, int px, int py, int pz,
                     int reflect, long long n_chunks) {
@@ -162,6 +163,7 @@ conv3d_wgrad_kernel(const T* __restrict__ x, const T* __restrict__ g, float* __r
       }
     }
   }
+  float* out = ws + (long long)blockIdx.x * Co * ncols;  // this block's slice
 #pragma unroll
   for (int j = 0; j < 4; ++j) {
     const int co = co0 + tm * 4 + j;
@@ -169,26 +171,41 @@ conv3d_wgrad_kernel(const T* __restrict__ x, const T* __restrict__ g, float* __r
 #pragma unroll
     for (int k = 0; k < 4; ++k) {
       const int q = q0 + tn * 4 + k;
-      if (q < ncols) atomicAdd(dw + (long long)co * ncols + q, acc[j][k]);
+      if (q < ncols) out[(long long)co * ncols + q] = acc[j][k];
     }
   }
 }
 
+// dw[i] = sum over the slices of ws[slice][i], in slice order.
+__global__ void conv3d_wgrad_sum_kernel(const float* __restrict__ ws, float* __restrict__ dw,
+                                        int slices, long long n) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  float s = 0.f;
+  for (int k = 0; k < slices; ++k) s += ws[k * n + i];
+  dw[i] = s;
+}
+
+cudaError_t sum_slices(const float* ws, float* dw, int slices, long long n, cudaStream_t s) {
+  conv3d_wgrad_sum_kernel<<<(unsigned)((n + 255) / 256), 256, 0, s>>>(ws, dw, slices, n);
+  return cudaGetLastError();
+}
+
 template <typename T, int MT, int NTILE>
-cudaError_t launch(const void* x, const void* g, float* dw, int B, int Ci, int Co, int X, int Y,
-                   int Z, int Xo, int Yo, int Zo, int kx, int ky, int kz, int sx, int sy,
-                   int sz, int px, int py, int pz, int reflect, cudaStream_t s) {
+cudaError_t launch(const void* x, const void* g, float* dw, float* ws, int B, int Ci, int Co,
+                   int X, int Y, int Z, int Xo, int Yo, int Zo, int kx, int ky, int kz, int sx,
+                   int sy, int sz, int px, int py, int pz, int reflect, int split,
+                   cudaStream_t s) {
   const long long total = (long long)B * Xo * Yo * Zo;
   const long long n_chunks = (total + NT - 1) / NT;
-  const int tiles_m = (Co + MT - 1) / MT, tiles_n = (Ci * kx * ky * kz + NTILE - 1) / NTILE;
-  long long split = (TARGET_BLOCKS + (long long)tiles_m * tiles_n - 1) / ((long long)tiles_m * tiles_n);
-  if (split > n_chunks) split = n_chunks;
-  if (split > 65535) split = 65535;
-  const dim3 grid((unsigned)split, tiles_m, tiles_n);
+  const int ncols = Ci * kx * ky * kz;
+  const dim3 grid((unsigned)split, (Co + MT - 1) / MT, (ncols + NTILE - 1) / NTILE);
   conv3d_wgrad_kernel<T, MT, NTILE><<<grid, THREADS, 0, s>>>(
-      static_cast<const T*>(x), static_cast<const T*>(g), dw, B, Ci, Co, X, Y, Z, Xo, Yo, Zo,
+      static_cast<const T*>(x), static_cast<const T*>(g), ws, B, Ci, Co, X, Y, Z, Xo, Yo, Zo,
       kx, ky, kz, sx, sy, sz, px, py, pz, reflect, n_chunks);
-  return cudaGetLastError();
+  const cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  return sum_slices(ws, dw, split, (long long)Co * ncols, s);
 }
 
 // Padded work of an MT x NTILE tiling of the Co x ncols product.
@@ -197,15 +214,16 @@ long long padded(int Co, int ncols, int mt, int nt) {
 }
 
 template <typename T>
-cudaError_t dispatch(const void* x, const void* g, float* dw, int B, int Ci, int Co, int X,
-                     int Y, int Z, int Xo, int Yo, int Zo, int kx, int ky, int kz, int sx,
-                     int sy, int sz, int px, int py, int pz, int reflect, cudaStream_t s) {
+cudaError_t dispatch(const void* x, const void* g, float* dw, float* ws, int B, int Ci, int Co,
+                     int X, int Y, int Z, int Xo, int Yo, int Zo, int kx, int ky, int kz,
+                     int sx, int sy, int sz, int px, int py, int pz, int reflect, int split,
+                     cudaStream_t s) {
   const int ncols = Ci * kx * ky * kz;
   const long long a = padded(Co, ncols, 16, 256), b = padded(Co, ncols, 32, 128),
                   c = padded(Co, ncols, 64, 64);
 #define VG_LAUNCH(MT, NTL)                                                                 \
-  return launch<T, MT, NTL>(x, g, dw, B, Ci, Co, X, Y, Z, Xo, Yo, Zo, kx, ky, kz, sx, sy, \
-                            sz, px, py, pz, reflect, s)
+  return launch<T, MT, NTL>(x, g, dw, ws, B, Ci, Co, X, Y, Z, Xo, Yo, Zo, kx, ky, kz, sx, \
+                            sy, sz, px, py, pz, reflect, split, s)
   if (a <= b && a <= c) VG_LAUNCH(16, 256);
   if (b <= c) VG_LAUNCH(32, 128);
   VG_LAUNCH(64, 64);
@@ -337,16 +355,6 @@ conv3d_wgrad_mma_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16
   }
 }
 
-// dw[i] = sum over the slices of ws[slice][i], in slice order.
-__global__ void conv3d_wgrad_sum_kernel(const float* __restrict__ ws, float* __restrict__ dw,
-                                        int slices, long long n) {
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  float s = 0.f;
-  for (int k = 0; k < slices; ++k) s += ws[k * n + i];
-  dw[i] = s;
-}
-
 size_t mma_smem(int kx, int ky, int kz, int sx, int sy, int sz, int co_tile) {
   const vg::Halo h = vg::make_halo(kx, ky, kz, sx, sy, sz);
   return (size_t)h.hx * h.hy * h.hz * 32 + (size_t)co_tile * G_STRIDE * 2;
@@ -369,23 +377,22 @@ cudaError_t launch_mma(const void* x, const void* g, float* dw, float* ws, int B
       Co, X, Y, Z, Xo, Yo, Zo, kx, ky, kz, sx, sy, sz, px, py, pz, reflect, tap_warps);
   e = cudaGetLastError();
   if (e != cudaSuccess) return e;
-  const long long n = (long long)Co * Ci * taps;
-  const int slices = split * ((MMA_THREADS / 32) / tap_warps);
-  conv3d_wgrad_sum_kernel<<<(unsigned)((n + 255) / 256), 256, 0, s>>>(ws, dw, slices, n);
-  return cudaGetLastError();
+  return sum_slices(ws, dw, split * ((MMA_THREADS / 32) / tap_warps), (long long)Co * Ci * taps,
+                    s);
 }
 
 }  // namespace
 
 // C entry point, bound with ctypes. x (B,Ci,X,Y,Z) and g (B,Co,Xo,Yo,Zo)
 // contiguous in one dtype (0 = float32, 1 = bfloat16); dw (Co,Ci,kx,ky,kz)
-// float32, contiguous; lo pads px, py, pz, zero (reflect = 0) or reflect (1).
-// route 0 (CUDA cores): dw zeroed by the caller; the other plan arguments are
-// ignored. route 1 (tensor cores, bfloat16 only): co_tile a multiple of 8 up
-// to 32, tap_warps 1, 2, 4 or 8, split the blocks along the voxels, ws a
-// float32 workspace of ws_bytes >= split * (8 / tap_warps) * Co * Ci * taps * 4
-// bytes. Returns cudaGetLastError() after the launches; 1000 for an argument
-// the kernel does not take.
+// float32, contiguous; lo pads px, py, pz, zero (reflect = 0) or reflect (1);
+// split the blocks along the voxels (1 to 65535), ws a float32 workspace.
+// route 0 (CUDA cores): ws_bytes >= split * Co * Ci * taps * 4; co_tile and
+// tap_warps are ignored. route 1 (tensor cores, bfloat16 only): co_tile a
+// multiple of 8 up to 32, tap_warps 1, 2, 4 or 8, ws_bytes >= split *
+// (8 / tap_warps) * Co * Ci * taps * 4. Every element of dw is written.
+// Returns cudaGetLastError() after the launches; 1000 for an argument the
+// kernel does not take.
 extern "C" int vg_conv3d_wgrad(const void* x, const void* g, float* dw, float* ws, int dtype,
                                int B, int Ci, int Co, int X, int Y, int Z, int Xo, int Yo,
                                int Zo, int kx, int ky, int kz, int sx, int sy, int sz, int px,
@@ -394,30 +401,30 @@ extern "C" int vg_conv3d_wgrad(const void* x, const void* g, float* dw, float* w
   if (kx < 1 || ky < 1 || kz < 1 || kx > KMAX || ky > KMAX || kz > KMAX) return 1000;
   if (B < 1 || Ci < 1 || Co < 1 || Xo < 1 || Yo < 1 || Zo < 1) return 1000;
   if (sx < 1 || sy < 1 || sz < 1) return 1000;
+  if (split < 1 || split > 65535 || ws == nullptr) return 1000;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (route == 0) {
     if ((long long)(Co + 15) / 16 > 65535 || (long long)Ci * kx * ky * kz / 64 + 1 > 65535)
       return 1000;
     if ((long long)B * Xo * Yo * Zo >= (1LL << 31)) return 1000;  // 32-bit voxel decode
+    if ((long long)split * Co * Ci * kx * ky * kz * 4 > ws_bytes) return 1000;
     if (dtype == 0)
-      return (int)dispatch<float>(x, g, dw, B, Ci, Co, X, Y, Z, Xo, Yo, Zo, kx, ky, kz, sx, sy,
-                                  sz, px, py, pz, reflect, s);
+      return (int)dispatch<float>(x, g, dw, ws, B, Ci, Co, X, Y, Z, Xo, Yo, Zo, kx, ky, kz, sx,
+                                  sy, sz, px, py, pz, reflect, split, s);
     if (dtype == 1)
-      return (int)dispatch<__nv_bfloat16>(x, g, dw, B, Ci, Co, X, Y, Z, Xo, Yo, Zo, kx, ky, kz,
-                                          sx, sy, sz, px, py, pz, reflect, s);
+      return (int)dispatch<__nv_bfloat16>(x, g, dw, ws, B, Ci, Co, X, Y, Z, Xo, Yo, Zo, kx, ky,
+                                          kz, sx, sy, sz, px, py, pz, reflect, split, s);
     return 1000;
   }
   if (route != 1 || dtype != 1) return 1000;
   if (co_tile < 8 || co_tile > MMA_MAX_CO_TILE || co_tile % 8 != 0) return 1000;
   if (tap_warps != 1 && tap_warps != 2 && tap_warps != 4 && tap_warps != 8) return 1000;
-  if (split < 1 || split > 65535) return 1000;
   if (mma_smem(kx, ky, kz, sx, sy, sz, co_tile) > MAX_SMEM) return 1000;
   const long long taps = (long long)kx * ky * kz;
   const long long tiles = (taps + tap_warps * TAPS_PER_WARP - 1) / (tap_warps * TAPS_PER_WARP) *
                           ((Ci + 15) / 16) * ((Co + co_tile - 1) / co_tile);
   if (tiles > 65535) return 1000;
-  if ((long long)split * (8 / tap_warps) * Co * Ci * taps * 4 > ws_bytes || ws == nullptr)
-    return 1000;
+  if ((long long)split * (8 / tap_warps) * Co * Ci * taps * 4 > ws_bytes) return 1000;
 #define VG_MMA(NTL)                                                                         \
   case NTL:                                                                                 \
     return (int)launch_mma<NTL>(x, g, dw, ws, B, Ci, Co, X, Y, Z, Xo, Yo, Zo, kx, ky, kz, sx, \

@@ -164,14 +164,16 @@ def bwd_plan(n: int, dtype: torch.dtype, aligned: bool = True) -> BwdPlan:
 def instance_norm_act_plain(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
                             eps: float = 1e-3, act: str = "none",
                             alpha: float = 0.2) -> torch.Tensor:
-    """The plain version: f32 statistics and affine, output in ``x.dtype``."""
+    """The plain version: f32 statistics and affine (f64 for a f64 ``x``),
+    output in ``x.dtype``."""
     if act not in ACTS:
         raise ValueError(f"act must be one of {sorted(ACTS)}, got {act!r}")
-    xf = x.float()
+    acc = torch.promote_types(x.dtype, torch.float32)
+    xf = x.to(acc)
     var, mean = torch.var_mean(xf, dim=(2, 3, 4), unbiased=False, keepdim=True)
     shape = (1, -1, 1, 1, 1)
-    a = gamma.float().reshape(shape) * torch.rsqrt(var + eps)
-    y = (xf - mean) * a + beta.float().reshape(shape)
+    a = gamma.to(acc).reshape(shape) * torch.rsqrt(var + eps)
+    y = (xf - mean) * a + beta.to(acc).reshape(shape)
     if act == "relu":
         y = torch.relu(y)
     elif act == "leaky_relu":

@@ -67,11 +67,13 @@ def compute_losses(nets: Dict[str, nn.Module], cfg, scales: LossScales,
     is called at the end of each phase ("generators", "cycle_losses",
     "discriminators", "adversarial_losses"); a benchmark records a CUDA event
     there."""
-    # A -> B, B -> A (vangan.py:295-297), then the cycles (vangan.py:300-308)
-    fake_S = nets["gen_IS"](real_I)
-    fake_I = nets["gen_SI"](real_S)
-    cycled_S = nets["gen_IS"](fake_I.detach())
-    cycled_I = nets["gen_SI"](fake_S.detach())
+    # A -> B, B -> A (vangan.py:295-297), then the cycles (vangan.py:300-308),
+    # in the JAX package's order: a BatchNorm generator moves its running
+    # statistics at each call in training (step.py:218-236)
+    fake_S = nets["gen_IS"](real_I, train, generator)
+    fake_I = nets["gen_SI"](real_S, train, generator)
+    cycled_S = nets["gen_IS"](fake_I.detach(), train, generator)
+    cycled_I = nets["gen_SI"](fake_S.detach(), train, generator)
     mark("generators")
 
     cycle_loss_I = cycle_loss(scales, real_S, cycled_S, typ=cfg.cycle_loss_I_type)
@@ -83,8 +85,8 @@ def compute_losses(nets: Dict[str, nn.Module], cfg, scales: LossScales,
     # generator's total, as the JAX package routes it (step.py:243-265)
     id_IS_loss = id_SI_loss = None
     if cfg.use_identity_loss:
-        same_S = nets["gen_IS"](real_S)
-        same_I = nets["gen_SI"](real_I)
+        same_S = nets["gen_IS"](real_S, train, generator)
+        same_I = nets["gen_SI"](real_I, train, generator)
         typ_IS = None if cfg.identity_loss_IS_type == "mae" else cfg.identity_loss_IS_type
         typ_SI = None if cfg.identity_loss_SI_type == "mae" else cfg.identity_loss_SI_type
         id_IS_loss = identity_loss(scales, real_S, same_S, typ=typ_IS)
@@ -162,8 +164,9 @@ def train_step(nets: Dict[str, nn.Module], cfg, scales: LossScales, state: Train
     """One optimisation step of all four networks (vangan.py:380-440): the
     gradients of ``compute_grads``, then each network's clip + Adam. With
     ``update_gen`` False the generators' parameters and optimizer states stay
-    as they were (step.py:416-433). Returns the loss dict (0-d tensors on the
-    device)."""
+    as they were (step.py:416-433); BatchNorm running statistics, moved by
+    the forward, advance either way, as the JAX step stores them
+    (step.py:436). Returns the loss dict (0-d tensors on the device)."""
     grads, result = compute_grads(nets, cfg, scales, real_I, real_S, noise_std, generator,
                                   mark)
     for name in NETWORKS:
