@@ -132,11 +132,30 @@ Phases, each of which raises on failure:
    phase 5's rules, gradients by phase 8's, ms of both paths; and phase 2's
    checks and times at the ResNet's 4 kernel conv shapes (its 343-tap stem
    and head on the CUDA-core bodies; the ResNet is one generator whatever the
-   role, as in the JAX factory, so it runs once).
+   role, as in the JAX factory, so it runs once);
+12. data in and evaluation out, at the config's sizes: seeded raw TIFFs
+   (two imaging volumes of RAW_IMG_SIZE 512 x 512 x 140 as uint16, two
+   segmentation volumes of 512 x 512 x 128 as uint8 0/255 tubes) through
+   ``python -m vangan_torch preprocess --resize --preprocess rsom`` (through
+   cli.main; the partition counts, every imaging .npy (512, 512, 128, 1) in
+   [-1, 1], every segmentation .npy exactly the +-1 tubes written); then
+   ``predict`` on the raw imaging TIFFs with ``--resize --preprocess rsom
+   --stride 64 64 64`` and weights saved from seeded init (phase 7's checks:
+   K1 and K4 launched 17 and 28 times a gen_IS batch, the TIFFs finite and in
+   [0, 255], the first volume by phase 5's bf16 rule against plain-path
+   stitches of the same preprocessed input); then
+   ``metrics.evaluate_segmentation`` on the card of that prediction against
+   a seeded tube truth of its shape: K6 launched exactly 2 x 16 times, Dice
+   and clDice exactly equal to the plain skeleton's on the card; and K6
+   bit-exact against ``morphology.soft_skel`` at 512 x 512 x 128 (the truth,
+   the binarised prediction and a continuous volume) and at (1, 97, 61, 45,
+   1), shapes that meet its warp tile's partial tiles. Each part's seconds
+   and Mvox/s on the ``data_eval`` line, with the card's name and power limit.
 
 Then one JSON line of the seven kernels (launches counted in one train step
 of phase 8, the path that runs them all, and of phase 10 as
-``config4_launches``, and for K4 and K7 the kernel launches beside the
+``config4_launches``; phase 12's as ``raw_predict_launches`` for K1 and K4
+and ``metric_launches`` for K6; for K4 and K7 the kernel launches beside the
 calls; ms, plain ms, library ms and the bound summed over the convs / norms
 of one gen_IS and one disc_I call at batch 3 (phases 2-3), one 3 x 128^3
 skeleton for soft_skel) and, last, the ok line. Without CUDA, or outside
@@ -242,6 +261,10 @@ C4 = {"gen_i2s": "vnet", "gen_s2i": "vnet"}
 C4_F32_CROP = 96
 # phase 11: the ResNet generator's kernel convs (stem_conv, down0, up2, head)
 RESNET_CONVS = 4
+# phase 12: data in, evaluation out
+RAW_SHAPE = (512, 512, 140)  # RAW_IMG_SIZE (x, y, z), read as uint16 pages
+RAW_VOLUMES = 2              # a domain: 1 validation and 1 test volume by the 72/18/10 split
+ODD_SKEL_SHAPE = (1, 97, 61, 45, 1)
 # phase 9: the training CLI
 VOLUME_SHAPE = (512, 512, 128, 1)  # TARG_RAW_IMG_SIZE and TARG_SYNTH_IMG_SIZE
 TUBES = 120            # segmentation tubes a volume (a few % foreground)
@@ -1589,6 +1612,172 @@ def check_other_generators(ops, tol):
     return out
 
 
+def write_raw_tiff(path, vol_xyz):
+    """A raw TIFF as a lab's instrument writes one: a page per z, each page
+    (x rows, y columns), in the array's dtype (uint8 or uint16 pages), so
+    that preprocessing reads it back as (x, y, z)."""
+    from PIL import Image
+
+    pages = [Image.fromarray(np.ascontiguousarray(p)) for p in np.transpose(vol_xyz, (2, 0, 1))]
+    pages[0].save(path, format="TIFF", save_all=True, append_images=pages[1:])
+
+
+def check_data_eval(ops, card):
+    """Phase 12: preprocess, raw-TIFF predict and evaluate_segmentation."""
+    from vangan_torch import cli, metrics
+    from vangan_torch.config import VanGanConfig
+    from vangan_torch.data.preprocess import read_tiff
+    from vangan_torch.inference.stitcher import stitch_subvolumes
+    from vangan_torch.ops import morphology
+    from vangan_torch.ops.norms import min_max_norm
+    from vangan_torch.vangan import VanGan
+
+    conv_ops, in_ops, skel_ops = ops
+    res = {"card": card, "raw_shape": list(RAW_SHAPE), "volume": list(VOLUME_SHAPE)}
+    n_raw, n_vol = math.prod(RAW_SHAPE), math.prod(VOLUME_SHAPE)
+    rng = np.random.default_rng(SEED + 12)
+    with tempfile.TemporaryDirectory(prefix="vangan_smoke_data_") as tmp:
+        raw_a, raw_b = os.path.join(tmp, "rawA"), os.path.join(tmp, "rawB")
+        data, pred = os.path.join(tmp, "data"), os.path.join(tmp, "pred")
+        os.makedirs(raw_a)
+        os.makedirs(raw_b)
+        # (a) seeded raw TIFFs at the config's sizes
+        t0 = time.perf_counter()
+        segs = {}
+        for i in range(RAW_VOLUMES):
+            write_raw_tiff(os.path.join(raw_a, f"img{i}.tiff"),
+                           rng.integers(0, 4096, RAW_SHAPE, dtype=np.uint16))
+            segs[f"seg{i}"] = tubes(rng)
+            write_raw_tiff(os.path.join(raw_b, f"seg{i}.tiff"),
+                           np.where(segs[f"seg{i}"][..., 0] > 0, 255, 0).astype(np.uint8))
+        res["raw_write_s"] = time.perf_counter() - t0
+        cfg = VanGanConfig(SUBVOL_PATCH_SIZE=(N, N, N), stitcher_batch=BATCH, seed=SEED)
+        require(cfg.RAW_IMG_SIZE[:3] == RAW_SHAPE and cfg.TARG_RAW_IMG_SIZE == VOLUME_SHAPE
+                and cfg.SYNTH_IMG_SIZE == VOLUME_SHAPE[:3], "the config's sizes")
+        cfg_path, weights = os.path.join(tmp, "cfg.yaml"), os.path.join(tmp, "weights.pt")
+        cfg.to_yaml(cfg_path)
+        VanGan(cfg, device=DEVICE).save_weights(weights)
+
+        # (b) preprocess, on the host
+        t0 = time.perf_counter()
+        cli.main(["preprocess", "--config", cfg_path, "--imaging-raw", raw_a, "--seg-raw", raw_b,
+                  "--data-dir", data, "--resize", "--preprocess", "rsom"])
+        res["preprocess_s"] = time.perf_counter() - t0
+        res["preprocess_mvox_per_s"] = RAW_VOLUMES * (n_raw + n_vol) / res["preprocess_s"] / 1e6
+        counts = {}
+        for pid in ("A", "B"):
+            with open(os.path.join(data, f"data{pid}_partition.pkl"), "rb") as f:
+                part = pickle.load(f)
+            counts[pid] = {k: len(v) for k, v in part.items()}
+            require(counts[pid] == {"training": 0, "validation": 1, "testing": 1},
+                    f"partition {pid}: {counts[pid]}")
+            for path in (p for v in part.values() for p in v):
+                v = np.load(path)
+                require(v.shape == VOLUME_SHAPE and v.dtype == np.float32,
+                        f"{path}: {v.shape} {v.dtype}")
+                if pid == "A":
+                    require(float(v.min()) >= -1.0 and float(v.max()) <= 1.0,
+                            f"{path} outside [-1, 1]")
+                else:
+                    name = os.path.splitext(os.path.basename(path))[0]
+                    require(np.array_equal(v, segs[name]), f"{path} is not the +-1 tubes written")
+        res["partitions"] = counts
+
+        # (c) predict on the raw TIFFs: preprocessed on the host, stitched on the card
+        n_pred = predict_batches(VOLUME_SHAPE, STRIDE)
+        torch.cuda.synchronize()
+        reset_counters(ops)
+        t0 = time.perf_counter()
+        cli.main(["predict", "--config", cfg_path, "--input", raw_a, "--output", pred,
+                  "--weights", weights, "--stride", str(STRIDE), str(STRIDE), str(STRIDE),
+                  "--resize", "--preprocess", "rsom", "--device", DEVICE])
+        torch.cuda.synchronize()
+        res["predict_s"] = time.perf_counter() - t0
+        res["predict_mvox_per_s"] = RAW_VOLUMES * n_vol / res["predict_s"] / 1e6
+        launches = {k: v for k, v in counters(ops).items() if v}
+        want = {"conv3d_fwd": CONV_PATH_CALLS * RAW_VOLUMES * n_pred,
+                "instnorm_fwd": IN_PATH_CALLS * RAW_VOLUMES * n_pred}
+        require(launches == want, f"raw-TIFF predict launched {launches}, expected {want}")
+        res["predict_launches"] = launches
+        vols = {}
+        for i in range(RAW_VOLUMES):
+            out = read_tiff(os.path.join(pred, f"VANGAN_img{i}.tiff"))
+            require(out.shape == (VOLUME_SHAPE[2], *VOLUME_SHAPE[:2], 1), f"TIFF {out.shape}")
+            require(bool(np.isfinite(out).all()) and out.min() >= 0.0 and out.max() <= 255.0,
+                    f"VANGAN_img{i}.tiff not finite or outside [0, 255]")
+            vols[i] = np.transpose(out, (1, 2, 0, 3))  # (x, y, z, 1)
+        gan = VanGan(cfg, device=DEVICE)
+        gan.load_weights(weights)
+        gan.gen_IS.set_use_kernels(False)
+        img0 = np.load(os.path.join(pred, "preprocessed_npy", "img0.npy"))
+        plain = {}
+        for dtype in (torch.bfloat16, torch.float32):
+            gan.gen_IS.dtype = dtype
+            plain[dtype] = torch.from_numpy(stitch_subvolumes(
+                gan.gen_IS_batched, img0, cfg.subvol_size, stride=(STRIDE,) * 3,
+                complete=True, padFactor=0.25, save=False, batch_size=cfg.stitcher_batch,
+                device=DEVICE))
+        res["predict_grey_levels"] = bf16_vs_reference(torch.from_numpy(vols[0]),
+                                                       plain[torch.bfloat16],
+                                                       plain[torch.float32], "raw predict")
+        del gan, plain
+
+        # (d) evaluate_segmentation on the card, against the plain skeleton's scores
+        truth = tubes(np.random.default_rng(SEED + 13))[..., 0]
+        p = vols[0][..., 0]
+        torch.cuda.synchronize()
+        reset_counters(ops)
+        t0 = time.perf_counter()
+        scores = metrics.evaluate_segmentation(p, truth, iters=SKEL_ITERS, device=DEVICE)
+        torch.cuda.synchronize()
+        res["eval_s"] = time.perf_counter() - t0
+        res["metric_launches"] = skel_ops.launches
+        require(skel_ops.launches == 2 * (SKEL_ITERS + 1),
+                f"evaluate_segmentation launched K6 {skel_ops.launches} times")
+        # the same call on the plain skeleton: skeleton.soft_skel swapped for
+        # morphology.soft_skel for its length
+        real_skel = skel_ops.soft_skel
+        skel_ops.soft_skel = morphology.soft_skel
+        try:
+            t0 = time.perf_counter()
+            plain_scores = metrics.evaluate_segmentation(p, truth, iters=SKEL_ITERS,
+                                                         device=DEVICE)
+            torch.cuda.synchronize()
+            res["eval_plain_s"] = time.perf_counter() - t0
+        finally:
+            skel_ops.soft_skel = real_skel
+        require(skel_ops.launches == 2 * (SKEL_ITERS + 1), "the plain metric launched K6")
+        res["eval_mvox_per_s"] = n_vol / res["eval_s"] / 1e6
+        require(scores == plain_scores and all(0.0 <= v <= 1.0 for v in scores.values()),
+                f"scores {scores} vs plain {plain_scores}")
+        res["scores"] = scores
+
+    # (e) K6 at whole-volume and odd shapes, bit-exact
+    g = torch.Generator(device=DEVICE).manual_seed(SEED + 14)
+    inputs = {"truth": truth, "binarised_prediction": metrics.binarise_prediction(p)}
+    res["skel_max_abs_err"], res["skel_ms"], res["skel_plain_ms"] = {}, {}, {}
+    with torch.inference_mode():
+        cases = {k: torch.from_numpy(v).to(DEVICE)[None, ..., None] for k, v in inputs.items()}
+        cases["tanh_noise"] = min_max_norm(torch.tanh(torch.randn(
+            (1, *VOLUME_SHAPE), device=DEVICE, generator=g)))
+        cases["odd_tanh_noise"] = min_max_norm(torch.tanh(torch.randn(
+            ODD_SKEL_SHAPE, device=DEVICE, generator=g)))
+        cases["odd_binary"] = (torch.rand(ODD_SKEL_SHAPE, device=DEVICE, generator=g)
+                               > 0.6).float()
+        for tag, x in cases.items():
+            got, want = skel_ops.soft_skel(x, SKEL_ITERS), morphology.soft_skel(x, SKEL_ITERS)
+            torch.cuda.synchronize()
+            err = float((got - want).abs().max())
+            require(got.shape == want.shape and err == 0.0,
+                    f"soft_skel kernel vs plain on {tag} {tuple(x.shape)}: max |diff| {err:.3e}")
+            res["skel_max_abs_err"][tag] = err
+            res["skel_ms"][tag] = cuda_ms(lambda: skel_ops.soft_skel(x, SKEL_ITERS))
+            res["skel_plain_ms"][tag] = cuda_ms(lambda: morphology.soft_skel(x, SKEL_ITERS))
+    res["skel_bound"] = skel_fwd_bound(n_vol)
+    print("data_eval", json.dumps(res))
+    return res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -1596,7 +1785,8 @@ def main() -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          timeout=60, check=True)
-    print(smi.stdout.strip().splitlines()[0])
+    card = smi.stdout.strip().splitlines()[0]
+    print(card)
 
     from vangan_torch.config import VanGanConfig
     from vangan_torch.models.factory import build_discriminator, build_generator
@@ -1636,6 +1826,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     c4 = check_config4((conv_ops, in_ops, skel_ops), tol)
     check_other_generators((conv_ops, in_ops, skel_ops), tol)
+    torch.cuda.empty_cache()
+    data_eval = check_data_eval((conv_ops, in_ops, skel_ops), card)
 
     require("jax" not in sys.modules and "vangan_tpu" not in sys.modules,
             "the port imported JAX or the JAX package")
@@ -1678,9 +1870,11 @@ def main() -> int:
                                            for r in none)
         return entry
 
+    raw_predict = data_eval["predict_launches"]
     kernels = [
-        conv_entry("conv3d_fwd", "fwd", "vangan_torch/ops/csrc/conv3d_fwd.cu",
-                   "vangan_tpu/ops/pallas/conv3d.py:577"),
+        dict(conv_entry("conv3d_fwd", "fwd", "vangan_torch/ops/csrc/conv3d_fwd.cu",
+                        "vangan_tpu/ops/pallas/conv3d.py:577"),
+             raw_predict_launches=raw_predict["conv3d_fwd"]),
         dict(conv_entry("conv3d_dgrad", "dgrad", "vangan_torch/ops/csrc/conv3d_dgrad.cu",
                         "vangan_tpu/ops/pallas/conv3d.py:904"),
              fold_launches=train["launches"]["conv3d_dgrad_fold"],
@@ -1688,6 +1882,7 @@ def main() -> int:
         conv_entry("conv3d_wgrad", "wgrad", "vangan_torch/ops/csrc/conv3d_wgrad.cu",
                    "vangan_tpu/ops/pallas/conv3d.py:817"),
         dict(in_entry("instnorm_fwd", "fwd", "vangan_tpu/ops/pallas/instnorm.py:309"),
+             raw_predict_launches=raw_predict["instnorm_fwd"],
              kernel_launches=train["kernel_launches"]["instnorm_fwd"],
              config4_kernel_launches=c4["train"]["kernel_launches"]["instnorm_fwd"]),
         in_entry("instnorm_bwd", "bwd", "vangan_tpu/ops/pallas/instnorm.py:379"),
@@ -1696,7 +1891,9 @@ def main() -> int:
          "replaces": "vangan_tpu/ops/pallas/skeleton.py:185",
          "launches": train["launches"]["soft_skel_fwd"],
          "config4_launches": c4["train"]["launches"]["soft_skel_fwd"],
-         "max_abs_err": max(skel["tanh_noise_max_abs_err"], skel["binary_faces_max_abs_err"]),
+         "metric_launches": data_eval["metric_launches"],
+         "max_abs_err": max(skel["tanh_noise_max_abs_err"], skel["binary_faces_max_abs_err"],
+                            *data_eval["skel_max_abs_err"].values()),
          "ms": skel["tanh_noise_ms"], "plain_ms": skel["tanh_noise_plain_ms"],
          "bound_ms": skel["fwd_bound"][0], "bound_by": skel["fwd_bound"][1],
          "library_ms": None},

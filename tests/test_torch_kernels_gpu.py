@@ -16,6 +16,9 @@ skeleton kernel is bit-exact: min and max are exact and every other op is
 rounded once on both sides.
 """
 
+import os
+import time
+
 import numpy as np
 import pytest
 import torch
@@ -718,3 +721,77 @@ def test_checkpoint_round_trip_with_fused_adam_on_the_card(cuda, tmp_path):
     for name in gan.nets:
         for p, q in zip(gan.nets[name].parameters(), fresh.nets[name].parameters()):
             assert torch.equal(p, q)
+
+
+# K6 at the metric's shapes: whole volumes whose dims meet the warp tile's
+# partial tiles (28 stored z a warp, 8 rows of y, chunks of 16 X planes), and
+# the config's 512 x 512 x 128 segmentation volume
+@pytest.mark.parametrize("shape", [(1, 97, 61, 45, 1), (2, 33, 130, 29, 1),
+                                   (1, 512, 512, 128, 1)])
+def test_soft_skel_kernel_bit_exact_at_volume_shapes(cuda, shape):
+    rng = np.random.default_rng(5)
+    for data in (_faces_volume(rng, shape), rng.uniform(size=shape).astype(np.float32)):
+        x = torch.from_numpy(data).to(cuda)
+        before = skel_ops.launches
+        with torch.inference_mode():
+            got = skel_ops.soft_skel(x, 15)
+            want = morphology.soft_skel(x, 15)
+        torch.cuda.synchronize()
+        assert skel_ops.launches == before + 16
+        assert got.shape == want.shape and float((got - want).abs().max()) == 0.0
+
+
+def test_evaluate_segmentation_on_the_card_equals_the_cpu(cuda):
+    """The metric on K6 (16 launches a skeleton) gives the CPU's plain
+    scores exactly, on a binary volume and a stitched 0..255 one."""
+    from vangan_torch import metrics
+
+    rng = np.random.default_rng(6)
+    shape = (97, 61, 45)
+    truth = np.where(rng.uniform(size=shape) > 0.7, 1.0, -1.0).astype(np.float32)
+    truth[20:60, 10:20, 5:40] = 1.0
+    pred = np.where(truth > 0, rng.uniform(100, 255, shape), rng.uniform(0, 140, shape))
+    for p in (pred.astype(np.float32), (truth > 0).astype(np.float32)):
+        for iters in (5, 15):
+            before = skel_ops.launches
+            got = metrics.evaluate_segmentation(p, truth, iters=iters, device="cuda")
+            assert skel_ops.launches == before + 2 * (iters + 1)
+            want = metrics.evaluate_segmentation(p, truth, iters=iters, device="cpu")
+            assert got == want and 0.0 < got["cldice"] <= 1.0
+
+
+def test_preprocess_worker_pool_under_a_cuda_context(cuda, tmp_path):
+    """``preprocess`` with two spawned workers, from a process that holds a
+    CUDA context, on ten volumes (a 7/2/1 split, so the training and
+    validation splits go through the pool): it finishes, and its volumes
+    and partitions equal the serial run's."""
+    from PIL import Image
+
+    from vangan_torch.data.preprocess import DataPreprocessor
+    from vangan_torch.utils import preprocess_rsom_images
+
+    torch.ones(1, device=cuda).sum().item()  # the context exists before the pool starts
+    rng = np.random.default_rng(7)
+    raw = tmp_path / "raw"
+    raw.mkdir()
+    for i in range(10):
+        pages = [Image.fromarray(p) for p in
+                 rng.integers(0, 4096, (16, 24, 24)).astype(np.uint16)]
+        pages[0].save(raw / f"v{i}.tiff", save_all=True, append_images=pages[1:])
+    outs = {}
+    for workers in (2, 1):
+        out = tmp_path / f"w{workers}"
+        out.mkdir()
+        t0 = time.perf_counter()
+        DataPreprocessor(raw_path=str(raw), main_dir=str(out), partition_id="A",
+                         partition_filename="dataA_partition.pkl", tiff_size=(24, 24, 16),
+                         target_size=(20, 20, 12), num_workers=workers, seed=3).preprocess(
+            preprocess_fn=preprocess_rsom_images, resize=True)
+        print(f"preprocess of 10 volumes with {workers} worker(s): "
+              f"{time.perf_counter() - t0:.3f} s")
+        outs[workers] = {os.path.relpath(os.path.join(d, f), out): np.load(os.path.join(d, f))
+                         for d, _, fs in os.walk(out) for f in fs if f.endswith(".npy")}
+    assert len(outs[2]) == 10 and sorted(outs[2]) == sorted(outs[1])
+    for k, v in outs[2].items():
+        assert v.shape == (20, 20, 12, 1) and np.array_equal(v, outs[1][k]), k
+    assert sum(k.startswith("trainA") for k in outs[2]) == 7

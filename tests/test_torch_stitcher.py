@@ -132,12 +132,17 @@ def test_cli_predict_cpu_writes_reference_layout(rng, tmp_path, fake_imaging):
 
 
 def test_cli_refuses_raw_tiff_and_reports_missing_epoch(tmp_path, capsys):
+    """A raw input file that is not a TIFF is refused by the reader before
+    anything is segmented (valid raw TIFFs are preprocessed:
+    ``test_torch_cli_preprocess.py``), and a missing epoch is reported."""
     cfg = _tiny_cfg(tmp_path)
     os.makedirs(tmp_path / "raw")
     (tmp_path / "raw" / "a.tiff").write_bytes(b"")
-    with pytest.raises(NotImplementedError, match="not yet ported"):
+    with pytest.raises(OSError, match="cannot identify image file"):
         cli.main(["predict", "--config", str(tmp_path / "cfg.yaml"), "--input",
                   str(tmp_path / "raw"), "--output", str(tmp_path / "o"), "--device", "cpu"])
+    assert os.listdir(tmp_path / "o") == ["preprocessed_npy"]
+    assert not os.listdir(tmp_path / "o" / "preprocessed_npy")
     os.makedirs(tmp_path / "empty")
     cli.main(["predict", "--config", str(tmp_path / "cfg.yaml"), "--input",
               str(tmp_path / "empty"), "--output", str(tmp_path / "o"), "--epoch", "9",

@@ -1,3 +1,4 @@
 from vangan_torch.cli import main
 
-main()
+if __name__ == "__main__":
+    main()

@@ -1,22 +1,30 @@
-"""Command-line interface of the PyTorch port: ``train``, ``predict``, ``sweep``.
+"""Command-line interface of the PyTorch port: ``preprocess``, ``train``,
+``predict``, ``sweep``.
 
+    python -m vangan_torch preprocess --config cfg.yaml --imaging-raw RAW_A \\
+        --seg-raw RAW_B --data-dir DATA [--resize] [--preprocess rsom|pkg.mod:fn]
     python -m vangan_torch train --config cfg.yaml --data-dir DATA [--output-dir DIR] \\
         [--resume-epoch N] [--semi-supervised-dir DIR] [--predict-after] [--device cuda]
     python -m vangan_torch predict --config cfg.yaml --input DIR --output DIR \\
-        [--epoch N | --weights FILE] [--fake-imaging] [--stride X Y Z] [--device cuda]
+        [--epoch N | --weights FILE] [--fake-imaging] [--stride X Y Z] \\
+        [--resize] [--preprocess rsom|pkg.mod:fn] [--device cuda]
     python -m vangan_torch sweep --config cfg.yaml --input DIR --start 100 --end 200 \\
         [--step 2] [--fake-imaging] [--device cuda]
 
-``train`` reads the partitions that ``python -m vangan_tpu preprocess`` wrote
-into ``DATA`` and trains, writing ``checkpoints/torch_e{N}.pt``, panels,
-TensorBoard event files and ``Args_Settings.txt`` under the output dir.
-``predict`` segments (or, with ``--fake-imaging``, maps to imaging) every
-``.npy`` volume in ``--input`` by sliding-window stitching and writes one TIFF
-per volume; ``--epoch N`` serves what ``train`` saved at epoch N. ``sweep``
-runs that inference from every ``--step``-th checkpoint. The flags are those
-of ``python -m vangan_tpu`` plus ``--weights`` (a weights file of the port)
-and ``--device`` (default ``cuda``, which refuses to run without CUDA;
-``cpu`` runs the plain torch versions of the kernels).
+``preprocess`` turns two directories of raw TIFFs (imaging, segmentation)
+into normalised ``.npy`` volumes and the partitions ``dataA_partition.pkl``
+and ``dataB_partition.pkl`` in ``DATA``, on the host. ``train`` reads those
+partitions (this package's or ``vangan_tpu``'s) and trains, writing
+``checkpoints/torch_e{N}.pt``, panels, TensorBoard event files and
+``Args_Settings.txt`` under the output dir. ``predict`` segments (or, with
+``--fake-imaging``, maps to imaging) every ``.npy`` volume in ``--input`` by
+sliding-window stitching and writes one TIFF per volume; given raw TIFFs, it
+first preprocesses them into ``<output>/preprocessed_npy``. ``--epoch N``
+serves what ``train`` saved at epoch N. ``sweep`` runs that inference from
+every ``--step``-th checkpoint. The flags are those of ``python -m
+vangan_tpu`` plus ``--weights`` (a weights file of the port) and ``--device``
+(default ``cuda``, which refuses to run without CUDA; ``cpu`` runs the plain
+torch versions of the kernels).
 """
 
 from __future__ import annotations
@@ -30,7 +38,7 @@ from vangan_torch.config import VanGanConfig
 
 def _load_cfg(args) -> VanGanConfig:
     cfg = VanGanConfig.from_yaml(args.config) if args.config else VanGanConfig()
-    if args.output_dir:
+    if getattr(args, "output_dir", None):
         cfg.output_dir = args.output_dir
     return cfg
 
@@ -55,6 +63,57 @@ def _load_partitions(cfg, data_dir):
     seg = DataPreprocessor(cfg, partition_id="B", domain="segmentation")
     seg.load_partition(os.path.join(data_dir, "dataB_partition.pkl"))
     return imaging, seg
+
+
+def _resolve_preprocess_fn(spec):
+    """Resolve the imaging-domain preprocessing hook (``--preprocess``).
+
+    ``rsom`` selects the published RSOM recipe, slice-wise z-score and
+    percentile clip (reference main.py:127-161,
+    ``vangan_torch.utils.preprocess_rsom_images``); anything else is a dotted
+    path ``pkg.mod:fn`` (or ``pkg.mod.fn``) to a module-level ``np.ndarray ->
+    np.ndarray`` function. Module-level is required: the preprocessor fans out
+    over spawned worker processes, so the hook must pickle.
+    """
+    if spec is None:
+        return None
+    if spec == "rsom":
+        from vangan_torch.utils import preprocess_rsom_images
+
+        return preprocess_rsom_images
+    import importlib
+
+    mod, _, fn = spec.partition(":")
+    if not fn:
+        mod, _, fn = spec.rpartition(".")
+    if not mod or not fn:
+        raise SystemExit(f"--preprocess: cannot parse {spec!r} (use 'rsom' or 'pkg.mod:fn')")
+    try:
+        target = getattr(importlib.import_module(mod), fn)
+    except (ImportError, AttributeError) as e:
+        raise SystemExit(f"--preprocess: cannot resolve {spec!r}: {e}")
+    if not callable(target):
+        raise SystemExit(f"--preprocess: {spec!r} is not callable")
+    return target
+
+
+def cmd_preprocess(args) -> None:
+    cfg = _load_cfg(args)
+    from vangan_torch.data.preprocess import DataPreprocessor
+
+    imaging = DataPreprocessor(
+        cfg, raw_path=args.imaging_raw, main_dir=args.data_dir, partition_id="A",
+        partition_filename="dataA_partition.pkl", tiff_size=cfg.RAW_IMG_SIZE,
+        target_size=cfg.TARG_RAW_IMG_SIZE, domain="imaging", seed=cfg.seed,
+    )
+    imaging.preprocess(resize=args.resize,
+                       preprocess_fn=_resolve_preprocess_fn(args.preprocess))
+    seg = DataPreprocessor(
+        cfg, raw_path=args.seg_raw, main_dir=args.data_dir, partition_id="B",
+        partition_filename="dataB_partition.pkl", tiff_size=cfg.SYNTH_IMG_SIZE,
+        target_size=cfg.TARG_SYNTH_IMG_SIZE, domain="segmentation", seed=cfg.seed,
+    )
+    seg.preprocess(resize=args.resize)
 
 
 def cmd_train(args) -> None:
@@ -117,12 +176,8 @@ def cmd_predict(args) -> None:
     from vangan_torch.vangan import VanGan
 
     cfg = _load_cfg(args)
+    preprocess_fn = _resolve_preprocess_fn(args.preprocess)
     listing = sorted(os.listdir(args.input))
-    if any(f.lower().endswith((".tif", ".tiff")) for f in listing):
-        raise NotImplementedError(
-            "raw TIFF input is not yet ported (it needs the preprocessing of "
-            "ROADMAP.md Queue 1 item 3); preprocess to .npy with "
-            "`python -m vangan_tpu preprocess` first")
     gan = VanGan(cfg, device=device)
     if args.weights is not None:
         gan.load_weights(args.weights)
@@ -135,7 +190,20 @@ def cmd_predict(args) -> None:
             # the JAX CLI's behaviour (vangan_tpu/checkpoint.py, reference vangan.py:268)
             print("Error: Checkpoint not found!")
     os.makedirs(args.output, exist_ok=True)
-    files = [os.path.join(args.input, f) for f in listing if f.endswith(".npy")]
+    if any(f.lower().endswith((".tif", ".tiff")) for f in listing):
+        # the reference's "segment new data" recipe (main.py:255-270):
+        # process_new_data on the host, then run_mapping on the device
+        from vangan_torch.data.preprocess import DataPreprocessor
+
+        npy_dir = os.path.join(args.output, "preprocessed_npy")
+        pre = DataPreprocessor(cfg, partition_id="A", domain="imaging")
+        pre.process_new_data(args.input, npy_dir, tiff_size=cfg.RAW_IMG_SIZE,
+                             target_size=cfg.TARG_RAW_IMG_SIZE, resize=args.resize,
+                             preprocess_fn=preprocess_fn)
+        files = [os.path.join(npy_dir, f) for f in sorted(os.listdir(npy_dir))
+                 if f.endswith(".npy")]
+    else:
+        files = [os.path.join(args.input, f) for f in listing if f.endswith(".npy")]
     run_mapping(gan, files, cfg.subvol_size, filetext="VANGAN_", filepath=args.output,
                 segmentation=not args.fake_imaging, stride=tuple(args.stride))
 
@@ -156,6 +224,19 @@ def main(argv=None) -> None:
     p = argparse.ArgumentParser(prog="vangan_torch")
     sub = p.add_subparsers(dest="cmd", required=True)
     device_help = "cuda (default) runs the CUDA kernels; cpu the plain versions"
+    hook_help = ("imaging-domain preprocessing hook: 'rsom' (slice-wise z-score + percentile "
+                 "clip, reference main.py:127-161) or a dotted path to a "
+                 "np.ndarray->np.ndarray function")
+
+    pp = sub.add_parser("preprocess", help="raw TIFFs -> npy + partitions (on the host)")
+    pp.add_argument("--config", default=None)
+    pp.add_argument("--imaging-raw", required=True)
+    pp.add_argument("--seg-raw", required=True)
+    pp.add_argument("--data-dir", required=True)
+    pp.add_argument("--resize", action="store_true",
+                    help="Lanczos-resize to TARG_RAW_IMG_SIZE / TARG_SYNTH_IMG_SIZE")
+    pp.add_argument("--preprocess", default=None, metavar="rsom|pkg.mod:fn", help=hook_help)
+    pp.set_defaults(fn=cmd_preprocess)
 
     pt = sub.add_parser("train", help="train VAN-GAN")
     pt.add_argument("--config", default=None)
@@ -167,9 +248,12 @@ def main(argv=None) -> None:
     pt.add_argument("--device", default="cuda", help=device_help)
     pt.set_defaults(fn=cmd_train)
 
-    pr = sub.add_parser("predict", help="sliding-window inference on .npy volumes")
+    pr = sub.add_parser("predict",
+                        help="sliding-window inference on .npy volumes or raw TIFFs")
     pr.add_argument("--config", default=None)
-    pr.add_argument("--input", required=True, help="directory of .npy volumes")
+    pr.add_argument("--input", required=True,
+                    help="directory of .npy volumes, or of raw .tiff files (preprocessed "
+                         "into <output>/preprocessed_npy first, main.py:255-270)")
     pr.add_argument("--output", required=True)
     w = pr.add_mutually_exclusive_group()
     w.add_argument("--epoch", type=int, default=None,
@@ -177,6 +261,10 @@ def main(argv=None) -> None:
     w.add_argument("--weights", default=None, help="a weights file of the port")
     pr.add_argument("--fake-imaging", action="store_true")
     pr.add_argument("--stride", type=int, nargs=3, default=(25, 25, 25))
+    pr.add_argument("--resize", action="store_true",
+                    help="Lanczos-resize raw TIFFs to TARG_RAW_IMG_SIZE")
+    pr.add_argument("--preprocess", default=None, metavar="rsom|pkg.mod:fn",
+                    help=hook_help + ", applied to raw TIFF inputs")
     pr.add_argument("--output-dir", default=None)
     pr.add_argument("--device", default="cuda", help=device_help)
     pr.set_defaults(fn=cmd_predict)

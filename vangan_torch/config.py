@@ -32,6 +32,12 @@ class VanGanConfig:
     NO_NOISE: Optional[int] = None  # derived: EPOCHS (epoch when disc noise hits 0)
     CHANNELS: int = 1
     DIMENSIONS: int = 3
+    # raw TIFF sizes and the sizes ``preprocess --resize`` makes of them, per
+    # domain (main.py:79-86): imaging (x, y, z, c), segmentation (x, y, z)
+    RAW_IMG_SIZE: Tuple[int, ...] = (512, 512, 140, 1)
+    TARG_RAW_IMG_SIZE: Tuple[int, ...] = (512, 512, 128, 1)
+    SYNTH_IMG_SIZE: Tuple[int, ...] = (512, 512, 128)
+    TARG_SYNTH_IMG_SIZE: Tuple[int, ...] = (512, 512, 128)
     SUBVOL_PATCH_SIZE: Tuple[int, ...] = (128, 128, 128)
 
     # epoch-end panels and checkpoint every PERIOD_2D_CALLBACK epochs; the
@@ -87,6 +93,10 @@ class VanGanConfig:
             self.NO_NOISE = self.EPOCHS
         if self.cldice_groups is None:
             self.cldice_groups = self.N_DEVICES
+        self.RAW_IMG_SIZE = tuple(self.RAW_IMG_SIZE)
+        self.TARG_RAW_IMG_SIZE = tuple(self.TARG_RAW_IMG_SIZE)
+        self.SYNTH_IMG_SIZE = tuple(self.SYNTH_IMG_SIZE)
+        self.TARG_SYNTH_IMG_SIZE = tuple(self.TARG_SYNTH_IMG_SIZE)
         self.SUBVOL_PATCH_SIZE = tuple(self.SUBVOL_PATCH_SIZE)
         if self.DIMENSIONS != 3:
             raise NotImplementedError("DIMENSIONS=2 is not ported yet "
