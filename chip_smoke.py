@@ -150,13 +150,34 @@ Phases, each of which raises on failure:
    bit-exact against ``morphology.soft_skel`` at 512 x 512 x 128 (the truth,
    the binarised prediction and a continuous volume) and at (1, 97, 61, 45,
    1), shapes that meet its warp tile's partial tiles. Each part's seconds
-   and Mvox/s on the ``data_eval`` line, with the card's name and power limit.
+   and Mvox/s on the ``data_eval`` line, with the card's name and power limit;
+13. WGAN-GP training: BASELINE config 2 with ``wasserstein: true`` (the
+   critics' Wasserstein head, the WGAN Adam, the gradient penalty of weight
+   10 from step 1) at full width, as phase 8 (3 x 128^3, bf16, noise sigma
+   0.1, dropout on, seeded): steps 0 (no penalty) and 1 (penalty on) through
+   ``VanGan.distributed_train_step`` must launch every kernel an exact count
+   (``WGAN_LAUNCHES``, derived from the path: the penalty's second
+   derivative runs K1 and K3 through conv0's input gradient and the critic
+   norms' double backward on K4's statistics and K5's sums), give ten
+   finite losses and two penalties > 0 at step 1, and move every parameter
+   but each critic's ``w_dense.bias`` (no loss sees it: its gradient is 0);
+   phase 8's kernel-vs-plain rules on the gradients with the penalty on
+   (the signed Wasserstein losses by their absolute differences at batch
+   3), the check that catches a second-order term the kernel path drops;
+   the double backward alone at conv0's shape and the four critic norm
+   shapes, batch 3, against torch's of the plain versions (f32 1e-4 x max
+   |ref|, a weight gradient 1e-3; bf16 2e-2), with its ms; ``train()`` over
+   6 steps with ncritic 5 must update the generators at exactly the steps
+   the JAX package's bookkeeping names; ms per step of both paths with the
+   penalty off and on, in turns, peak memory, and the step's phases by CUDA
+   events at ``compute_losses``' marks (the penalty's share). Its numbers
+   on the ``wgan_step`` and ``wgan_double_backward`` lines.
 
 Then one JSON line of the seven kernels (launches counted in one train step
 of phase 8, the path that runs them all, and of phase 10 as
-``config4_launches``; phase 12's as ``raw_predict_launches`` for K1 and K4
-and ``metric_launches`` for K6; for K4 and K7 the kernel launches beside the
-calls; ms, plain ms, library ms and the bound summed over the convs / norms
+``config4_launches``; phase 13's step 1 as ``wgan_launches``; phase 12's as
+``raw_predict_launches`` for K1 and K4 and ``metric_launches`` for K6; for
+K4 and K7 the kernel launches beside the calls; ms, plain ms, library ms and the bound summed over the convs / norms
 of one gen_IS and one disc_I call at batch 3 (phases 2-3), one 3 x 128^3
 skeleton for soft_skel) and, last, the ok line. Without CUDA, or outside
 the repository, it exits non-zero before printing either.
@@ -272,6 +293,31 @@ TRAIN_STEPS, VAL_STEPS = 3, 1
 PREDICT_STRIDE = 25    # the stride of train --predict-after
 PANEL_GEN_CALLS = 6    # a saving epoch's panels: 2 x (translated, cycled, identity)
 FEED_BATCHES = 8       # batches timed of the host feed alone
+# phase 13: WGAN-GP, config 2 with wasserstein: true. Step 0 runs without the
+# gradient penalty (gp_scale 0), so it launches what phase 8's step does.
+# From step 1 each critic's penalty adds, derived from the path (one critic
+# call on the interpolate, its input gradient under create_graph, then the
+# step's backward through both):
+# - K1: conv0 of the critic call, and conv(ddx, w) in the double backward of
+#   conv0's input gradient;
+# - K2 (and its fold, conv0 pads by reflection): conv0's input gradient in
+#   the first-order pass, and again in the step's backward through the
+#   critic call, whose input (the interpolate) requires grad: that one is
+#   thrown away;
+# - K3: conv0's weight gradient in the first-order pass (thrown away:
+#   ``needs_input_grad`` is fixed at the forward), W(ddx, g) in the double
+#   backward, and conv0's weight gradient in the step's backward;
+# - K4: the call's 4 norms; K5: 4 in the first-order pass and 3 in the
+#   step's backward (down2.inorm's output feeds only the head, whose input
+#   gradient does not depend on it); the norms' double backward is torch ops.
+GP_LAUNCHES = {"conv3d_fwd": 2, "conv3d_dgrad": 2, "conv3d_dgrad_fold": 2, "conv3d_wgrad": 3,
+               "instnorm_fwd": DISC_IN_CALLS, "instnorm_bwd": 2 * DISC_IN_CALLS - 1}
+WGAN_LAUNCHES = {0: TRAIN_LAUNCHES,
+                 1: {k: v + 2 * GP_LAUNCHES.get(k, 0) for k, v in TRAIN_LAUNCHES.items()}}
+WGAN_KERNEL_LAUNCHES = {k: {"instnorm_fwd": v["instnorm_fwd"],
+                            "soft_skel_bwd": v["soft_skel_bwd"]}
+                        for k, v in WGAN_LAUNCHES.items()}
+NCRITIC_STEPS = 6      # train() steps of the ncritic check (ncritic 5)
 
 
 def require(cond, msg):
@@ -929,6 +975,113 @@ def reset_counters(ops):
     skel_ops.launches = skel_ops.bwd_launches = skel_ops.bwd_kernel_launches = 0
 
 
+def path_agreement(tag, grads_of, f32_crop=None, signed=()):
+    """Phase 8's rules, kernel path against plain path, from ``grads_of(kernels,
+    dtype, n, crop=N, perturb=0.0)`` -> (flat f32 gradient per network,
+    losses) of the first ``n`` samples cropped to ``crop``^3 from the same
+    seeded weights and draws: f32 losses within 1e-3 relative and gradients
+    within SPREAD_FACTOR x the plain path's spread, the bf16 rules on one
+    sample and on the batch (the losses named in ``signed`` by their
+    absolute differences); with ``f32_crop`` the f32 checks also on the whole
+    batch cropped to ``f32_crop``^3. Prints and returns the report."""
+    from vangan_torch.training.state import NETWORKS
+
+    # gradients of both paths from the same weights and noise draws: in f32
+    # and bf16 on the batch's first sample (the f32 plain path, with f32
+    # activations and the plain norms' f32 intermediates of ten network
+    # applications, needs over 80 GB at batch 3; the bf16 plain step peaks
+    # at 68 GiB), and in bf16 on the whole batch, where K3 and K5 sum over
+    # the samples
+    f32, bf16 = torch.float32, torch.bfloat16
+    grads, losses = {}, {}
+    for kernels, dtype, n in ((True, f32, 1), (False, f32, 1), (True, bf16, 1),
+                              (False, bf16, 1), (True, bf16, STEP_BATCH),
+                              (False, bf16, STEP_BATCH)):
+        grads[kernels, dtype, n], losses[kernels, dtype, n] = grads_of(kernels, dtype, n)
+    # the plain f32 gradient's own spread: the same step with every weight
+    # scaled by (1 + 1e-6 N(0, 1)), below the f32 kernel-vs-plain forward
+    # difference (phase 5: up to 4e-5 on tanh outputs)
+    perturbed, _ = grads_of(False, f32, 1, perturb=1e-6)
+    crop = {}
+    if f32_crop:
+        for kernels in (True, False):
+            crop[kernels] = grads_of(kernels, f32, STEP_BATCH, f32_crop)
+        crop["perturbed"] = grads_of(False, f32, STEP_BATCH, f32_crop, 1e-6)[0]
+    rel = lambda a, b: float((a - b).norm() / b.norm())  # noqa: E731
+    rel_loss = lambda a, b: abs(a - b) / max(abs(b), 1e-30)  # noqa: E731
+    one, full = 1, STEP_BATCH
+    report = {"losses": {}, "grads": {}}
+    for key, r in losses[False, f32, one].items():
+        k16_3, p16_3 = losses[True, bf16, full][key], losses[False, bf16, full][key]
+        report["losses"][key] = {
+            "f32_plain": r, "f32_kernel": losses[True, f32, one][key],
+            "bf16_kernel": losses[True, bf16, one][key],
+            "bf16_plain": losses[False, bf16, one][key],
+            "f32_rel": rel_loss(losses[True, f32, one][key], r),
+            "bf16_kernel_vs_plain": rel_loss(losses[True, bf16, one][key],
+                                             losses[False, bf16, one][key]),
+            "batch3_bf16_kernel": k16_3, "batch3_bf16_plain": p16_3,
+            "batch3_bf16_kernel_vs_plain": rel_loss(k16_3, p16_3)}
+        if crop:
+            report["losses"][key]["crop_f32_batch3_rel"] = rel_loss(crop[True][1][key],
+                                                                    crop[False][1][key])
+    for n in NETWORKS:
+        ref = grads[False, f32, one][n]
+        p16_3 = grads[False, bf16, full][n]
+        report["grads"][n] = {
+            "f32_kernel_vs_plain": rel(grads[True, f32, one][n], ref),
+            "f32_plain_perturbed_vs_plain": rel(perturbed[n], ref),
+            "bf16_kernel_vs_f32": rel(grads[True, bf16, one][n], ref),
+            "bf16_plain_vs_f32": rel(grads[False, bf16, one][n], ref),
+            "bf16_kernel_vs_plain": rel(grads[True, bf16, one][n], grads[False, bf16, one][n]),
+            "batch3_bf16_kernel_vs_plain": rel(grads[True, bf16, full][n], p16_3),
+            # what a fault that drops two samples' share would read
+            "control_batch1_vs_batch3_plain": rel(grads[False, bf16, one][n], p16_3)}
+        if crop:
+            report["grads"][n].update({
+                "crop_f32_batch3_kernel_vs_plain": rel(crop[True][0][n], crop[False][0][n]),
+                "crop_f32_batch3_plain_perturbed_vs_plain": rel(crop["perturbed"][n],
+                                                                crop[False][0][n])})
+    del grads, crop
+    print(f"{tag}_agreement", json.dumps(report))
+    for key, v in report["losses"].items():
+        require(v["f32_rel"] <= 1e-3, f"{tag} {key}: f32 kernel {v['f32_kernel']} vs "
+                f"plain {v['f32_plain']}")
+        # at batch 3 no f32 reference fits: the bf16 paths may differ there
+        # by 3x what they differ by on one sample; a signed loss (the
+        # Wasserstein values, means of scores of either sign) by its
+        # absolute difference, since its value at batch 3 may lie near 0
+        if key in signed:
+            d3 = abs(v["batch3_bf16_kernel"] - v["batch3_bf16_plain"])
+            d1 = abs(v["bf16_kernel"] - v["bf16_plain"])
+            require(d3 <= max(3 * d1, 1e-3 * abs(v["f32_plain"])),
+                    f"{tag} {key} at batch {STEP_BATCH}: bf16 kernel vs plain: {v}")
+        else:
+            require(v["batch3_bf16_kernel_vs_plain"] <= max(3 * v["bf16_kernel_vs_plain"],
+                                                            1e-3),
+                    f"{tag} {key} at batch {STEP_BATCH}: bf16 kernel vs plain: {v}")
+        require(v.get("crop_f32_batch3_rel", 0.0) <= 1e-3,
+                f"{tag} {key}: f32 kernel vs plain at batch {STEP_BATCH} on the crop: {v}")
+    for n, v in report["grads"].items():
+        require(v["f32_kernel_vs_plain"] <= SPREAD_FACTOR * v["f32_plain_perturbed_vs_plain"],
+                f"{tag} {n}: f32 kernel gradient {v['f32_kernel_vs_plain']:.3e} from plain, "
+                f"the plain path's spread {v['f32_plain_perturbed_vs_plain']:.3e}")
+        require(v["bf16_kernel_vs_f32"] <= max(3 * v["bf16_plain_vs_f32"], 1e-3),
+                f"{tag} {n}: bf16 kernel gradient too far from f32: {v}")
+        require(v["batch3_bf16_kernel_vs_plain"] <= max(3 * v["bf16_kernel_vs_plain"], 1e-3),
+                f"{tag} {n}: bf16 kernel gradient at batch {STEP_BATCH} too far from plain: {v}")
+        # below what a step that dropped samples would read
+        require(v["batch3_bf16_kernel_vs_plain"] < v["control_batch1_vs_batch3_plain"],
+                f"{tag} {n}: bf16 kernel gradient at batch {STEP_BATCH} as far from plain "
+                f"as one sample's: {v}")
+        if f32_crop:
+            require(v["crop_f32_batch3_kernel_vs_plain"] <=
+                    SPREAD_FACTOR * v["crop_f32_batch3_plain_perturbed_vs_plain"],
+                    f"{tag} {n}: f32 kernel gradient at batch {STEP_BATCH} on the crop: {v}")
+
+    return report
+
+
 def check_train_step(ops, want=TRAIN_LAUNCHES, want_kernels=TRAIN_KERNEL_LAUNCHES,
                      tag="train_step", f32_crop=None, **cfg_kw):
     """The train step of the config with ``cfg_kw`` (phase 8: config 2).
@@ -1007,94 +1160,12 @@ def check_train_step(ops, want=TRAIN_LAUNCHES, want_kernels=TRAIN_KERNEL_LAUNCHE
         return ({name: torch.cat([t.float().flatten() for t in g[name]]) for name in NETWORKS},
                 {k: float(v) for k, v in res.items()})
 
-    # gradients of both paths from the same weights and noise draws: in f32
-    # and bf16 on the batch's first sample (the f32 plain path, with f32
-    # activations and the plain norms' f32 intermediates of ten network
-    # applications, needs over 80 GB at batch 3; the bf16 plain step peaks
-    # at 68 GiB), and in bf16 on the whole batch, where K3 and K5 sum over
-    # the samples
-    f32, bf16 = torch.float32, torch.bfloat16
-    grads, losses = {}, {}
-    for kernels, dtype, n in ((True, f32, 1), (False, f32, 1), (True, bf16, 1),
-                              (False, bf16, 1), (True, bf16, STEP_BATCH),
-                              (False, bf16, STEP_BATCH)):
-        grads[kernels, dtype, n], losses[kernels, dtype, n] = grads_of(kernels, dtype, n)
-    # the plain f32 gradient's own spread: the same step with every weight
-    # scaled by (1 + 1e-6 N(0, 1)), below the f32 kernel-vs-plain forward
-    # difference (phase 5: up to 4e-5 on tanh outputs)
-    perturbed, _ = grads_of(False, f32, 1, perturb=1e-6)
-    crop = {}
-    if f32_crop:
-        for kernels in (True, False):
-            crop[kernels] = grads_of(kernels, f32, STEP_BATCH, f32_crop)
-        crop["perturbed"] = grads_of(False, f32, STEP_BATCH, f32_crop, 1e-6)[0]
-    rel = lambda a, b: float((a - b).norm() / b.norm())  # noqa: E731
-    rel_loss = lambda a, b: abs(a - b) / max(abs(b), 1e-30)  # noqa: E731
-    one, full = 1, STEP_BATCH
-    report = {"losses": {}, "grads": {}}
-    for key, r in losses[False, f32, one].items():
-        k16_3, p16_3 = losses[True, bf16, full][key], losses[False, bf16, full][key]
-        report["losses"][key] = {
-            "f32_plain": r, "f32_kernel": losses[True, f32, one][key],
-            "bf16_kernel": losses[True, bf16, one][key],
-            "bf16_plain": losses[False, bf16, one][key],
-            "f32_rel": rel_loss(losses[True, f32, one][key], r),
-            "bf16_kernel_vs_plain": rel_loss(losses[True, bf16, one][key],
-                                             losses[False, bf16, one][key]),
-            "batch3_bf16_kernel": k16_3, "batch3_bf16_plain": p16_3,
-            "batch3_bf16_kernel_vs_plain": rel_loss(k16_3, p16_3)}
-        if crop:
-            report["losses"][key]["crop_f32_batch3_rel"] = rel_loss(crop[True][1][key],
-                                                                    crop[False][1][key])
-    for n in NETWORKS:
-        ref = grads[False, f32, one][n]
-        p16_3 = grads[False, bf16, full][n]
-        report["grads"][n] = {
-            "f32_kernel_vs_plain": rel(grads[True, f32, one][n], ref),
-            "f32_plain_perturbed_vs_plain": rel(perturbed[n], ref),
-            "bf16_kernel_vs_f32": rel(grads[True, bf16, one][n], ref),
-            "bf16_plain_vs_f32": rel(grads[False, bf16, one][n], ref),
-            "bf16_kernel_vs_plain": rel(grads[True, bf16, one][n], grads[False, bf16, one][n]),
-            "batch3_bf16_kernel_vs_plain": rel(grads[True, bf16, full][n], p16_3),
-            # what a fault that drops two samples' share would read
-            "control_batch1_vs_batch3_plain": rel(grads[False, bf16, one][n], p16_3)}
-        if crop:
-            report["grads"][n].update({
-                "crop_f32_batch3_kernel_vs_plain": rel(crop[True][0][n], crop[False][0][n]),
-                "crop_f32_batch3_plain_perturbed_vs_plain": rel(crop["perturbed"][n],
-                                                                crop[False][0][n])})
-    del grads, crop
-    print(f"{tag}_agreement", json.dumps(report))
-    for key, v in report["losses"].items():
-        require(v["f32_rel"] <= 1e-3, f"{tag} {key}: f32 kernel {v['f32_kernel']} vs "
-                f"plain {v['f32_plain']}")
-        # at batch 3 no f32 reference fits: the bf16 paths may differ there
-        # by 3x what they differ by on one sample
-        require(v["batch3_bf16_kernel_vs_plain"] <= max(3 * v["bf16_kernel_vs_plain"], 1e-3),
-                f"{tag} {key} at batch {STEP_BATCH}: bf16 kernel vs plain: {v}")
-        require(v.get("crop_f32_batch3_rel", 0.0) <= 1e-3,
-                f"{tag} {key}: f32 kernel vs plain at batch {STEP_BATCH} on the crop: {v}")
-    for n, v in report["grads"].items():
-        require(v["f32_kernel_vs_plain"] <= SPREAD_FACTOR * v["f32_plain_perturbed_vs_plain"],
-                f"{tag} {n}: f32 kernel gradient {v['f32_kernel_vs_plain']:.3e} from plain, "
-                f"the plain path's spread {v['f32_plain_perturbed_vs_plain']:.3e}")
-        require(v["bf16_kernel_vs_f32"] <= max(3 * v["bf16_plain_vs_f32"], 1e-3),
-                f"{tag} {n}: bf16 kernel gradient too far from f32: {v}")
-        require(v["batch3_bf16_kernel_vs_plain"] <= max(3 * v["bf16_kernel_vs_plain"], 1e-3),
-                f"{tag} {n}: bf16 kernel gradient at batch {STEP_BATCH} too far from plain: {v}")
-        # below what a step that dropped samples would read
-        require(v["batch3_bf16_kernel_vs_plain"] < v["control_batch1_vs_batch3_plain"],
-                f"{tag} {n}: bf16 kernel gradient at batch {STEP_BATCH} as far from plain "
-                f"as one sample's: {v}")
-        if f32_crop:
-            require(v["crop_f32_batch3_kernel_vs_plain"] <=
-                    SPREAD_FACTOR * v["crop_f32_batch3_plain_perturbed_vs_plain"],
-                    f"{tag} {n}: f32 kernel gradient at batch {STEP_BATCH} on the crop: {v}")
+    path_agreement(tag, grads_of, f32_crop)
 
     # ms per step of both paths in turns, after a warm-up step of each
     times, peak = {"kernel": [], "plain": []}, {"kernel": 0.0, "plain": 0.0}
     for path in ("kernel", "plain"):
-        reset(path == "kernel", bf16)
+        reset(path == "kernel", torch.bfloat16)
         gan.distributed_train_step(real_I, real_S, NOISE, True)
     for path in ("plain", "kernel", "kernel", "plain", "plain", "kernel"):
         gan.set_use_kernels(path == "kernel")
@@ -1778,6 +1849,298 @@ def check_data_eval(ops, card):
     return res
 
 
+def ncritic_flags(ncritic, steps):
+    """The generator-update flags of ``steps`` train steps from a fresh
+    VanGan, by the bookkeeping of ``vangan_tpu/vangan.py:224-230``: icritic
+    from 1, the flag up at first, raised when icritic reaches ncritic and
+    lowered after every step."""
+    icritic, update, flags = 1, True, []
+    for _ in range(steps):
+        if icritic % ncritic == 0:
+            update, icritic = True, 1
+        else:
+            icritic += 1
+        flags.append(update)
+        update = False
+    return flags
+
+
+def check_double_backward(disc_shapes, tol):
+    """The second derivatives the gradient penalty takes, alone, kernel path
+    against torch's double backward of the plain versions, at batch 3: the
+    conv0 input gradient's (d/dgy on K1, d/dw on K3) and the critic norms'
+    (d/dx, d/dgamma, d/dgy: torch ops on K4's statistics and K5's sums), in
+    f32 (1e-4 x max |ref|; d/dw, a weight gradient, 1e-3) and bf16 (2e-2),
+    with CUDA event times of the double backward alone (median of 5)."""
+    from vangan_torch.models.layers import ConvND
+    from vangan_torch.ops.conv3d import conv3d, conv3d_plain, norm_padding
+    from vangan_torch.ops.instnorm import instance_norm_act, instance_norm_act_plain
+
+    g = torch.Generator(device=DEVICE).manual_seed(SEED + 13)
+    rows = []
+
+    def rnd(shape, dtype=torch.float32):
+        return torch.randn(shape, device=DEVICE, generator=g).to(dtype)
+
+    for name, mod, in_shape in disc_shapes:
+        if isinstance(mod, ConvND) and max(mod.weight.shape[:2]) >= 128:
+            continue  # cuDNN's
+        shape = (STEP_BATCH, *in_shape[1:])
+        row = {"name": name, "shape": list(shape)}
+        for dtype in (torch.float32, torch.bfloat16):
+            tag = "f32" if dtype == torch.float32 else "bf16"
+            if isinstance(mod, ConvND):
+                w = (rnd(mod.weight.shape) * 0.1).requires_grad_()
+                x = rnd(shape, dtype).requires_grad_()
+                pads = norm_padding(mod.padding, mod.kernel_size, mod.strides, shape[2:])
+                y_shape = conv3d_plain(x.detach(), w.detach(), None, mod.strides, pads,
+                                       mod.pad_mode).shape
+                gy, r = rnd(y_shape, dtype).requires_grad_(), rnd(shape)
+                wrt, names = (gy, w), ("gy", "w")
+
+                def first(plain):
+                    fn = conv3d_plain if plain else conv3d
+                    y = fn(x, w, None, mod.strides, pads, mod.pad_mode)
+                    dx, = torch.autograd.grad(y, x, gy, create_graph=True)
+                    return (dx.float() * r).sum()
+            else:
+                c = shape[1]
+                x = (rnd(shape) * 2 + 0.5).to(dtype).requires_grad_()
+                gamma = (torch.rand(c, device=DEVICE, generator=g) + 0.5).requires_grad_()
+                beta = (rnd(c) * 0.3).requires_grad_()
+                gy, r = rnd(shape, dtype).requires_grad_(), rnd(shape)
+                p, q = rnd(c), rnd(c)
+                wrt, names = (x, gamma, gy), ("x", "gamma", "gy")
+
+                def first(plain):
+                    fn = instance_norm_act_plain if plain else instance_norm_act
+                    y = fn(x, gamma, beta, mod.epsilon, mod.act, mod.leaky_slope)
+                    dx, dgam, dbet = torch.autograd.grad(y, (x, gamma, beta), gy,
+                                                         create_graph=True)
+                    return (dx.float() * r).sum() + (dgam * p).sum() + (dbet * q).sum()
+
+            out = {}
+            for plain in (False, True):
+                s_ = first(plain)
+                out[plain] = torch.autograd.grad(s_, wrt, retain_graph=True, allow_unused=True,
+                                                 materialize_grads=True)
+                row[f"{tag}_{'plain_' if plain else ''}ms"] = cuda_ms(
+                    lambda: torch.autograd.grad(s_, wrt, retain_graph=True, allow_unused=True,
+                                                materialize_grads=True))
+                del s_
+            for part, a, e in zip(names, out[False], out[True]):
+                _, rel_err = errs(a, e)
+                row[f"{tag}_{part}_rel_err"] = rel_err
+                limit = tol[dtype] * (10 if part == "w" and dtype == torch.float32 else 1)
+                require(rel_err <= limit, f"double backward at {name} {tag} d/d{part}: "
+                        f"{rel_err:.3e} > {limit}")
+        rows.append(row)
+        print("wgan_double_backward", json.dumps(row))
+    torch.cuda.empty_cache()
+    return rows
+
+
+def check_wgan(ops, tol, disc_shapes):
+    """Phase 13: WGAN-GP training, BASELINE config 2 with wasserstein: true,
+    at full width (3 x 128^3, bf16, noise sigma 0.1, dropout on)."""
+    import copy
+
+    from vangan_torch.config import VanGanConfig
+    from vangan_torch.training import step
+    from vangan_torch.training.state import NETWORKS, make_train_state
+    from vangan_torch.vangan import VanGan
+    from vangan_torch.vangan import train as train_epoch
+
+    cfg = VanGanConfig(SUBVOL_PATCH_SIZE=(N, N, N), BATCH_SIZE=STEP_BATCH,
+                       cldice_iters=SKEL_ITERS, wasserstein=True)
+    gan = VanGan(cfg, device=DEVICE)
+    init = {name: copy.deepcopy(net.state_dict()) for name, net in gan.nets.items()}
+    shape, real_I, real_S = step_batch()
+    bf16, f32 = torch.bfloat16, torch.float32
+    penalties = []
+    real_gp = step.gradient_penalty
+
+    def recorded_gp(*args, **kwargs):
+        value = real_gp(*args, **kwargs)
+        penalties.append(value.detach())
+        return value
+
+    def reset(kernels, dtype, at_step=0):
+        """Seeded weights, fresh optimizers at step ``at_step`` (the penalty is
+        on from step 1), the same draws, a fresh ncritic count."""
+        for name, net in gan.nets.items():
+            net.load_state_dict(init[name])
+            net.dtype = dtype
+        gan.set_use_kernels(kernels)
+        gan.state = make_train_state(gan.nets, cfg, gan.steps_per_epoch)
+        gan.state.step = at_step
+        gan.generator.manual_seed(SEED + 5)
+        gan.icritic, gan.updateGen = 1, True
+
+    res = {"batch": list(shape), "noise_std": NOISE, "gp_weight": cfg.gp_weight,
+           "launches": {}, "kernel_launches": {}, "losses": {}, "gradient_penalty": {}}
+    step.gradient_penalty = recorded_gp
+    try:
+        # the main path: steps 0 (no penalty) and 1 (penalty on), bf16, on the kernels
+        reset(True, bf16)
+        for k in (0, 1):
+            torch.cuda.synchronize()
+            reset_counters(ops)
+            penalties.clear()
+            out = gan.distributed_train_step(real_I, real_S, NOISE, True)
+            torch.cuda.synchronize()
+            launches, kernel_launches = counters(ops), kernel_counters(ops)
+            require(launches == WGAN_LAUNCHES[k],
+                    f"wgan step {k} launched {launches}, expected {WGAN_LAUNCHES[k]}")
+            require(kernel_launches == WGAN_KERNEL_LAUNCHES[k], f"wgan step {k} launched "
+                    f"{kernel_launches} kernels, expected {WGAN_KERNEL_LAUNCHES[k]}")
+            losses = {key: float(v) for key, v in out.items()}
+            require(len(losses) == 10 and all(math.isfinite(v) for v in losses.values()),
+                    f"wgan step {k}: losses not all finite: {losses}")
+            gps = [float(v) for v in penalties]
+            require(len(gps) == 2 * k and all(math.isfinite(v) and v > 0 for v in gps),
+                    f"wgan step {k}: gradient penalties {gps}")
+            res["launches"][k], res["kernel_launches"][k] = launches, kernel_launches
+            res["losses"][k], res["gradient_penalty"][k] = losses, gps
+        moved = {}
+        for name, net in gan.nets.items():
+            changed = {pn: not torch.equal(prm.detach(), init[name][pn].to(prm.device))
+                       for pn, prm in net.named_parameters()}
+            require(all(torch.isfinite(prm).all() for prm in net.parameters()),
+                    f"wgan {name}: non-finite parameters")
+            # w_dense.bias shifts every score of a critic alike: the
+            # Wasserstein losses and the penalty do not see it, its gradient
+            # is 0 and Adam leaves it
+            frozen = [pn for pn, c in changed.items() if not c]
+            require(frozen == (["w_dense.bias"] if name.startswith("disc") else []),
+                    f"wgan {name}: parameters not moved in two steps: {frozen}")
+            moved[name] = sum(changed.values())
+        res["params_moved"] = moved
+
+        # kernel path against plain path, the penalty on (gp_scale 10): phase 8's rules
+        def grads_of(kernels, dtype, n, crop=N, perturb=0.0):
+            reset(kernels, dtype, at_step=1)
+            if perturb:
+                with torch.no_grad():
+                    pg = torch.Generator(device=DEVICE).manual_seed(SEED + 6)
+                    for net in gan.nets.values():
+                        for prm in net.parameters():
+                            prm.mul_(1 + perturb * torch.randn(prm.shape, device=DEVICE,
+                                                               generator=pg))
+            box = (slice(0, n), slice(0, crop), slice(0, crop), slice(0, crop))
+            grads, r = step.compute_grads(gan.nets, cfg, gan.scales, real_I[box].contiguous(),
+                                          real_S[box].contiguous(), NOISE, gan.generator,
+                                          gp_scale=cfg.gp_weight)
+            return ({name: torch.cat([t.float().flatten() for t in grads[name]])
+                     for name in NETWORKS}, {key: float(v) for key, v in r.items()})
+
+        res["agreement"] = path_agreement(
+            "wgan_step", grads_of, signed=("gen_IS_loss", "gen_SI_loss", "D_I_loss", "D_S_loss"))
+        torch.cuda.empty_cache()
+    finally:
+        step.gradient_penalty = real_gp
+
+    res["double_backward"] = check_double_backward(disc_shapes, tol)
+    db = {"kernel": 0.0, "plain": 0.0}
+    for row in res["double_backward"]:
+        if row["name"] != "conv0":  # the norms' double backward, 2 critics a step
+            db["kernel"] += 2 * row["bf16_ms"]
+            db["plain"] += 2 * row["bf16_plain_ms"]
+    res["in_double_backward_ms_per_step"] = db
+
+    # ncritic: train() over NCRITIC_STEPS steps moves the generators only at
+    # the steps the JAX package's bookkeeping names
+    reset(True, bf16)
+    flags, gen_moved = [], []
+    take_step = gan.distributed_train_step
+
+    def recording_step(x, y, noise_std, update_gen):
+        before = [prm.detach().clone() for prm in gan.gen_IS.parameters()]
+        out = take_step(x, y, noise_std, update_gen)
+        flags.append(bool(update_gen))
+        gen_moved.append(any(not torch.equal(a, prm) for a, prm in
+                             zip(before, gan.gen_IS.parameters())))
+        return out
+
+    class NoSummary:
+        def scalar(self, *args, **kwargs):
+            pass
+
+    gan.distributed_train_step = recording_step
+    try:
+        train_epoch(iter([(real_I, real_S)] * NCRITIC_STEPS), gan, NoSummary(), epoch=0,
+                    steps=NCRITIC_STEPS, training=True, noise_std=NOISE)
+    finally:
+        del gan.distributed_train_step
+    want = ncritic_flags(cfg.ncritic, NCRITIC_STEPS)
+    require(flags == want and gen_moved == want,
+            f"ncritic {cfg.ncritic}: updates {flags}, generators moved {gen_moved}, "
+            f"expected {want}")
+    res["ncritic"] = {"ncritic": cfg.ncritic, "update_gen": flags, "gen_IS_moved": gen_moved}
+
+    # ms per step, penalty off (step 0) and on, both paths in turns
+    times = {f"{path}_gp_{gp}": [] for path in ("kernel", "plain") for gp in ("off", "on")}
+    peak = {key: 0.0 for key in times}
+    for gp in ("off", "on"):
+        for path in ("kernel", "plain"):
+            reset(path == "kernel", bf16, at_step=int(gp == "on"))
+            gan.distributed_train_step(real_I, real_S, NOISE, True)
+        for path in ("plain", "kernel", "kernel", "plain"):
+            key = f"{path}_gp_{gp}"
+            gan.set_use_kernels(path == "kernel")
+            gan.state.step = int(gp == "on")
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            a.record()
+            gan.distributed_train_step(real_I, real_S, NOISE, True)
+            b.record()
+            b.synchronize()
+            times[key].append(a.elapsed_time(b))
+            peak[key] = max(peak[key], torch.cuda.max_memory_allocated() / 2**30)
+    res["ms_per_step"] = {key: float(np.median(v)) for key, v in times.items()}
+    res["ms_all"], res["peak_gib"] = times, peak
+
+    # the step's phases on the kernel path, by CUDA events at the marks
+    order = ("generators", "cycle_losses", "discriminators", "adversarial_losses",
+             "gradient_penalty", "backward", "optimizer")
+    res["phases_ms"] = {}
+    for gp in ("off", "on"):
+        events = {}
+
+        def mark(name):
+            e = torch.cuda.Event(enable_timing=True)
+            e.record()
+            events[name] = e
+
+        reset(True, bf16, at_step=int(gp == "on"))
+        gan.distributed_train_step(real_I, real_S, NOISE, True)
+        gan.state.step = int(gp == "on")
+        start = torch.cuda.Event(enable_timing=True)
+        start.record()
+        step.train_step(gan.nets, cfg, gan.scales, gan.state, real_I, real_S, NOISE, True,
+                        gan.generator, mark=mark)
+        torch.cuda.synchronize()
+        prev, phases = start, {}
+        for name in order:
+            if name in events:
+                phases[name] = prev.elapsed_time(events[name])
+                prev = events[name]
+        phases["step"] = start.elapsed_time(events["optimizer"])
+        res["phases_ms"][gp] = phases
+    on, off = res["phases_ms"]["on"], res["phases_ms"]["off"]
+    res["gp_share"] = {
+        "first_order_ms": on["gradient_penalty"],
+        "backward_extra_ms": on["backward"] - off["backward"],
+        "step_extra_ms": on["step"] - off["step"],
+        "share_of_step": (on["step"] - off["step"]) / on["step"]}
+    gan.set_use_kernels(True)
+    del gan
+    torch.cuda.empty_cache()
+    print("wgan_step", json.dumps(res))
+    return res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -1828,6 +2191,8 @@ def main() -> int:
     check_other_generators((conv_ops, in_ops, skel_ops), tol)
     torch.cuda.empty_cache()
     data_eval = check_data_eval((conv_ops, in_ops, skel_ops), card)
+    torch.cuda.empty_cache()
+    wgan = check_wgan((conv_ops, in_ops, skel_ops), tol, disc_shapes)
 
     require("jax" not in sys.modules and "vangan_tpu" not in sys.modules,
             "the port imported JAX or the JAX package")
@@ -1846,6 +2211,7 @@ def main() -> int:
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
                 "launches": train["launches"][name],
                 "config4_launches": c4["train"]["launches"][name],
+                "wgan_launches": wgan["launches"][1][name],
                 "max_abs_err": max(r[f"{op}_bf16_abs_err"] for r in conv_rows),
                 "ms": total(f"{op}_bf16_ms"), "plain_ms": total(f"{op}_bf16_plain_ms"),
                 **summed_bound([(len(r["convs"]), r["bound"][op]) for r in conv_rows]),
@@ -1858,7 +2224,8 @@ def main() -> int:
         entry = {"name": name, "route": "cuda",
                  "source": f"vangan_torch/ops/csrc/instnorm_{op}.cu", "replaces": replaces,
                  "launches": train["launches"][name],
-                 "config4_launches": c4["train"]["launches"][name], "max_abs_err": max(errs_),
+                 "config4_launches": c4["train"]["launches"][name],
+                 "wgan_launches": wgan["launches"][1][name], "max_abs_err": max(errs_),
                  "ms": total(f"{op}_bf16_ms"), "plain_ms": total(f"{op}_bf16_plain_ms"),
                  **summed_bound([(len(r["uses"]), r["bound"][op]) for r in in_rows]),
                  "library_ms": None}
@@ -1878,7 +2245,8 @@ def main() -> int:
         dict(conv_entry("conv3d_dgrad", "dgrad", "vangan_torch/ops/csrc/conv3d_dgrad.cu",
                         "vangan_tpu/ops/pallas/conv3d.py:904"),
              fold_launches=train["launches"]["conv3d_dgrad_fold"],
-             config4_fold_launches=c4["train"]["launches"]["conv3d_dgrad_fold"]),
+             config4_fold_launches=c4["train"]["launches"]["conv3d_dgrad_fold"],
+             wgan_fold_launches=wgan["launches"][1]["conv3d_dgrad_fold"]),
         conv_entry("conv3d_wgrad", "wgrad", "vangan_torch/ops/csrc/conv3d_wgrad.cu",
                    "vangan_tpu/ops/pallas/conv3d.py:817"),
         dict(in_entry("instnorm_fwd", "fwd", "vangan_tpu/ops/pallas/instnorm.py:309"),
@@ -1891,6 +2259,7 @@ def main() -> int:
          "replaces": "vangan_tpu/ops/pallas/skeleton.py:185",
          "launches": train["launches"]["soft_skel_fwd"],
          "config4_launches": c4["train"]["launches"]["soft_skel_fwd"],
+         "wgan_launches": wgan["launches"][1]["soft_skel_fwd"],
          "metric_launches": data_eval["metric_launches"],
          "max_abs_err": max(skel["tanh_noise_max_abs_err"], skel["binary_faces_max_abs_err"],
                             *data_eval["skel_max_abs_err"].values()),
@@ -1902,6 +2271,7 @@ def main() -> int:
          "replaces": "vangan_tpu/ops/pallas/skeleton.py:274",
          "launches": train["launches"]["soft_skel_bwd"],
          "kernel_launches": train["kernel_launches"]["soft_skel_bwd"],
+         "wgan_launches": wgan["launches"][1]["soft_skel_bwd"],
          "config4_launches": c4["train"]["launches"]["soft_skel_bwd"],
          "config4_kernel_launches": c4["train"]["kernel_launches"]["soft_skel_bwd"],
          "max_abs_err": skel["bwd_max_abs_err"], "ms": skel["bwd_ms"],

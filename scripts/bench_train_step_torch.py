@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Time (and optionally profile) the port's full-width train step on one GPU.
 
-    python scripts/bench_train_step_torch.py [--batch 3] [--gen resUnet] [--profile]
+    python scripts/bench_train_step_torch.py [--batch 3] [--gen resUnet] [--wasserstein]
+        [--profile]
 
 The train step of BASELINE config 2 (``VanGan.distributed_train_step``: two
 ResU-Net generators f=16 applied twice each, or with ``--gen vnet`` the
@@ -10,13 +11,16 @@ with BatchNorm and deconvs, spatial dropout 0.5), or ``--gen resnet`` the
 ResNet generators; two PatchGAN discriminators f=64
 applied three times each with noise sigma 0.1 and dropout, the full loss set
 with 15-iteration clDice, one backward, clip + Adam for all four networks;
-bf16, 128^3 patches) from seeded weights on a seeded batch (``real_I``
+bf16, 128^3 patches; with ``--wasserstein`` the WGAN-GP step: the critics'
+Wasserstein head, the WGAN Adam, and the gradient penalty, on from the
+warm-up's second step) from seeded weights on a seeded batch (``real_I``
 uniform in [-1, 1], ``real_S`` binary in {-1, 1}). It prints the card's name
 and power limit, then one JSON line per step on the kernel path and the
 plain path in turns after a warm-up step of each (plain, kernel, kernel,
 plain, plain, kernel; ms per step by CUDA events, peak device memory), one
 JSON line per path of CUDA-event ms per layer group of the step (generator
-forward, cycle losses, discriminator forward, adversarial losses, backward,
+forward, cycle losses, discriminator forward, adversarial losses, the
+gradient penalty's first-order pass with ``--wasserstein``, backward,
 optimizer; median of 3 steps, events recorded at the step's phase marks), and
 with ``--profile`` a torch.profiler breakdown of one kernel-path step by
 kernel family, with the device ms of the transposed convs, BatchNorm and
@@ -44,10 +48,6 @@ from vangan_torch.training import step as train_step  # noqa: E402
 from vangan_torch.vangan import VanGan  # noqa: E402
 
 NOISE = 0.1
-GROUPS = ("generators", "cycle_losses", "discriminators", "adversarial_losses", "backward",
-          "optimizer")
-
-
 def timed_step(gan, real_I, real_S, kernels: bool) -> dict:
     gan.set_use_kernels(kernels)
     torch.cuda.synchronize()
@@ -80,7 +80,7 @@ def layer_ms(gan, real_I, real_S, kernels: bool, reps: int = 3) -> dict:
         runs.append({name: prev.elapsed_time(ev)
                      for (_, prev), (name, ev) in zip(events, events[1:])})
     return {"path": "kernel" if kernels else "plain",
-            "layer_ms": {g: float(np.median([r[g] for r in runs])) for g in GROUPS}}
+            "layer_ms": {g: float(np.median([r[g] for r in runs])) for g in runs[0]}}
 
 
 def profile(gan, real_I, real_S, step_ms: float) -> dict:
@@ -112,6 +112,8 @@ def main(argv=None) -> int:
     p.add_argument("--profile", action="store_true")
     p.add_argument("--gen", choices=("resUnet", "vnet", "resnet"), default="resUnet",
                    help="both generators' kind: resUnet (config 2), vnet (config 4), resnet")
+    p.add_argument("--wasserstein", action="store_true",
+                   help="the WGAN-GP step (config 2 with wasserstein: true)")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         print("bench_train_step_torch: CUDA is not available", file=sys.stderr)
@@ -121,7 +123,8 @@ def main(argv=None) -> int:
                          check=True, timeout=60)
     print(smi.stdout.strip())
 
-    cfg = VanGanConfig(BATCH_SIZE=args.batch, gen_i2s=args.gen, gen_s2i=args.gen)
+    cfg = VanGanConfig(BATCH_SIZE=args.batch, gen_i2s=args.gen, gen_s2i=args.gen,
+                       wasserstein=args.wasserstein)
     gan = VanGan(cfg, device="cuda")
     rng = np.random.default_rng(cfg.seed)
     shape = (cfg.GLOBAL_BATCH_SIZE, *cfg.SUBVOL_PATCH_SIZE, 1)
@@ -129,7 +132,8 @@ def main(argv=None) -> int:
     seg = rng.uniform(size=shape) > 0.7
     real_S = torch.from_numpy(np.where(seg, 1.0, -1.0).astype(np.float32)).cuda()
     print(json.dumps({"batch": list(shape), "cldice_iters": cfg.cldice_iters,
-                      "compute_dtype": cfg.compute_dtype, "gen": args.gen, "noise_std": NOISE}))
+                      "compute_dtype": cfg.compute_dtype, "gen": args.gen, "noise_std": NOISE,
+                      "wasserstein": cfg.wasserstein}))
     for kernels in (True, False):  # warm-up (allocator, cuDNN plans, the kernel build)
         timed_step(gan, real_I, real_S, kernels)
     kernel_ms = []

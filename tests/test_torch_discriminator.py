@@ -115,8 +115,15 @@ def test_downsample_same_padding_is_tf_same():
 
 @pytest.mark.parametrize("kwargs", [{"use_SN": True}, {"wasserstein": True}])
 def test_unported_options_raise(kwargs):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        PatchGANDiscriminator3D(filters=4, **kwargs)
+    """Spectral norm and the Wasserstein head are ported (test_torch_wgan.py);
+    a Wasserstein head without the patch size its Dense needs raises, and the
+    config still refuses the 2-D mode."""
     if "wasserstein" in kwargs:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            VanGanConfig(wasserstein=True)
+        with pytest.raises(ValueError, match="patch_size"):
+            PatchGANDiscriminator3D(filters=4, **kwargs)
+        assert VanGanConfig(**kwargs).wasserstein
+    disc = PatchGANDiscriminator3D(filters=4, patch_size=(16, 16, 16), **kwargs)
+    out = disc(torch.rand(1, 16, 16, 16, 1))
+    assert out.shape == ((1, 1) if "wasserstein" in kwargs else (1, 2, 2, 2, 1))
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        VanGanConfig(DIMENSIONS=2)

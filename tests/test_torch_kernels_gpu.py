@@ -795,3 +795,170 @@ def test_preprocess_worker_pool_under_a_cuda_context(cuda, tmp_path):
     for k, v in outs[2].items():
         assert v.shape == (20, 20, 12, 1) and np.array_equal(v, outs[1][k]), k
     assert sum(k.startswith("trainA") for k in outs[2]) == 7
+
+
+# --- second derivatives (WGAN-GP's gradient penalty) through the Functions ---
+
+DOUBLE_CONV_CASES = [
+    # k, stride, padding, pad_mode, ci, co, bias, dims
+    ((3, 3, 3), 1, "same", "zeros", 5, 7, True, (9, 10, 11)),
+    ((3, 3, 3), 2, ((1, 1),) * 3, "reflect", 6, 8, False, (12, 9, 13)),
+    # the discriminator's conv0 (1 -> 64, 4^3, stride 2, reflect 1), cut in size
+    ((4, 4, 4), 2, ((1, 1),) * 3, "reflect", 1, 64, True, (18, 16, 20)),
+    ((3, 1, 2), (1, 2, 1), "same", "zeros", 3, 18, True, (7, 8, 9)),
+]
+
+
+def _conv_second_derivative(x, w, b, gy, r, rw, stride, padding, pad_mode, plain):
+    """(d/dx, d/dw, d/dgy) of sum(r dx) + sum(rw dw), with (dx, dw) the
+    conv's first-order gradients for the cotangent gy under create_graph: K1
+    (conv(r, w), conv(x, rw)), K2 (D(gy, rw)) and K3 (W(r, gy)) on the
+    kernel path, torch's double backward of ``conv3d_plain`` on the plain one."""
+    if plain:
+        pads = norm_padding(padding, w.shape[2:], norm_stride(stride), x.shape[2:])
+        y = conv3d_plain(x, w, b, norm_stride(stride), pads, pad_mode)
+    else:
+        y = conv3d(x, w, b, stride, padding, pad_mode)
+    dx, dw = torch.autograd.grad(y, (x, w), gy, create_graph=True)
+    s = (dx.float() * r).sum() + (dw.float() * rw).sum()
+    return torch.autograd.grad(s, (x, w, gy), allow_unused=True, materialize_grads=True)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("k,stride,padding,pad_mode,ci,co,bias,dims", DOUBLE_CONV_CASES)
+def test_conv3d_second_derivative_kernels_match_plain(cuda, dtype, k, stride, padding,
+                                                      pad_mode, ci, co, bias, dims):
+    """The conv's double backward on K1-K3 against torch's of the plain
+    version: rel 1e-4 (f32; d/dw, a weight gradient summed over every voxel,
+    1e-3) / 2e-2 (bf16); every kernel launched."""
+    g = torch.Generator().manual_seed(3)
+    x = torch.randn(2, ci, *dims, generator=g).to(cuda, dtype).requires_grad_()
+    w = (torch.randn(co, ci, *k, generator=g) * 0.3).to(cuda).requires_grad_()
+    b = torch.randn(co, generator=g).to(cuda).requires_grad_() if bias else None
+    with torch.no_grad():
+        y_shape = conv3d(x, w, b, stride, padding, pad_mode).shape
+    gy = torch.randn(y_shape, generator=g).to(cuda, dtype).requires_grad_()
+    r = torch.randn(x.shape, generator=g).to(cuda)
+    rw = torch.randn(w.shape, generator=g).to(cuda)
+    before = (conv_ops.launches, conv_ops.dgrad_launches, conv_ops.wgrad_launches)
+    got = _conv_second_derivative(x, w, b, gy, r, rw, stride, padding, pad_mode, False)
+    torch.cuda.synchronize()
+    # first order: K1, K2, K3; second: K1 twice, K2 once, K3 once
+    assert (conv_ops.launches, conv_ops.dgrad_launches, conv_ops.wgrad_launches) == \
+        (before[0] + 3, before[1] + 2, before[2] + 2)
+    want = _conv_second_derivative(x, w, b, gy, r, rw, stride, padding, pad_mode, True)
+    for name, a, e in zip(("x", "w", "gy"), got, want):
+        tol = TOL[dtype] * (10 if name == "w" and dtype == torch.float32 else 1)
+        assert a.shape == e.shape and _rel_err(a, e) <= tol, (name, _rel_err(a, e))
+
+
+@pytest.mark.parametrize("stride,pad_mode,bias", [(1, "zeros", True), (2, "reflect", False),
+                                                  ((2, 1, 2), "reflect", True)])
+def test_conv3d_gradgradcheck_float64_on_the_card(cuda, monkeypatch, stride, pad_mode, bias):
+    """gradgradcheck in float64 through the Functions on CUDA tensors, with
+    the launches swapped for the plain versions (the kernels take float32
+    and bfloat16 only): the Functions' structure on the card."""
+    from torch.autograd import gradgradcheck
+
+    monkeypatch.setattr(conv_ops, "_forward", conv3d_plain)
+    monkeypatch.setattr(conv_ops, "conv3d_dgrad", conv_ops.conv3d_dgrad_plain)
+    monkeypatch.setattr(conv_ops, "conv3d_wgrad", conv_ops.conv3d_wgrad_plain)
+    g = torch.Generator().manual_seed(4)
+    f64 = dict(device=cuda, dtype=torch.float64)
+    x = torch.randn(1, 2, 5, 4, 6, generator=g).to(**f64).requires_grad_()
+    w = torch.randn(3, 2, 3, 2, 3, generator=g).to(**f64).requires_grad_()
+    b = torch.randn(3, generator=g).to(**f64).requires_grad_() if bias else None
+    pads = ((1, 1), (1, 0), (1, 1))
+    args = (x, w) + ((b,) if bias else ())
+    assert gradgradcheck(lambda x, w, *b: conv3d(x, w, b[0] if b else None, stride, pads,
+                                                 pad_mode), args)
+
+
+def _in_second_derivative(x, gamma, beta, gy, r, p, q, act, plain):
+    """(d/dx, d/dgamma, d/dgy) of sum(r dx) + sum(p dgamma) + sum(q dbeta),
+    with the norm's first-order gradients for gy under create_graph."""
+    fn = in_ops.instance_norm_act_plain if plain else in_ops.instance_norm_act
+    y = fn(x, gamma, beta, 1e-3, act, 0.2)
+    dx, dgamma, dbeta = torch.autograd.grad(y, (x, gamma, beta), gy, create_graph=True)
+    s = (dx.float() * r).sum() + (dgamma * p).sum() + (dbeta * q).sum()
+    return torch.autograd.grad(s, (x, gamma, gy), allow_unused=True, materialize_grads=True)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("act", ["none", "relu", "leaky_relu"])
+@pytest.mark.parametrize("shape", [(2, 3, 5, 7, 9), (2, 16, 32, 32, 32), (3, 64, 16, 16, 16)])
+def test_instnorm_second_derivative_matches_plain(cuda, dtype, act, shape):
+    """The norm's double backward (torch ops on K4's statistics and K5's
+    sums) against torch's of the plain version: rel 1e-4 (f32) / 2e-2 (bf16)."""
+    g = torch.Generator().manual_seed(5)
+    c = shape[1]
+    x = (torch.randn(shape, generator=g) * 2 + 0.5).to(cuda, dtype).requires_grad_()
+    gamma = (torch.rand(c, generator=g) + 0.5).to(cuda).requires_grad_()
+    beta = (torch.randn(c, generator=g) * 0.3).to(cuda).requires_grad_()
+    gy = torch.randn(shape, generator=g).to(cuda, dtype).requires_grad_()
+    r = torch.randn(shape, generator=g).to(cuda)
+    p, q = (torch.randn(c, generator=g).to(cuda) for _ in range(2))
+    before = (in_ops.launches, in_ops.bwd_launches)
+    got = _in_second_derivative(x, gamma, beta, gy, r, p, q, act, False)
+    torch.cuda.synchronize()
+    assert (in_ops.launches, in_ops.bwd_launches) == (before[0] + 1, before[1] + 1)
+    want = _in_second_derivative(x, gamma, beta, gy, r, p, q, act, True)
+    for name, a, e in zip(("x", "gamma", "gy"), got, want):
+        assert a.shape == e.shape and _rel_err(a, e) <= TOL[dtype], (name, _rel_err(a, e))
+
+
+@pytest.mark.parametrize("act", ["none", "relu", "leaky_relu"])
+def test_instnorm_gradgradcheck_float64_on_the_card(cuda, monkeypatch, act):
+    """gradgradcheck in float64 through the Functions on CUDA tensors, with
+    K4 and K5 swapped for the plain versions: the Functions' structure on the
+    card, the statistics the double backward reads included."""
+    from torch.autograd import gradgradcheck
+
+    g = torch.Generator().manual_seed(6)
+    f64 = dict(device=cuda, dtype=torch.float64)
+    x = torch.randn(2, 3, 3, 4, 3, generator=g).to(**f64).requires_grad_()
+    gamma = (torch.rand(3, generator=g) + 0.5).to(**f64).requires_grad_()
+    beta = torch.randn(3, generator=g).to(**f64).requires_grad_()
+    monkeypatch.setattr(in_ops, "_forward", lambda x, gm, bt, eps, act, alpha: (
+        in_ops.instance_norm_act_plain(x, gm, bt, eps, act, alpha), None))
+    monkeypatch.setattr(in_ops, "_bwd_cuda", lambda x, gy, stats, act, alpha: in_ops._bwd_plain(
+        x, gy, gamma.detach(), beta.detach(), 1e-3, act, alpha))
+    assert gradgradcheck(lambda x, gm, bt: in_ops.instance_norm_act(x, gm, bt, 1e-3, act, 0.2),
+                         (x, gamma, beta))
+
+
+@pytest.mark.parametrize("use_SN", [False, True])
+def test_critic_gradient_penalty_on_the_kernels(cuda, use_SN):
+    """The gradient penalty of a Wasserstein critic (f=8, so every conv takes
+    the kernels; 32^3, batch 2, f32, head dropout on, the same draws on both
+    paths) and its gradient w.r.t. the critic's parameters, on the kernels
+    against the plain path: the penalty within 1e-4 relative, the gradient
+    within 1e-3 relative L2 (second-order sums over every voxel in another
+    order). With spectral norm every conv's weight is a normalised copy, and
+    no InstanceNorm runs."""
+    from vangan_torch.losses import LossScales, gradient_penalty
+    from vangan_torch.models.discriminator import PatchGANDiscriminator3D
+
+    g = torch.Generator().manual_seed(8)
+    critic = PatchGANDiscriminator3D(filters=8, wasserstein=True, use_SN=use_SN,
+                                     patch_size=(32, 32, 32), generator=g).to(cuda)
+    real = (torch.rand(2, 32, 32, 32, 1, generator=g) * 2 - 1).to(cuda)
+    fake = torch.tanh(torch.randn(2, 32, 32, 32, 1, generator=g)).to(cuda)
+    alpha = torch.randn(2, 1, 1, 1, 1, generator=g).to(cuda)
+    scales = LossScales(global_batch_size=2, n_devices=1)
+    out = {}
+    for kernels in (True, False):
+        critic.set_use_kernels(kernels)
+        draws = torch.Generator(device=cuda).manual_seed(0)
+        before = (conv_ops.launches, conv_ops.wgrad_launches)
+        gp = gradient_penalty(scales, lambda x: critic(x, True, 0.0, draws, update_stats=False),
+                              real, fake, alpha=alpha)
+        grads = torch.autograd.grad(gp, list(critic.parameters()), allow_unused=True,
+                                    materialize_grads=True)
+        torch.cuda.synchronize()
+        if kernels:  # the second order ran K1 and K3
+            assert conv_ops.launches - before[0] > 4 and conv_ops.wgrad_launches > before[1]
+        out[kernels] = (float(gp), torch.cat([t.flatten() for t in grads]))
+    (gp_k, g_k), (gp_p, g_p) = out[True], out[False]
+    assert abs(gp_k - gp_p) <= 1e-4 * abs(gp_p)
+    assert float((g_k - g_p).norm()) <= 1e-3 * float(g_p.norm())

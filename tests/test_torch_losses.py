@@ -8,6 +8,7 @@ atol 1e-6 (float32 sums in another order; the JAX package's
 the Keras BCE clip, the [-1, 0, 1] Gaussian grid, per-group clDice).
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -95,8 +96,15 @@ def test_wasserstein_value_losses(data):
     _close(T.wasserstein_generator_loss(ts, lt), J.wasserstein_generator_loss(js, lj))
     _close(T.wasserstein_discriminator_loss(ts, lt + 1.0, lt),
            J.wasserstein_discriminator_loss(js, lj + 1.0, lj))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        T.gradient_penalty(ts, None, lt, lt, None)
+    # the gradient penalty of a smooth critic, with the interpolation weights
+    # JAX draws from its key (the critics: test_torch_wgan.py)
+    key = jax.random.PRNGKey(3)
+    alpha = torch.from_numpy(np.array(jax.random.normal(key, (SHAPE[0], 1, 1, 1, 1))))
+    (rj, rt), (fj, ft) = data["real"], data["fake"]
+    _close(T.gradient_penalty(ts, lambda x: (torch.tanh(2 * x) * x).sum(dim=(1, 2, 3, 4)), rt,
+                              ft, alpha=alpha).detach(),
+           J.gradient_penalty(js, lambda x: jnp.sum(jnp.tanh(2 * x) * x, axis=(1, 2, 3, 4)), rj,
+                              fj, key))
 
 
 def test_elementary_and_dice(data):

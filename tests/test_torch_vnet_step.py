@@ -34,7 +34,10 @@ Tolerances, by ``test_torch_train_step.py``'s float32-conditioning argument
   normalises by the running averages.
 """
 
+import contextlib
+import dataclasses
 import functools
+from unittest import mock
 
 import jax
 import jax.numpy as jnp
@@ -49,6 +52,7 @@ from vangan_tpu.training.step import make_step_fns
 from vangan_torch.config import VanGanConfig
 from vangan_torch.models.discriminator import PatchGANDiscriminator3D
 from vangan_torch.models.vnet import VNet3D
+from vangan_torch.ops import instnorm as in_ops
 from vangan_torch.training import step as torch_step
 from vangan_torch.training.state import NETWORKS
 from vangan_torch.training.step import RESULT_KEYS
@@ -255,16 +259,62 @@ def small_head():
     return (gan, grads, result), perturbed, (gan64, grads64, None)
 
 
-def test_gen_IS_matches_the_float64_witness_off_tanh_saturation(small_head):
+def _probe_grads(probe, dtype, perturb=0.0):
+    """gen_IS's gradient (as a flat flax-ordered vector) of the port with the
+    small head, one loss or op of the step changed by ``probe``: the topology
+    loss off, the seg cycle's BCE replaced by MSE, or (in float32 only) every
+    InstanceNorm of the port computing its forward and backward in float64."""
+    gan = _gan(perturb=perturb, head_scale=HEAD_SCALE)
+    if probe == "lambda_topology_0":
+        gan.scales = dataclasses.replace(gan.scales, lambda_topology=0.0)
+    elif probe == "cycle_loss_I_mse":
+        gan.cfg = dataclasses.replace(gan.cfg, cycle_loss_I_type="mse")
+    with contextlib.ExitStack() as stack:
+        if probe == "instnorm_float64" and dtype == torch.float32:
+            fwd, bwd = in_ops.instance_norm_act_plain, in_ops._bwd_plain
+            stack.enter_context(mock.patch.object(
+                in_ops, "instance_norm_act_plain",
+                lambda x, *a: fwd(x.double(), *a).to(x.dtype)))
+            stack.enter_context(mock.patch.object(
+                in_ops, "_bwd_plain", lambda x, g, *a: (lambda dx, sums: (
+                    dx.to(x.dtype), sums.float()))(*bwd(x.double(), g.double(), *a))))
+        grads = _grads(gan, dtype)[0]["gen_IS"]
+    tree = _as_flax(gan.nets["gen_IS"], grads)
+    return np.concatenate([tree[k].ravel() for k in sorted(tree)])
+
+
+PROBES = ["witness", "lambda_topology_0", "cycle_loss_I_mse", "instnorm_float64"]
+
+
+@pytest.mark.parametrize("probe", PROBES)
+def test_gen_IS_matches_the_float64_witness_off_tanh_saturation(small_head, probe):
     """The tanh's input controlled in both packages: with gen_IS's head
     scaled down by HEAD_SCALE (carried to the port by ``weights.py``), none of
     its outputs on real_I or on the cycle's fake_I lies within TANH_MARGIN of
     +-1. The port computing in float64 is then held to the float64 witness by
     the rule of gen_SI, disc_I and disc_S (1e-4 relative L2; measured 3.6e-6).
     The port in float32 is not: 8.0e-4 from the witness (1.2e-2 with the
-    tanh saturated; JAX's own float32 step 1.6e-2), so gen_IS's float32
-    gradient is still set by float32 resolution away from the tanh (ROADMAP.md
-    Queue 3), and is held here by the float32 rule."""
+    tanh saturated; JAX's own float32 step 1.6e-2), and is held here by the
+    float32 rule.
+
+    The probes look for the float32 op that holds the 8.0e-4: each changes
+    one loss or op, and holds the port's float32 gradient to the port's
+    float64 one under the same change (the witness's stand-in: 3.6e-6 from
+    it above) by the float32 rule (the gap within 2e-2 and within the port's
+    own spread under the 1e-5 weight perturbation). Measured on the CPU, the
+    relative L2 gaps: the topology loss off 8.7e-4, the seg cycle's BCE as
+    MSE 4.3e-4, every InstanceNorm in float64 8.0e-4. None closes it, so
+    the gap is float32 conditioning of gen_IS's backward spread over its
+    loss terms, not one op (ROADMAP.md Queue 3, deliberate divergences)."""
+    if probe != "witness":
+        got = _probe_grads(probe, torch.float32)
+        ref = _probe_grads(probe, torch.float64)
+        own = np.linalg.norm(_probe_grads(probe, torch.float32, perturb=1e-5) - got)
+        gap = np.linalg.norm(got - ref)
+        print(f"probe {probe}: gen_IS relative L2 to the port in float64 "
+              f"{gap / np.linalg.norm(ref):.3e}, own spread {own / np.linalg.norm(ref):.3e}")
+        assert gap <= min(2e-2 * np.linalg.norm(ref), own)
+        return
     port, perturbed, port64 = small_head
     gan = port[0]
     _, _, _, real_I, real_S, *_ = _jax_run()

@@ -62,6 +62,7 @@ class VanGanConfig:
     identity_loss_SI_type: str = "mae"
     layer_noise: float = 0.1  # discriminator noise sigma
     ncritic: int = 5  # generator update every ncritic steps (WGAN only)
+    gp_weight: float = 10.0  # WGAN-GP penalty weight, from the second step
 
     # data feed (dataset.py:48-49, 235)
     SEG_THRESH: float = 0.8  # a segmentation crop is kept when its max reaches this
@@ -100,9 +101,6 @@ class VanGanConfig:
         self.SUBVOL_PATCH_SIZE = tuple(self.SUBVOL_PATCH_SIZE)
         if self.DIMENSIONS != 3:
             raise NotImplementedError("DIMENSIONS=2 is not ported yet "
-                                      "(ROADMAP.md Queue 1, other families and modes)")
-        if self.wasserstein:
-            raise NotImplementedError("wasserstein=True (WGAN-GP) is not ported yet "
                                       "(ROADMAP.md Queue 1, other families and modes)")
 
     @property

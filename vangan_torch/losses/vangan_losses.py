@@ -16,7 +16,7 @@ These scale quirks are part of the reference's effective loss weights.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 
@@ -221,7 +221,23 @@ def wasserstein_discriminator_loss(scales: LossScales, prob_real_is_real: torch.
     return -reduce_mean_overall(scales, prob_real_is_real - prob_fake_is_real)
 
 
-def gradient_penalty(*args, **kwargs):
-    """WGAN-GP (vangan.py:355-378) needs the discriminator's backward."""
-    raise NotImplementedError("gradient_penalty (WGAN-GP) is not ported yet "
-                              "(ROADMAP.md Queue 1, other families and modes)")
+def gradient_penalty(scales: LossScales, disc_apply: Callable[[torch.Tensor], torch.Tensor],
+                     real: torch.Tensor, fake: torch.Tensor,
+                     generator: Optional[torch.Generator] = None,
+                     alpha: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """WGAN-GP (vangan.py:355-378), as the JAX package computes it
+    (vangan_losses.py:254-281): interpolation weights alpha ~ *Normal*, one per
+    sample, drawn from ``generator`` unless given; ``interp = real + alpha
+    (fake - real)`` with the fake detached; the input gradient of
+    ``disc_apply(interp).sum()``, kept differentiable (``create_graph``);
+    its norm over each sample with the 1e-12 inside the root; then
+    ``(norm - 1)^2`` with the axis=None quirk. The caller passes the critic
+    that matches the domain (the reference routes both through disc_S)."""
+    shape = (real.shape[0],) + (1,) * (real.dim() - 1)
+    if alpha is None:
+        alpha = torch.randn(shape, generator=generator, device=real.device, dtype=real.dtype)
+    interp = (real + alpha.reshape(shape) * (fake.detach() - real)).detach().requires_grad_()
+    with torch.enable_grad():
+        grads, = torch.autograd.grad(disc_apply(interp).sum(), interp, create_graph=True)
+    norm = torch.sqrt(grads.square().sum(dim=_sample_axes(grads)) + 1.0e-12)
+    return reduce_mean_overall(scales, (norm - 1.0) ** 2)

@@ -48,9 +48,10 @@ def build_discriminator(cfg, generator: Optional[torch.Generator] = None
                         ) -> PatchGANDiscriminator3D:
     """PatchGAN discriminator with the VanGan defaults (vangan.py:167-192):
     input and layer noise of σ ``cfg.layer_noise``, spatial dropout 0.2, no
-    spectral norm; parameters are drawn from ``generator``."""
+    spectral norm, and the Wasserstein head for ``cfg.wasserstein``, sized
+    for ``cfg.SUBVOL_PATCH_SIZE``; parameters are drawn from ``generator``."""
     return PatchGANDiscriminator3D(
         filters=cfg.disc_filters, use_dropout=True, dropout_rate=0.2,
         wasserstein=cfg.wasserstein, use_SN=False, use_input_noise=True,
         use_layer_noise=True, noise_std=cfg.layer_noise, dtype=compute_dtype(cfg),
-        generator=generator)
+        patch_size=cfg.SUBVOL_PATCH_SIZE, generator=generator)

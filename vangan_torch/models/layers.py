@@ -91,13 +91,15 @@ class ConvND(nn.Module):
         else:
             self.register_parameter("bias", None)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        co, ci = self.weight.shape[:2]
+    def forward(self, x: torch.Tensor, weight: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """The conv of ``x`` with ``weight`` (default ``self.weight``; a
+        spectrally normalised one, see ``SpectralNorm``)."""
+        w = self.weight if weight is None else weight
+        co, ci = w.shape[:2]
         if self.use_kernels and max(ci, co) < KERNEL_MAX_CHANNELS:
-            return conv3d(x, self.weight, self.bias, self.strides, self.padding,
-                          self.pad_mode)
+            return conv3d(x, w, self.bias, self.strides, self.padding, self.pad_mode)
         pads = norm_padding(self.padding, self.kernel_size, self.strides, x.shape[2:])
-        return conv3d_plain(x, self.weight, self.bias, self.strides, pads, self.pad_mode)
+        return conv3d_plain(x, w, self.bias, self.strides, pads, self.pad_mode)
 
 
 class InstanceNorm(nn.Module):
@@ -395,11 +397,54 @@ class CycleGANResidualBlock(nn.Module):
         return x + self.inorm2(self.conv2(self.inorm1(self.conv1(x))))
 
 
+def leaky_relu(x: torch.Tensor, slope: float = 0.2) -> torch.Tensor:
+    """flax ``nn.leaky_relu``: ``x`` where x >= 0 (slope 1 at 0), else slope * x."""
+    return torch.where(x >= 0, x, slope * x)
+
+
+def _l2_normalize(x: torch.Tensor, eps: float) -> torch.Tensor:
+    return x * torch.rsqrt((x * x).sum() + eps)
+
+
+class SpectralNorm(nn.Module):
+    """flax 0.12's ``nn.SpectralNorm`` (one power iteration, eps 1e-12) of the
+    kernel of the conv named ``layer``, which keeps its own ``weight`` (and
+    its bias, left unnormalised). The buffers ``u`` (1, Co) and ``sigma`` ()
+    are flax's ``batch_stats`` ``<layer>/kernel/u`` and ``<layer>/kernel/sigma``.
+
+    Each call, eval included, runs one power iteration from ``u`` on the
+    kernel as a (k^3 Ci, Co) matrix (here (Co, Ci k^3), its transpose with the
+    rows in another order, which gives the same u and sigma), with u and v
+    detached, and returns ``weight / sigma``; with ``update_stats`` (training)
+    it stores the new u and sigma."""
+
+    def __init__(self, layer: str, features: int, eps: float = 1e-12,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.layer = layer
+        self.eps = eps
+        self.register_buffer("u", torch.randn((1, features), generator=generator))
+        self.register_buffer("sigma", torch.ones(()))
+
+    def forward(self, weight: torch.Tensor, update_stats: bool) -> torch.Tensor:
+        w = weight.reshape(weight.shape[0], -1)
+        with torch.no_grad():
+            v = _l2_normalize(self.u @ w, self.eps)
+            u = _l2_normalize(v @ w.T, self.eps)
+        sigma = (v @ w.T @ u.T)[0, 0]
+        if update_stats:
+            with torch.no_grad():
+                self.u.copy_(u)
+                self.sigma.copy_(sigma)
+        return weight / torch.where(sigma != 0, sigma, torch.ones_like(sigma))
+
+
 class DiscDownsample(nn.Module):
-    """PatchGAN downsample block (layers.py:524-576, no spectral norm): layer
-    noise, a 4^3 conv without bias — stride 2 on a reflect pad of 1
-    (``padding='valid'``) or stride 1 TF SAME with zeros (``'same'``, pads
-    (1, 2)) — then InstanceNorm + LeakyReLU 0.2 and spatial dropout.
+    """PatchGAN downsample block (layers.py:524-576): layer noise, a 4^3 conv
+    without bias — stride 2 on a reflect pad of 1 (``padding='valid'``) or
+    stride 1 TF SAME with zeros (``'same'``, pads (1, 2)) — then InstanceNorm
+    + LeakyReLU 0.2, or with ``use_spec_norm`` the conv's kernel spectrally
+    normalised and LeakyReLU 0.2 alone; then spatial dropout.
 
     The reflect pad is folded into the conv, so the noise is drawn on the
     unpadded tensor: the order of the JAX package's default layout (NXCYZ, see
@@ -410,7 +455,7 @@ class DiscDownsample(nn.Module):
                  strides: int = 2, padding: str = "valid", use_dropout: bool = True,
                  dropout_rate: float = 0.2, use_layer_noise: bool = False,
                  noise_std: float = 0.1, leaky_slope: float = 0.2,
-                 generator: Optional[torch.Generator] = None):
+                 use_spec_norm: bool = False, generator: Optional[torch.Generator] = None):
         super().__init__()
         if padding == "valid":
             pad, pad_mode = uniform_pads(1), "reflect"
@@ -423,13 +468,26 @@ class DiscDownsample(nn.Module):
         self.noise = GaussianNoise(noise_std) if use_layer_noise else None
         self.conv = ConvND(in_channels, filters, kernel_size, strides, padding=pad,
                            pad_mode=pad_mode, use_bias=False, generator=generator)
-        self.inorm = InstanceNorm(filters, act="leaky_relu", leaky_slope=leaky_slope)
+        self.leaky_slope = leaky_slope
+        self.use_spec_norm = use_spec_norm
+        if use_spec_norm:
+            self.SpectralNorm_0 = SpectralNorm("conv", filters, generator=generator)
+        else:
+            self.inorm = InstanceNorm(filters, act="leaky_relu", leaky_slope=leaky_slope)
 
     def forward(self, x: torch.Tensor, train: bool = False, noise_std: Optional[float] = None,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                generator: Optional[torch.Generator] = None,
+                update_stats: Optional[bool] = None) -> torch.Tensor:
+        """``update_stats`` (default ``train``): whether a spectral norm
+        stores its power iteration."""
         if self.noise is not None:
             x = self.noise(x, train, noise_std, generator)
-        x = self.inorm(self.conv(x))
+        if self.use_spec_norm:
+            w = self.SpectralNorm_0(self.conv.weight, train if update_stats is None
+                                    else update_stats)
+            x = leaky_relu(self.conv(x, w), self.leaky_slope)
+        else:
+            x = self.inorm(self.conv(x))
         if self.use_dropout:
             x = spatial_dropout(x, self.dropout_rate, train, generator)
         return x

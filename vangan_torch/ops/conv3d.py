@@ -41,6 +41,18 @@ generators' stem convs read data or detached inputs and need no dx):
 
 On a CPU tensor each of these runs its plain version (``conv3d_dgrad_plain``,
 ``conv3d_wgrad_plain``).
+
+The input and weight gradients are Functions too (``_Conv3dDgrad``,
+``_Conv3dWgrad``), so the conv is differentiable to any order on both
+devices: every backward calls only the three Functions' ``apply`` at the
+conv's stride, pads and pad mode (the gradient penalty of WGAN-GP
+differentiates the discriminator's input gradient). With D the input
+gradient and W the weight gradient, D(g, w) is linear in g and w and W(x, g)
+in x and g, and their adjoints are the conv and the other gradient:
+
+- conv: dx = D(g, w), dw = W(x, g);
+- D(g, w) with cotangent ddx: dg = conv(ddx, w), dw = W(ddx, g);
+- W(x, g) with cotangent ddw: dg = conv(x, ddw), dx = D(g, ddw).
 """
 
 from __future__ import annotations
@@ -428,17 +440,21 @@ def conv3d_plain(x: torch.Tensor, w: torch.Tensor, bias: Optional[torch.Tensor],
 def conv3d_dgrad_plain(g: torch.Tensor, w: torch.Tensor, x_shape: Sequence[int],
                        stride: Sequence[int], pads: Pad3, pad_mode: str) -> torch.Tensor:
     """dL/dx of ``conv3d_plain`` for the cotangent ``g``: ``conv3d_input`` on
-    the padded shape in f32, the pad folded back, rounded to g's dtype."""
+    the padded shape in f32 (f64 for a f64 ``g``), the pad folded back,
+    rounded to g's dtype."""
+    acc = torch.promote_types(g.dtype, torch.float32)
     xp_shape = (*x_shape[:2], *padded_dims(x_shape[2:], pads))
-    dxp = torch.nn.grad.conv3d_input(xp_shape, w.float(), g.float(), tuple(stride))
+    dxp = torch.nn.grad.conv3d_input(xp_shape, w.to(acc), g.to(acc), tuple(stride))
     return pad3d_grad(dxp, pads, pad_mode).to(g.dtype)
 
 
 def conv3d_wgrad_plain(x: torch.Tensor, g: torch.Tensor, w_shape: Sequence[int],
                        stride: Sequence[int], pads: Pad3, pad_mode: str) -> torch.Tensor:
-    """dL/dw of ``conv3d_plain`` in f32: ``conv3d_weight`` on the padded input."""
-    return torch.nn.grad.conv3d_weight(pad3d(x.float(), pads, pad_mode), tuple(w_shape),
-                                       g.float(), tuple(stride))
+    """dL/dw of ``conv3d_plain`` in f32 (f64 for a f64 ``x``): ``conv3d_weight``
+    on the padded input."""
+    acc = torch.promote_types(x.dtype, torch.float32)
+    return torch.nn.grad.conv3d_weight(pad3d(x.to(acc), pads, pad_mode), tuple(w_shape),
+                                       g.to(acc), tuple(stride))
 
 
 def conv3d(x: torch.Tensor, w: torch.Tensor, bias: Optional[torch.Tensor] = None,
@@ -483,19 +499,68 @@ class _Conv3d(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, w, bias, stride, pads, pad_mode):
         ctx.save_for_backward(x, w)
-        ctx.conf = (stride, pads, pad_mode, bias is not None)
+        ctx.conf = (stride, pads, pad_mode)
+        ctx.has_bias = bias is not None
+        ctx.set_materialize_grads(False)
         return _forward(x, w, bias, stride, pads, pad_mode)
 
     @staticmethod
     def backward(ctx, g):
+        if g is None:
+            return None, None, None, None, None, None
         x, w = ctx.saved_tensors
-        stride, pads, pad_mode, has_bias = ctx.conf
         need_x, need_w, need_b = ctx.needs_input_grad[:3]
         g = g.contiguous()
-        dx = conv3d_dgrad(g, w, x.shape, stride, pads, pad_mode).to(x.dtype) if need_x else None
-        dw = conv3d_wgrad(x, g, w.shape, stride, pads, pad_mode).to(w.dtype) if need_w else None
-        db = g.float().sum(dim=(0, 2, 3, 4)) if has_bias and need_b else None
+        dx = _Conv3dDgrad.apply(g, w, tuple(x.shape), *ctx.conf).to(x.dtype) if need_x else None
+        dw = _Conv3dWgrad.apply(x, g, tuple(w.shape), *ctx.conf).to(w.dtype) if need_w else None
+        db = g.to(torch.promote_types(g.dtype, torch.float32)).sum(dim=(0, 2, 3, 4)) \
+            if ctx.has_bias and need_b else None
         return dx, dw, db, None, None, None
+
+
+class _Conv3dDgrad(torch.autograd.Function):
+    """dx = D(g, w) (K2, ``conv3d_dgrad``), differentiable in g and w."""
+
+    @staticmethod
+    def forward(ctx, g, w, x_shape, stride, pads, pad_mode):
+        ctx.save_for_backward(g, w)
+        ctx.conf = (stride, pads, pad_mode)
+        ctx.set_materialize_grads(False)
+        return conv3d_dgrad(g, w, x_shape, stride, pads, pad_mode)
+
+    @staticmethod
+    def backward(ctx, ddx):
+        if ddx is None:
+            return None, None, None, None, None, None
+        g, w = ctx.saved_tensors
+        need_g, need_w = ctx.needs_input_grad[:2]
+        ddx = ddx.to(g.dtype).contiguous()
+        dg = _Conv3d.apply(ddx, w, None, *ctx.conf) if need_g else None
+        dw = _Conv3dWgrad.apply(ddx, g, tuple(w.shape), *ctx.conf).to(w.dtype) \
+            if need_w else None
+        return dg, dw, None, None, None, None
+
+
+class _Conv3dWgrad(torch.autograd.Function):
+    """dw = W(x, g) (K3, ``conv3d_wgrad``, f32), differentiable in x and g."""
+
+    @staticmethod
+    def forward(ctx, x, g, w_shape, stride, pads, pad_mode):
+        ctx.save_for_backward(x, g)
+        ctx.conf = (stride, pads, pad_mode)
+        ctx.set_materialize_grads(False)
+        return conv3d_wgrad(x, g, w_shape, stride, pads, pad_mode)
+
+    @staticmethod
+    def backward(ctx, ddw):
+        if ddw is None:
+            return None, None, None, None, None, None
+        x, g = ctx.saved_tensors
+        need_x, need_g = ctx.needs_input_grad[:2]
+        dx = _Conv3dDgrad.apply(g.to(x.dtype).contiguous(), ddw, tuple(x.shape),
+                                *ctx.conf).to(x.dtype) if need_x else None
+        dg = _Conv3d.apply(x, ddw, None, *ctx.conf).to(g.dtype) if need_g else None
+        return dx, dg, None, None, None, None
 
 
 def _forward(x, w, bias, stride, pads, pad_mode):

@@ -19,6 +19,15 @@ for dx, with dgamma and dbeta the plain sums over b of its per-(b, c) sums;
 on a CPU tensor it runs ``instance_norm_act_bwd_plain``. ``bwd_plan`` (pure
 Python) says how the backward runs a shape: one block per small plane, or a
 reduce pass and a dx pass over every plane.
+
+The backward is itself a Function (``_InstanceNormActBwd``), so the norm has
+a second derivative on both devices (WGAN-GP's gradient penalty
+differentiates the discriminator's input gradient): its backward is the
+closed form of the second derivative in torch ops, from the forward's
+per-plane statistics (mean, a, beta, inv; on the CPU computed by
+``instance_norm_stats_plain``) and the backward's per-plane sums, with the
+activation's derivative constant (so beta gets no second-order term). A
+third derivative raises.
 """
 
 from __future__ import annotations
@@ -31,6 +40,7 @@ from dataclasses import dataclass
 import torch
 
 from vangan_torch.ops import build
+from vangan_torch.ops.autograd import once_differentiable
 
 # kernel launches (chip_smoke.py reads and resets them)
 launches = 0          # instance_norm_act forward calls
@@ -181,21 +191,44 @@ def instance_norm_act_plain(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Te
     return y.to(x.dtype)
 
 
-def instance_norm_act_bwd_plain(x: torch.Tensor, g: torch.Tensor, gamma: torch.Tensor,
-                                beta: torch.Tensor, eps: float = 1e-3, act: str = "none",
-                                alpha: float = 0.2):
-    """The plain backward: (dx in ``x.dtype``, dgamma, dbeta in f32) for the
-    cotangent ``g`` of ``instance_norm_act_plain``, with g' = g * act'(pre),
-    xhat = (x - mean) * inv and dx = a * (g' - mean(g') - xhat * mean(xhat g'))."""
-    if act not in ACTS:
-        raise ValueError(f"act must be one of {sorted(ACTS)}, got {act!r}")
+def instance_norm_stats_plain(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
+                             eps: float = 1e-3) -> torch.Tensor:
+    """The forward kernel's per-plane statistics, (B * C * 4,) in f32 (f64 for
+    a f64 ``x``): (mean, a = gamma * inv, beta, inv = rsqrt(var + eps)) of each
+    (b, c) plane."""
+    acc = torch.promote_types(x.dtype, torch.float32)
+    var, mean = torch.var_mean(x.to(acc), dim=(2, 3, 4), unbiased=False)
+    inv = torch.rsqrt(var + eps)
+    return torch.stack([mean, gamma.to(acc) * inv, beta.to(acc).expand_as(mean), inv],
+                       dim=-1).flatten()
+
+
+def _plane_stats(stats: torch.Tensor, x: torch.Tensor):
+    """(mean, a, beta, inv), each (B, C, 1, 1, 1), of the flat ``stats``."""
+    st = stats.view(*x.shape[:2], 4)
+    return [st[..., i, None, None, None] for i in range(4)]
+
+
+def _act_grad(pre: torch.Tensor, act: str, alpha: float):
+    """act'(pre), as the autograd of the plain version (and the kernels)
+    take it: relu 0 at pre = 0, leaky relu 1; None for act 'none'."""
+    if act == "relu":
+        return (pre > 0).to(pre.dtype)
+    if act == "leaky_relu":
+        return torch.where(pre >= 0, 1.0, alpha).to(pre.dtype)
+    return None
+
+
+def _bwd_plain(x, g, gamma, beta, eps, act, alpha):
+    """(dx in ``x.dtype``, per-plane sums (B, C, 2): sum(g'), sum(xhat g'))."""
     dims = (2, 3, 4)
-    xf, gf = x.float(), g.float()
+    acc = torch.promote_types(x.dtype, torch.float32)
+    xf, gf = x.to(acc), g.to(acc)
     var, mean = torch.var_mean(xf, dim=dims, unbiased=False, keepdim=True)
     shape = (1, -1, 1, 1, 1)
     inv = torch.rsqrt(var + eps)
-    a = gamma.float().reshape(shape) * inv
-    pre = (xf - mean) * a + beta.float().reshape(shape)
+    a = gamma.to(acc).reshape(shape) * inv
+    pre = (xf - mean) * a + beta.to(acc).reshape(shape)
     if act == "relu":
         gf = torch.where(pre > 0, gf, 0.0)
     elif act == "leaky_relu":
@@ -205,7 +238,21 @@ def instance_norm_act_bwd_plain(x: torch.Tensor, g: torch.Tensor, gamma: torch.T
     sum_xg = (xhat * gf).sum(dim=dims, keepdim=True)
     n = math.prod(x.shape[2:])
     dx = a * (gf - sum_g / n - xhat * (sum_xg / n))
-    return dx.to(x.dtype), sum_xg.sum(dim=(0, 2, 3, 4)), sum_g.sum(dim=(0, 2, 3, 4))
+    return dx.to(x.dtype), torch.cat([sum_g, sum_xg], dim=2).flatten(2)
+
+
+def instance_norm_act_bwd_plain(x: torch.Tensor, g: torch.Tensor, gamma: torch.Tensor,
+                                beta: torch.Tensor, eps: float = 1e-3, act: str = "none",
+                                alpha: float = 0.2):
+    """The plain backward: (dx in ``x.dtype``, dgamma, dbeta in f32, f64 for a
+    f64 ``x``) for the cotangent ``g`` of ``instance_norm_act_plain``, with
+    g' = g * act'(pre), xhat = (x - mean) * inv and
+    dx = a * (g' - mean(g') - xhat * mean(xhat g'))."""
+    if act not in ACTS:
+        raise ValueError(f"act must be one of {sorted(ACTS)}, got {act!r}")
+    dx, sums = _bwd_plain(x, g, gamma, beta, eps, act, alpha)
+    per_c = sums.sum(dim=0)
+    return dx, per_c[:, 1], per_c[:, 0]
 
 
 def instance_norm_act(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
@@ -225,20 +272,85 @@ class _InstanceNormAct(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, gamma, beta, eps, act, alpha):
         y, stats = _forward(x, gamma, beta, eps, act, alpha)
+        if stats is None:
+            stats = instance_norm_stats_plain(x, gamma, beta, eps)
         ctx.save_for_backward(x, gamma, beta, stats)
         ctx.conf = (eps, act, alpha)
+        ctx.set_materialize_grads(False)
         return y
 
     @staticmethod
     def backward(ctx, g):
+        if g is None:
+            return None, None, None, None, None, None
         x, gamma, beta, stats = ctx.saved_tensors
-        eps, act, alpha = ctx.conf
-        if x.device.type == "cpu":
-            dx, dgamma, dbeta = instance_norm_act_bwd_plain(x, g, gamma, beta, eps, act, alpha)
-        else:
-            dx, dgamma, dbeta = _instance_norm_act_bwd_cuda(x, g, stats, act, alpha)
+        dx, dgamma, dbeta = _InstanceNormActBwd.apply(x, g, gamma, beta, stats, *ctx.conf)
         return (dx if ctx.needs_input_grad[0] else None, dgamma.to(gamma.dtype),
                 dbeta.to(beta.dtype), None, None, None)
+
+
+class _InstanceNormActBwd(torch.autograd.Function):
+    """(dx, dgamma, dbeta) of the norm for the cotangent g (K5, or
+    ``instance_norm_act_bwd_plain`` on the CPU), differentiable once more in
+    x, g and gamma by the closed form below."""
+
+    @staticmethod
+    def forward(ctx, x, g, gamma, beta, stats, eps, act, alpha):
+        if x.device.type == "cpu":
+            dx, sums = _bwd_plain(x, g, gamma, beta, eps, act, alpha)
+        else:
+            dx, sums = _bwd_cuda(x, g, stats, act, alpha)
+        ctx.save_for_backward(x, g, stats, sums)
+        ctx.conf = (act, alpha)
+        ctx.set_materialize_grads(False)
+        per_c = sums.sum(dim=0)  # (C, 2): one reduction for dbeta and dgamma
+        return dx, per_c[:, 1], per_c[:, 0]
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, ddx, ddgamma, ddbeta):
+        """With the cotangents u = ddx, p = ddgamma, q = ddbeta, per plane of
+        n elements (S1 = sum(g'), S2 = sum(xhat g'), U0 = sum(u g'),
+        U1 = sum(u), U2 = sum(u xhat), m = act'(pre), c = U0 - S1 U1/n - S2 U2/n):
+        dg = m (a (u - U1/n - xhat U2/n) + p xhat + q),
+        dgamma = sum over b of inv c,
+        dx = -a inv (xhat c/n + (S2/n) (u - U1/n - xhat U2/n))
+             + (p - a U2/n) inv (g' - S1/n - xhat S2/n)."""
+        x, g, stats, sums = ctx.saved_tensors
+        act, alpha = ctx.conf
+        acc = torch.promote_types(x.dtype, torch.float32)
+        mean, a, beta, inv = (t.to(acc) for t in _plane_stats(stats, x))
+        n = math.prod(x.shape[2:])
+        dims = (2, 3, 4)
+        xc = x.to(acc) - mean
+        xhat = xc * inv
+        m = _act_grad(xc * a + beta, act, alpha)
+        gp = g.to(acc) if m is None else g.to(acc) * m
+        s1, s2 = (sums[..., i, None, None, None].to(acc) for i in range(2))
+        p = None if ddgamma is None else ddgamma.to(acc).view(1, -1, 1, 1, 1)
+        q = None if ddbeta is None else ddbeta.to(acc).view(1, -1, 1, 1, 1)
+        dg = dx = dgamma = None
+        ds2 = inv * (gp - s1 / n - xhat * (s2 / n))  # d S2 / dx
+        if ddx is not None:
+            u = ddx.to(acc)
+            u0 = (u * gp).sum(dim=dims, keepdim=True)
+            u1 = u.sum(dim=dims, keepdim=True)
+            u2 = (u * xhat).sum(dim=dims, keepdim=True)
+            c = u0 - (s1 * u1 + s2 * u2) / n
+            du = u - u1 / n - xhat * (u2 / n)
+            dg = a * du
+            dgamma = (inv * c).sum(dim=(0, 2, 3, 4))
+            dx = -a * inv * (xhat * (c / n) + (s2 / n) * du) - (a * u2 / n) * ds2
+        if p is not None:
+            dx = p * ds2 if dx is None else dx + p * ds2
+        if p is not None:
+            dg = p * xhat if dg is None else dg + p * xhat
+        if q is not None:
+            dg = q.expand_as(xhat) if dg is None else dg + q
+        if dg is not None and m is not None:
+            dg = dg * m
+        return (None if dx is None else dx.to(x.dtype), None if dg is None else dg.to(g.dtype),
+                dgamma, None, None, None, None, None)
 
 
 def _forward(x, gamma, beta, eps, act, alpha):
@@ -294,6 +406,14 @@ def _instance_norm_act_cuda(x, gamma, beta, eps, act, alpha):
 
 def _instance_norm_act_bwd_cuda(x, g, stats, act, alpha):
     """(dx, dgamma, dbeta) from the backward kernel on ``bwd_plan``'s route."""
+    dx, sums = _bwd_cuda(x, g, stats, act, alpha)
+    per_c = sums.sum(dim=0)
+    return dx, per_c[:, 1], per_c[:, 0]
+
+
+def _bwd_cuda(x, g, stats, act, alpha):
+    """(dx, per-plane sums (B, C, 2): sum(g'), sum(xhat g')) from the backward
+    kernel."""
     global bwd_launches
     g = g.to(x.dtype).contiguous()
     b, c = x.shape[:2]
@@ -312,5 +432,4 @@ def _instance_norm_act_bwd_cuda(x, g, stats, act, alpha):
             torch.cuda.current_stream(x.device).cuda_stream)
     build.check(status, "instance_norm_act backward")
     bwd_launches += 1
-    per_c = sums.sum(dim=0)  # (C, 2): one reduction for dbeta and dgamma
-    return dx, per_c[:, 1], per_c[:, 0]
+    return dx, sums

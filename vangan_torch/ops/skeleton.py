@@ -13,7 +13,8 @@ Where a gradient is needed (the skeleton of a prediction) the op is a
 ``torch.autograd.Function``: the forward keeps every round's input image and
 the skel before it, in f32 (2 * (iters + 1) + 1 volumes, about 0.8 GB at
 3 x 128^3 with 15 iterations), and the backward runs the rounds in reverse,
-one launch of ``csrc/skeleton_bwd.cu`` each (the TPU kernel ``_round_bwd``).
+one launch of ``csrc/skeleton_bwd.cu`` each (the TPU kernel ``_round_bwd``);
+it has no second derivative, and differentiating it again raises.
 Without a gradient (the ground truth's skeleton) the forward keeps nothing:
 it updates skel in place and ping-pongs two eroded images.
 
@@ -31,6 +32,7 @@ import torch
 import torch.nn.functional as F
 
 from vangan_torch.ops import build, morphology
+from vangan_torch.ops.autograd import once_differentiable
 
 # kernel launches (chip_smoke.py reads and resets them)
 launches = 0             # forward rounds
@@ -57,10 +59,12 @@ class _SoftSkel(torch.autograd.Function):
     @staticmethod
     def forward(ctx, img, iters):
         skel, ctx.imgs, ctx.skels = _soft_skel_cuda(img, iters, keep=True)
+        ctx.save_for_backward(img)  # what a derivative of the backward would depend on
         ctx.shape = img.shape
         return skel
 
     @staticmethod
+    @once_differentiable  # no second derivative: taking one raises
     def backward(ctx, g):
         d_img = _soft_skel_bwd_cuda(ctx.imgs, ctx.skels, g, ctx.shape)
         ctx.imgs = ctx.skels = None

@@ -4,7 +4,7 @@ the train step's state."""
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Callable, Dict, List
+from typing import Callable, Dict, List, Optional
 
 import torch
 import torch.nn as nn
@@ -25,10 +25,11 @@ class TrainState:
     opt: Dict[str, torch.optim.Adam]
     lr: Callable[[int], float]
     counts: Dict[str, int]
+    clipnorm: Optional[float] = 100.0  # per-tensor clip (None on the WGAN path)
 
     def apply(self, name: str, grads: List[torch.Tensor]) -> None:
-        """One clipped Adam update of network ``name`` at its scheduled LR."""
-        apply_gradients(self.opt[name], grads, self.lr(self.counts[name]))
+        """One Adam update of network ``name`` at its scheduled LR."""
+        apply_gradients(self.opt[name], grads, self.lr(self.counts[name]), self.clipnorm)
         self.counts[name] += 1
 
     def state_dict(self) -> dict:
@@ -67,4 +68,5 @@ def init_adam_state(opt: torch.optim.Adam) -> None:
 def make_train_state(nets: Dict[str, nn.Module], cfg, steps_per_epoch: int) -> TrainState:
     opt = {name: make_optimizer(cfg, nets[name].parameters()) for name in NETWORKS}
     return TrainState(step=0, opt=opt, lr=lr_schedule(cfg, steps_per_epoch),
-                      counts={name: 0 for name in NETWORKS})
+                      counts={name: 0 for name in NETWORKS},
+                      clipnorm=None if cfg.wasserstein else 100.0)

@@ -16,6 +16,14 @@ for TPU compile limits and 16 GB of HBM, and are not ported):
   discriminator with detached parameters (its gradient reaches the
   generator only) and by the live discriminator on the detached fake (its
   gradient reaches the discriminator only) (step.py:277-280).
+
+With ``cfg.wasserstein`` the adversarial losses are the Wasserstein ones and,
+from the second step (``gp_scale``), each critic's loss adds the gradient
+penalty on its own domain inside the differentiated scalar, as the JAX
+package has it (step.py:283-318; the reference adds it outside its tape, on
+disc_S for both domains). A spectral norm stores its power iteration at
+each training call of a critic, in JAX's order (real, then each fake's two
+judgements), but not at the penalty's calls, whose state JAX discards.
 """
 
 from __future__ import annotations
@@ -32,7 +40,10 @@ from vangan_torch.losses import (
     cycle_seg_loss,
     discriminator_loss_fn,
     generator_loss_fn,
+    gradient_penalty,
     identity_loss,
+    wasserstein_discriminator_loss,
+    wasserstein_generator_loss,
 )
 from vangan_torch.training.state import NETWORKS, TrainState
 
@@ -60,13 +71,16 @@ def _no_mark(name: str) -> None:
 def compute_losses(nets: Dict[str, nn.Module], cfg, scales: LossScales,
                    real_I: torch.Tensor, real_S: torch.Tensor, train: bool = False,
                    noise_std: float = 0.0, generator: Optional[torch.Generator] = None,
-                   mark: Callable[[str], None] = _no_mark
+                   mark: Callable[[str], None] = _no_mark, gp_scale: float = 0.0
                    ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """One forward of the CycleGAN graph on (B, X, Y, Z, 1) batches: returns
     (the sum of the four totals, the result dict of the JAX step). ``mark(name)``
     is called at the end of each phase ("generators", "cycle_losses",
-    "discriminators", "adversarial_losses"); a benchmark records a CUDA event
-    there."""
+    "discriminators", "adversarial_losses", and with a gradient penalty
+    "gradient_penalty"); a benchmark records a CUDA event there. In training
+    with ``cfg.wasserstein`` and a ``gp_scale`` other than 0, each critic's
+    loss adds ``gp_scale`` times its gradient penalty (at 0 the JAX step adds
+    0 times the penalty; the port skips computing it)."""
     # A -> B, B -> A (vangan.py:295-297), then the cycles (vangan.py:300-308),
     # in the JAX package's order: a BatchNorm generator moves its running
     # statistics at each call in training (step.py:218-236)
@@ -108,19 +122,37 @@ def compute_losses(nets: Dict[str, nn.Module], cfg, scales: LossScales,
         disc_fake_I_gen = disc_fake_I_dis = nets["disc_I"](fake_I.detach())
     mark("discriminators")
 
-    # LSGAN adversarial losses (vangan.py:322-332); WGAN is refused by the config
-    gen_IS_loss = generator_loss_fn(scales, disc_fake_S_gen)
-    gen_SI_loss = generator_loss_fn(scales, disc_fake_I_gen)
-    disc_I_loss = discriminator_loss_fn(scales, disc_real_I, disc_fake_I_dis)
-    disc_S_loss = discriminator_loss_fn(scales, disc_real_S, disc_fake_S_dis)
+    # adversarial losses (vangan.py:322-332)
+    if cfg.wasserstein:
+        gen_IS_loss = wasserstein_generator_loss(scales, disc_fake_S_gen)
+        gen_SI_loss = wasserstein_generator_loss(scales, disc_fake_I_gen)
+        disc_I_loss = wasserstein_discriminator_loss(scales, disc_real_I, disc_fake_I_dis)
+        disc_S_loss = wasserstein_discriminator_loss(scales, disc_real_S, disc_fake_S_dis)
+    else:
+        gen_IS_loss = generator_loss_fn(scales, disc_fake_S_gen)
+        gen_SI_loss = generator_loss_fn(scales, disc_fake_I_gen)
+        disc_I_loss = discriminator_loss_fn(scales, disc_real_I, disc_fake_I_dis)
+        disc_S_loss = discriminator_loss_fn(scales, disc_real_S, disc_fake_S_dis)
 
     total_loss_I = gen_IS_loss + cycle_loss_I + seg_loss
     total_loss_S = gen_SI_loss + cycle_loss_S + reconstruction_loss
     if id_IS_loss is not None:
         total_loss_I = total_loss_I + id_IS_loss
         total_loss_S = total_loss_S + id_SI_loss
-
     mark("adversarial_losses")
+
+    # WGAN-GP on the matching critic, trained with its own noise and dropout
+    # draws, storing no spectral-norm state (step.py:283-318)
+    if cfg.wasserstein and train and gp_scale:
+        def critic(name):
+            return lambda x: nets[name](x, True, noise_std, generator, update_stats=False)
+
+        disc_I_loss = disc_I_loss + gp_scale * gradient_penalty(
+            scales, critic("disc_I"), real_I, fake_I, generator)
+        disc_S_loss = disc_S_loss + gp_scale * gradient_penalty(
+            scales, critic("disc_S"), real_S, fake_S, generator)
+        mark("gradient_penalty")
+
     result = dict(zip(RESULT_KEYS, (
         total_loss_I, total_loss_S, disc_I_loss, disc_S_loss, gen_IS_loss, gen_SI_loss,
         cycle_loss_I, cycle_loss_S, seg_loss, reconstruction_loss)))
@@ -139,7 +171,7 @@ def test_step(nets: Dict[str, nn.Module], cfg, scales: LossScales, real_I: torch
 
 def compute_grads(nets: Dict[str, nn.Module], cfg, scales: LossScales, real_I: torch.Tensor,
                   real_S: torch.Tensor, noise_std: float, generator: torch.Generator,
-                  mark: Callable[[str], None] = _no_mark
+                  mark: Callable[[str], None] = _no_mark, gp_scale: float = 0.0
                   ) -> Tuple[Dict[str, List[torch.Tensor]], Dict[str, torch.Tensor]]:
     """The four restricted gradients of one training forward (one list per
     network, in ``parameters()`` order; zeros where a parameter got none) and
@@ -147,7 +179,8 @@ def compute_grads(nets: Dict[str, nn.Module], cfg, scales: LossScales, real_I: t
     for net in nets.values():
         net.zero_grad(set_to_none=True)
     total, result = compute_losses(nets, cfg, scales, real_I, real_S, train=True,
-                                   noise_std=noise_std, generator=generator, mark=mark)
+                                   noise_std=noise_std, generator=generator, mark=mark,
+                                   gp_scale=gp_scale)
     total.backward()
     mark("backward")
     grads = {name: [torch.zeros_like(p) if p.grad is None else p.grad
@@ -162,13 +195,16 @@ def train_step(nets: Dict[str, nn.Module], cfg, scales: LossScales, state: Train
                generator: torch.Generator, mark: Callable[[str], None] = _no_mark
                ) -> Dict[str, torch.Tensor]:
     """One optimisation step of all four networks (vangan.py:380-440): the
-    gradients of ``compute_grads``, then each network's clip + Adam. With
-    ``update_gen`` False the generators' parameters and optimizer states stay
-    as they were (step.py:416-433); BatchNorm running statistics, moved by
-    the forward, advance either way, as the JAX step stores them
-    (step.py:436). Returns the loss dict (0-d tensors on the device)."""
+    gradients of ``compute_grads``, then each network's Adam update (clipped
+    on the LSGAN path). With ``update_gen`` False the generators' parameters
+    and optimizer states stay as they were (step.py:416-433); BatchNorm
+    running statistics and spectral-norm vectors, moved by the forward,
+    advance either way, as the JAX step stores them (step.py:436). The
+    gradient penalty weighs ``cfg.gp_weight`` from the second step of the
+    run (step.py:355-358). Returns the loss dict (0-d tensors on the device)."""
+    gp_scale = cfg.gp_weight if cfg.wasserstein and state.step > 0 else 0.0
     grads, result = compute_grads(nets, cfg, scales, real_I, real_S, noise_std, generator,
-                                  mark)
+                                  mark, gp_scale)
     for name in NETWORKS:
         if update_gen or not name.startswith("gen"):
             state.apply(name, grads[name])

@@ -64,6 +64,12 @@ class VanGan:
         self.current_epoch = 0
         self.checkpoint_loaded = False
         self._checkpointer: Optional[VanGanCheckpointer] = None
+        # the generators' update every ncritic-th train step of the WGAN
+        # path, counted by ``train`` (vangan.py:64-67 of the JAX package)
+        self.wasserstein = cfg.wasserstein
+        self.ncritic = cfg.ncritic
+        self.icritic = 1
+        self.updateGen = True
 
     gen_IS = property(lambda self: self.nets["gen_IS"])
     gen_SI = property(lambda self: self.nets["gen_SI"])
@@ -171,9 +177,11 @@ def train(ds: Iterable[Tuple[np.ndarray, np.ndarray]], gan: VanGan, summary, epo
     ``steps``) the train step with noise σ ``noise_std`` (``training``) or
     the test step, then ``summary.scalar(key, mean, epoch=, training=)`` for
     each loss; returns the per-step values by key. Results stay on the device
-    and are fetched 32 steps at a time. Every step updates the generators:
-    the ncritic bookkeeping of vangan.py:535-544 acts only on the WGAN path,
-    which the config refuses."""
+    and are fetched 32 steps at a time. On the WGAN path the generators are
+    updated every ``ncritic``-th train step, by the bookkeeping of
+    vangan.py:535-544 (the JAX package's vangan.py:224-230): the flag is
+    raised when ``icritic`` reaches ``ncritic`` and lowered after every step;
+    on the LSGAN path every train step updates them."""
     results: Dict[str, list] = {}
     pending: list = []
 
@@ -194,9 +202,15 @@ def train(ds: Iterable[Tuple[np.ndarray, np.ndarray]], gan: VanGan, summary, epo
             break
         cntr += 1
         if training:
-            pending.append(gan.distributed_train_step(x, y, noise_std, True))
+            if gan.icritic % gan.ncritic == 0:
+                gan.updateGen, gan.icritic = True, 1
+            else:
+                gan.icritic += 1
+            update_gen = gan.updateGen if gan.wasserstein else True
+            pending.append(gan.distributed_train_step(x, y, noise_std, update_gen))
         else:
             pending.append(gan.distributed_test_step(x, y))
+        gan.updateGen = False
         if len(pending) >= 32:
             drain()
     drain()

@@ -8,10 +8,14 @@ the leaf belongs to:
 - ``ConvTranspose`` ``kernel`` (kx, ky, kz, Ci, Co) <-> ``weight``
   (Ci, Co, kx, ky, kz), flipped on the three spatial axes (flax's transposed
   conv does not flip its kernel, torch's does);
+- Dense ``kernel`` (in, out) <-> Linear ``weight`` (out, in) (the critic's
+  ``w_dense``);
 - InstanceNorm and BatchNorm ``scale`` <-> ``weight``;
 - ``bias`` <-> ``bias``;
 - BatchNorm's ``batch_stats`` ``mean`` / ``var`` <-> the buffers ``mean`` /
-  ``var``.
+  ``var``; a spectral norm's ``SpectralNorm_0`` ``batch_stats``
+  ``<layer>/kernel/u`` and ``<layer>/kernel/sigma`` <-> the buffers ``u`` and
+  ``sigma`` of the ``SpectralNorm_0`` module.
 
 :func:`load_flax_train_state` carries a whole JAX ``VanGanState`` (the
 parameters, the batch statistics, each network's Adam moments and counts,
@@ -29,6 +33,7 @@ import torch
 from vangan_torch.training.state import NETWORKS
 
 STATS = ("mean", "var")  # BatchNorm's batch_stats leaves, and its buffers
+SN_STATS = ("u", "sigma")  # a spectral norm's, as "<layer>/kernel/<name>" in flax
 
 
 def _flatten(tree: Mapping, prefix=()) -> Dict[tuple, np.ndarray]:
@@ -48,16 +53,26 @@ def _transposed_convs(model: torch.nn.Module) -> set:
     return {name for name, m in model.named_modules() if isinstance(m, ConvTranspose)}
 
 
+def _spectral_norms(model: torch.nn.Module) -> Dict[str, str]:
+    """The module paths of ``model``'s ``SpectralNorm`` layers -> the name of
+    the conv each normalises."""
+    from vangan_torch.models.layers import SpectralNorm
+
+    return {name: m.layer for name, m in model.named_modules() if isinstance(m, SpectralNorm)}
+
+
 def flax_to_torch(params: Mapping, model: torch.nn.Module,
                   batch_stats: Optional[Mapping] = None) -> Dict[str, torch.Tensor]:
     """Nested flax ``params`` (arrays), and ``batch_stats`` if given, -> a
     ``state_dict`` of float32 tensors for ``model`` (or one of its
     submodules: the module types pick each kernel's layout)."""
-    deconvs = _transposed_convs(model)
+    deconvs, norms = _transposed_convs(model), _spectral_norms(model)
     sd = {}
     for (*mods, leaf), arr in _flatten(params).items():
         if leaf == "kernel" and ".".join(mods) in deconvs:
             name, arr = "weight", np.transpose(np.flip(arr, (0, 1, 2)), (3, 4, 0, 1, 2))
+        elif leaf == "kernel" and arr.ndim == 2:
+            name, arr = "weight", arr.T
         elif leaf == "kernel":
             name, arr = "weight", np.transpose(arr, (4, 3, 0, 1, 2))
         elif leaf == "scale":
@@ -68,18 +83,22 @@ def flax_to_torch(params: Mapping, model: torch.nn.Module,
             raise KeyError(f"unexpected flax leaf {'/'.join((*mods, leaf))}")
         sd[".".join((*mods, name))] = torch.from_numpy(np.array(arr, np.float32))
     for (*mods, leaf), arr in _flatten(batch_stats or {}).items():
-        if leaf not in STATS:
+        layer, _, name = leaf.rpartition("/kernel/")
+        path = ".".join(mods)
+        if leaf in STATS:
+            name = leaf
+        elif name not in SN_STATS or norms.get(path) != layer:
             raise KeyError(f"unexpected flax batch_stats leaf {'/'.join((*mods, leaf))}")
-        sd[".".join((*mods, leaf))] = torch.from_numpy(np.array(arr, np.float32))
+        sd[".".join((*mods, name))] = torch.from_numpy(np.array(arr, np.float32))
     return sd
 
 
 def torch_to_flax_variables(state_dict: Mapping[str, torch.Tensor],
                             model: torch.nn.Module) -> dict:
     """The inverse of :func:`flax_to_torch`: ``{"params": tree}``, plus
-    ``"batch_stats"`` when the state_dict holds BatchNorm buffers; nested
-    dicts of numpy arrays."""
-    deconvs = _transposed_convs(model)
+    ``"batch_stats"`` when the state_dict holds BatchNorm or spectral-norm
+    buffers; nested dicts of numpy arrays."""
+    deconvs, norms = _transposed_convs(model), _spectral_norms(model)
     out: dict = {}
     for key, t in state_dict.items():
         *mods, name = key.split(".")
@@ -89,12 +108,16 @@ def torch_to_flax_variables(state_dict: Mapping[str, torch.Tensor],
             leaf, arr = "kernel", np.flip(np.transpose(arr, (2, 3, 4, 0, 1)), (0, 1, 2))
         elif name == "weight" and arr.ndim == 5:
             leaf, arr = "kernel", np.transpose(arr, (2, 3, 4, 1, 0))
+        elif name == "weight" and arr.ndim == 2:
+            leaf, arr = "kernel", arr.T
         elif name == "weight":
             leaf = "scale"
         elif name == "bias":
             leaf = "bias"
         elif name in STATS:
             collection, leaf = "batch_stats", name
+        elif name in SN_STATS and ".".join(mods) in norms:
+            collection, leaf = "batch_stats", f"{norms['.'.join(mods)]}/kernel/{name}"
         else:
             raise KeyError(f"unexpected torch parameter {key}")
         node = out.setdefault(collection, {})
@@ -113,9 +136,10 @@ def torch_to_flax(state_dict: Mapping[str, torch.Tensor], model: torch.nn.Module
 
 def load_flax_params(model: torch.nn.Module, params: Mapping,
                      batch_stats: Optional[Mapping] = None) -> torch.nn.Module:
-    """Copy a flax parameter tree (and the ``batch_stats`` of a BatchNorm
-    network) into ``model``; every leaf must match one parameter or buffer
-    of the same shape, and vice versa (``strict`` loading)."""
+    """Copy a flax parameter tree (and the ``batch_stats`` of a BatchNorm or
+    spectral-norm network) into ``model``; every leaf must match one
+    parameter or buffer of the same shape, and vice versa (``strict``
+    loading)."""
     model.load_state_dict(flax_to_torch(params, model, batch_stats), strict=True)
     return model
 
