@@ -171,11 +171,30 @@ Phases, each of which raises on failure:
    the JAX package's bookkeeping names; ms per step of both paths with the
    penalty off and on, in turns, peak memory, and the step's phases by CUDA
    events at ``compute_losses``' marks (the penalty's share). Its numbers
-   on the ``wgan_step`` and ``wgan_double_backward`` lines.
+   on the ``wgan_step`` and ``wgan_double_backward`` lines;
+14. the 2-D mode: config 2 with ``DIMENSIONS: 2`` at full width (ResU-Nets
+   f=16 with 4 levels, PatchGANs f=64) on 128 x 128 images, whose layers run
+   on depth-1 volumes (B, C, 1, H, W) with (1, k, k) kernels: phases 2-3's
+   checks, tolerances and bit-identity rules at every conv shape of the 2-D
+   gen_IS and disc_I (K1-K3 timed against cuDNN's 2-D conv, ``F.conv2d``
+   and its two gradients) and every norm shape, plus planes of 4, 16 and 64
+   elements (``TWOD_TINY_PLANES``); phase 6's test step and phase 8's train
+   step (batch 3, bf16, noise sigma 0.1, dropout on) with the launches of
+   ``TWOD_TEST_LAUNCHES`` / ``TWOD_TRAIN_LAUNCHES`` (K1-K5 as phase 8, K6
+   and K7 none: the 2-D skeleton's erosion is not K6's and runs torch ops),
+   their losses, kernel-vs-plain rules, ms and peak memory; the train step
+   timed again at 512 x 512; ``predict`` through cli.main on a seeded 2048
+   x 2048 .npy image, stride 64 (one (h, w) page, finite, in [0, 255], K1
+   and K4 17 and 28 times a gen_IS batch, phase 5's bf16 rule against
+   plain-path stitches, Mpix/s); and ``evaluate_segmentation`` of that
+   prediction against seeded lines on the card: no K6 launch, scores equal
+   to the CPU's; and the 2-D skeleton's torch ops timed at the step's
+   shapes. Its numbers on the ``twod*`` lines.
 
 Then one JSON line of the seven kernels (launches counted in one train step
 of phase 8, the path that runs them all, and of phase 10 as
-``config4_launches``; phase 13's step 1 as ``wgan_launches``; phase 12's as
+``config4_launches``; phase 13's step 1 as ``wgan_launches``; phase 14's
+2-D train step as ``twod_launches``; phase 12's as
 ``raw_predict_launches`` for K1 and K4 and ``metric_launches`` for K6; for
 K4 and K7 the kernel launches beside the calls; ms, plain ms, library ms and the bound summed over the convs / norms
 of one gen_IS and one disc_I call at batch 3 (phases 2-3), one 3 x 128^3
@@ -318,6 +337,38 @@ WGAN_KERNEL_LAUNCHES = {k: {"instnorm_fwd": v["instnorm_fwd"],
                             "soft_skel_bwd": v["soft_skel_bwd"]}
                         for k, v in WGAN_LAUNCHES.items()}
 NCRITIC_STEPS = 6      # train() steps of the ncritic check (ncritic 5)
+# phase 14: the 2-D mode, config 2 with DIMENSIONS: 2 (its SUBVOL_PATCH_SIZE
+# gives 128 x 128 images). Every layer runs on depth-1 volumes (B, C, 1, H,
+# W) with (1, k, k) kernels, so the networks have phase 8's kernel convs and
+# norms, with the same channels, the same (reflect) pads on H and W and the
+# same strides on them: one train step launches K1-K5 as phase 8's does.
+# The 2-D skeleton erodes with the (3,1) and (1,3) windows only, which K6
+# does not compute: it runs torch ops, and K6 and K7 launch 0 times.
+TWOD = {"DIMENSIONS": 2}
+TWOD_N = 128             # image edge (SUBVOL_PATCH_SIZE[:2])
+TWOD_BIG = 512           # the train step timed again at 512 x 512
+TWOD_IMAGE = 2048        # predict's seeded image edge
+TWOD_TUBES = 60          # the metric's truth: random lines of 1.5-4 px radius
+TWOD_NO_SKELETON = {"soft_skel_fwd": 0, "soft_skel_bwd": 0}
+TWOD_TRAIN_LAUNCHES = {**TRAIN_LAUNCHES, **TWOD_NO_SKELETON}
+TWOD_TRAIN_KERNEL_LAUNCHES = {"instnorm_fwd": TWOD_TRAIN_LAUNCHES["instnorm_fwd"],
+                              "soft_skel_bwd": 0}
+TWOD_TEST_LAUNCHES = {**TEST_LAUNCHES, "soft_skel_fwd": 0}
+# K4/K5 on planes no 3-D shape gave them: 2 x 2 (4 elements: in bf16 8
+# bytes, less than one 16-byte vector, the unaligned route), 4 x 4 and 8 x 8,
+# at the channels of the levels that reach them (the deepest level of a
+# 32^2 or 64^2 patch, and of phase 14's 128^2 one)
+TWOD_TINY_PLANES = ((256, (1, 2, 2)), (256, (1, 4, 4)), (256, (1, 8, 8)))
+# The f32 gradients' rule, kernel against plain, takes the plain path's
+# spread as the largest of this many 1e-6 perturbation draws. A ReLU or
+# LeakyReLU pre-activation within rounding of 0 takes the other slope in
+# another f32 run; on 128^2 images a discriminator has 16x fewer voxels a
+# plane than at 128^3, so one such flip moves its whole gradient upstream of
+# the flipped norm at once (relative L2 up to ~1e-3) and the gradient jumps
+# between ~1e-6 and ~1e-3 from draw to draw, kernel path and perturbed plain
+# path alike (the per-draw spreads are on the twod_train_step_agreement
+# line); one draw does not bound it.
+TWOD_SPREAD_DRAWS = 5
 
 
 def require(cond, msg):
@@ -345,9 +396,10 @@ def errs(got, want):
     return float(d.max()), float(d.max()) / max(scale, 1e-30)
 
 
-def path_shapes(model):
+def path_shapes(model, sample=(N, N, N)):
     """The (name, module, input shape) of every conv and InstanceNorm of one
-    call of ``model`` at N^3, batch 1, recorded on the plain path."""
+    call of ``model`` on a ``sample`` (default N^3; (H, W) for a 2-D
+    network), batch 1, recorded on the plain path."""
     from vangan_torch.models.layers import ConvND, InstanceNorm
 
     seen, hooks = [], []
@@ -357,7 +409,7 @@ def path_shapes(model):
                 lambda mod, inp, name=name: seen.append((name, mod, tuple(inp[0].shape)))))
     model.set_use_kernels(False)
     with torch.inference_mode():
-        model(torch.zeros(1, N, N, N, 1, device=DEVICE))
+        model(torch.zeros(1, *sample, 1, device=DEVICE))
     model.set_use_kernels(True)
     for h in hooks:
         h.remove()
@@ -451,8 +503,12 @@ def check_convs(net, shapes, expected, tol):
         gy32 = torch.randn(STEP_BATCH, co, *out_dims, device=DEVICE, generator=g)
         flops, nbytes = conv_work(co, ci, m.kernel_size, out_dims, dims, STEP_BATCH)
         xp_shape = (STEP_BATCH, ci, *C.padded_dims(dims, pads))
+        # a 2-D network's conv (a depth-1 volume, a (1, kh, kw) kernel) is
+        # timed against cuDNN's 2-D conv, the library call a 2-D model makes
+        depth1 = dims[0] == 1 and m.kernel_size[0] == 1
         row = {"net": net, "convs": names, "w": list(wshape), "stride": list(stride),
                "in": list(dims), "gflop": flops / 1e9,
+               "library": "conv2d" if depth1 else "conv3d",
                "bound": {k: bound(flops, nb, BF16_FLOP_PER_S) for k, nb in (
                    ("fwd", nbytes), ("dgrad", nbytes),
                    # wgrad: x, g read, dW written in f32
@@ -462,6 +518,16 @@ def check_convs(net, shapes, expected, tol):
             xp = pad3d(x, pads, pad_mode)
             tag = "f32" if dtype == torch.float32 else "bf16"
             with torch.inference_mode():
+                if depth1:
+                    sq, s2 = (lambda t: t[:, :, 0]), stride[1:]  # noqa: E731
+                    w2 = w[:, :, 0].to(dtype)
+                    library = {
+                        "fwd": lambda: F.conv2d(sq(xp), w2, None if b is None else b.to(dtype),
+                                                s2),
+                        "dgrad": lambda: torch.nn.grad.conv2d_input(
+                            (STEP_BATCH, ci, *xp_shape[3:]), w2, sq(gy), s2),
+                        "wgrad": lambda: torch.nn.grad.conv2d_weight(sq(xp), w2.shape, sq(gy),
+                                                                      s2)}
                 ops = {
                     "fwd": (lambda: C.conv3d(x, w, b, stride, m.padding, pad_mode),
                             lambda: C.conv3d_plain(x, w, b, stride, pads, pad_mode),
@@ -477,7 +543,8 @@ def check_convs(net, shapes, expected, tol):
                                                            pad_mode),
                               lambda: torch.nn.grad.conv3d_weight(xp, wshape, gy, stride)),
                 }
-                for op, (kern, plain, library) in ops.items():
+                for op, (kern, plain, lib) in ops.items():
+                    lib = library[op] if depth1 else lib
                     got, want = kern(), plain()
                     torch.cuda.synchronize()
                     require(got.shape == want.shape, f"conv {op} {names}: shape {got.shape} "
@@ -497,7 +564,7 @@ def check_convs(net, shapes, expected, tol):
                         row["wgrad_bf16_bit_identical"] = same
                     row[f"{op}_{tag}_ms"] = cuda_ms(kern)
                     row[f"{op}_{tag}_plain_ms"] = cuda_ms(plain)
-                    row[f"{op}_{tag}_library_ms"] = cuda_ms(library)
+                    row[f"{op}_{tag}_library_ms"] = cuda_ms(lib)
                     row[f"{op}_{tag}_tflops"] = flops / row[f"{op}_{tag}_ms"] / 1e9
                     row[f"{op}_{tag}_library_tflops"] = flops / row[f"{op}_{tag}_library_ms"] / 1e9
                 row["plan"] = plans(ci, co, m.kernel_size, stride, pads, pad_mode, dims, out_dims)
@@ -519,8 +586,10 @@ def check_convs(net, shapes, expected, tol):
     return rows
 
 
-def check_instnorms(net, shapes, expected, tol):
-    """K4 (forward) and K5 (backward) at each (C, size) and activation of ``net``."""
+def check_instnorms(net, shapes, expected, tol, extra=()):
+    """K4 (forward) and K5 (backward) at each (C, size) and activation of
+    ``net``, and at the (C, size) planes of ``extra``, which no call of it
+    uses."""
     from vangan_torch.models.layers import InstanceNorm
     from vangan_torch.ops import instnorm as I
 
@@ -531,6 +600,8 @@ def check_instnorms(net, shapes, expected, tol):
     n_calls = sum(len(v) for v in groups.values())
     require(n_calls == expected, f"{n_calls} InstanceNorms in a {net} call, "
             f"expected {expected}")
+    for c, dims in extra:
+        groups.setdefault((c, tuple(dims)), [])
     g = torch.Generator(device=DEVICE).manual_seed(SEED + 1)
     rows = []
     for (c, dims), uses in groups.items():
@@ -785,11 +856,11 @@ def check_generator(model, conv_ops, in_ops):
     return res
 
 
-def step_batch():
-    """The seeded 3 x 128^3 batch of phases 6 and 8: real_I uniform in
-    [-1, 1], real_S binary in {-1, 1}."""
+def step_batch(sample=(N, N, N)):
+    """The seeded 3 x 128^3 batch of phases 6 and 8 (3 x ``sample``): real_I
+    uniform in [-1, 1], real_S binary in {-1, 1}."""
     rng = np.random.default_rng(SEED + 4)
-    shape = (STEP_BATCH, N, N, N, 1)
+    shape = (STEP_BATCH, *sample, 1)
     real_I = torch.from_numpy(rng.uniform(-1, 1, shape).astype(np.float32)).to(DEVICE)
     seg = rng.uniform(size=shape) > 0.7
     real_S = torch.from_numpy(np.where(seg, 1.0, -1.0).astype(np.float32)).to(DEVICE)
@@ -797,8 +868,9 @@ def step_batch():
 
 
 def check_test_step(conv_ops, in_ops, skel_ops, want=TEST_LAUNCHES, tag="test_step",
-                    bf16_spread_runs=0, **cfg_kw):
-    """The test step of the config with ``cfg_kw`` (phase 6: config 2).
+                    bf16_spread_runs=0, sample=(N, N, N), **cfg_kw):
+    """The test step of the config with ``cfg_kw`` (phase 6: config 2) on a
+    batch of 3 ``sample``s (SUBVOL_PATCH_SIZE their size; (H, W) in 2-D).
 
     A bf16 loss of the kernel path may be 3x as far from the f32 plain loss
     as the bf16 plain path's is. With ``bf16_spread_runs`` the plain path's
@@ -811,10 +883,10 @@ def check_test_step(conv_ops, in_ops, skel_ops, want=TEST_LAUNCHES, tag="test_st
     from vangan_torch.config import VanGanConfig
     from vangan_torch.vangan import VanGan
 
-    cfg = VanGanConfig(SUBVOL_PATCH_SIZE=(N, N, N), BATCH_SIZE=STEP_BATCH,
+    cfg = VanGanConfig(SUBVOL_PATCH_SIZE=(sample[0],) * 3, BATCH_SIZE=STEP_BATCH,
                        cldice_iters=SKEL_ITERS, **cfg_kw)
     gan = VanGan(cfg, device=DEVICE)
-    shape, real_I, real_S = step_batch()
+    shape, real_I, real_S = step_batch(sample)
 
     def run(kernels, dtype):
         gan.set_use_kernels(kernels)
@@ -975,7 +1047,7 @@ def reset_counters(ops):
     skel_ops.launches = skel_ops.bwd_launches = skel_ops.bwd_kernel_launches = 0
 
 
-def path_agreement(tag, grads_of, f32_crop=None, signed=()):
+def path_agreement(tag, grads_of, f32_crop=None, signed=(), spread_draws=1):
     """Phase 8's rules, kernel path against plain path, from ``grads_of(kernels,
     dtype, n, crop=N, perturb=0.0)`` -> (flat f32 gradient per network,
     losses) of the first ``n`` samples cropped to ``crop``^3 from the same
@@ -983,7 +1055,9 @@ def path_agreement(tag, grads_of, f32_crop=None, signed=()):
     within SPREAD_FACTOR x the plain path's spread, the bf16 rules on one
     sample and on the batch (the losses named in ``signed`` by their
     absolute differences); with ``f32_crop`` the f32 checks also on the whole
-    batch cropped to ``f32_crop``^3. Prints and returns the report."""
+    batch cropped to ``f32_crop``^3. With ``spread_draws`` > 1 the spread is
+    the largest of that many perturbation draws (``grads_of(..., draw=i)``,
+    see ``TWOD_SPREAD_DRAWS``). Prints and returns the report."""
     from vangan_torch.training.state import NETWORKS
 
     # gradients of both paths from the same weights and noise draws: in f32
@@ -1001,7 +1075,10 @@ def path_agreement(tag, grads_of, f32_crop=None, signed=()):
     # the plain f32 gradient's own spread: the same step with every weight
     # scaled by (1 + 1e-6 N(0, 1)), below the f32 kernel-vs-plain forward
     # difference (phase 5: up to 4e-5 on tanh outputs)
-    perturbed, _ = grads_of(False, f32, 1, perturb=1e-6)
+    if spread_draws == 1:
+        draws = [grads_of(False, f32, 1, perturb=1e-6)[0]]
+    else:
+        draws = [grads_of(False, f32, 1, perturb=1e-6, draw=i)[0] for i in range(spread_draws)]
     crop = {}
     if f32_crop:
         for kernels in (True, False):
@@ -1030,7 +1107,8 @@ def path_agreement(tag, grads_of, f32_crop=None, signed=()):
         p16_3 = grads[False, bf16, full][n]
         report["grads"][n] = {
             "f32_kernel_vs_plain": rel(grads[True, f32, one][n], ref),
-            "f32_plain_perturbed_vs_plain": rel(perturbed[n], ref),
+            "f32_plain_perturbed_vs_plain": max(rel(d[n], ref) for d in draws),
+            "f32_plain_perturbed_draws": [rel(d[n], ref) for d in draws],
             "bf16_kernel_vs_f32": rel(grads[True, bf16, one][n], ref),
             "bf16_plain_vs_f32": rel(grads[False, bf16, one][n], ref),
             "bf16_kernel_vs_plain": rel(grads[True, bf16, one][n], grads[False, bf16, one][n]),
@@ -1082,9 +1160,34 @@ def path_agreement(tag, grads_of, f32_crop=None, signed=()):
     return report
 
 
+def train_steps_in_turns(gan, real_I, real_S):
+    """ms per train step of the kernel and the plain path, three each in
+    turns (plain, kernel, kernel, plain, plain, kernel), and each path's peak
+    memory; the caller has warmed both up. Leaves the kernels on."""
+    times, peak = {"kernel": [], "plain": []}, {"kernel": 0.0, "plain": 0.0}
+    for path in ("plain", "kernel", "kernel", "plain", "plain", "kernel"):
+        gan.set_use_kernels(path == "kernel")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        gan.distributed_train_step(real_I, real_S, NOISE, True)
+        b.record()
+        b.synchronize()
+        times[path].append(a.elapsed_time(b))
+        peak[path] = max(peak[path], torch.cuda.max_memory_allocated() / 2**30)
+    gan.set_use_kernels(True)
+    return {"kernel_ms_per_step": float(np.median(times["kernel"])),
+            "plain_ms_per_step": float(np.median(times["plain"])),
+            "kernel_ms_all": times["kernel"], "plain_ms_all": times["plain"],
+            "kernel_peak_gib": peak["kernel"], "plain_peak_gib": peak["plain"]}
+
+
 def check_train_step(ops, want=TRAIN_LAUNCHES, want_kernels=TRAIN_KERNEL_LAUNCHES,
-                     tag="train_step", f32_crop=None, **cfg_kw):
-    """The train step of the config with ``cfg_kw`` (phase 8: config 2).
+                     tag="train_step", f32_crop=None, sample=(N, N, N), spread_draws=1,
+                     **cfg_kw):
+    """The train step of the config with ``cfg_kw`` (phase 8: config 2) on a
+    batch of 3 ``sample``s (SUBVOL_PATCH_SIZE their size; (H, W) in 2-D).
     Every parameter tensor must move in the step, and every running
     statistic (BatchNorm buffer) must stay finite and move. With
     ``f32_crop`` the f32 checks also run on the whole batch, cropped to
@@ -1097,11 +1200,11 @@ def check_train_step(ops, want=TRAIN_LAUNCHES, want_kernels=TRAIN_KERNEL_LAUNCHE
     from vangan_torch.training.state import NETWORKS, make_train_state
     from vangan_torch.vangan import VanGan
 
-    cfg = VanGanConfig(SUBVOL_PATCH_SIZE=(N, N, N), BATCH_SIZE=STEP_BATCH,
+    cfg = VanGanConfig(SUBVOL_PATCH_SIZE=(sample[0],) * 3, BATCH_SIZE=STEP_BATCH,
                        cldice_iters=SKEL_ITERS, **cfg_kw)
     gan = VanGan(cfg, device=DEVICE)
     init = {name: copy.deepcopy(net.state_dict()) for name, net in gan.nets.items()}
-    shape, real_I, real_S = step_batch()
+    shape, real_I, real_S = step_batch(sample)
 
     def reset(kernels, dtype):
         """Seeded weights, fresh optimizers, the same noise draws."""
@@ -1142,49 +1245,34 @@ def check_train_step(ops, want=TRAIN_LAUNCHES, want_kernels=TRAIN_KERNEL_LAUNCHE
         moved_report[name] = {"params_moved": moved, "params": len(params),
                               "buffers_moved": len(buffers)}
 
-    def grads_of(kernels, dtype, n, crop=N, perturb=0.0):
+    def grads_of(kernels, dtype, n, crop=N, perturb=0.0, draw=0):
         """Gradients (flat f32 per network) and losses of the first ``n``
-        samples cropped to ``crop``^3, from the seeded weights and noise
-        draws; with ``perturb``, every weight scaled by (1 + perturb N(0, 1))."""
+        samples cropped to ``crop`` on each axis, from the seeded weights and
+        noise draws; with ``perturb``, every weight scaled by (1 + perturb
+        N(0, 1)), the ``draw``-th such draw."""
         reset(kernels, dtype)
         if perturb:
             with torch.no_grad():
-                pg = torch.Generator(device=DEVICE).manual_seed(SEED + 6)
+                pg = torch.Generator(device=DEVICE).manual_seed(SEED + 6 + draw)
                 for net in gan.nets.values():
                     for prm in net.parameters():
                         prm.mul_(1 + perturb * torch.randn(prm.shape, device=DEVICE,
                                                            generator=pg))
-        box = (slice(0, n), slice(0, crop), slice(0, crop), slice(0, crop))
+        box = (slice(0, n),) + (slice(0, crop),) * len(sample)
         g, res = step.compute_grads(gan.nets, cfg, gan.scales, real_I[box].contiguous(),
                                     real_S[box].contiguous(), NOISE, gan.generator)
         return ({name: torch.cat([t.float().flatten() for t in g[name]]) for name in NETWORKS},
                 {k: float(v) for k, v in res.items()})
 
-    path_agreement(tag, grads_of, f32_crop)
+    path_agreement(tag, grads_of, f32_crop, spread_draws=spread_draws)
 
     # ms per step of both paths in turns, after a warm-up step of each
-    times, peak = {"kernel": [], "plain": []}, {"kernel": 0.0, "plain": 0.0}
     for path in ("kernel", "plain"):
         reset(path == "kernel", torch.bfloat16)
         gan.distributed_train_step(real_I, real_S, NOISE, True)
-    for path in ("plain", "kernel", "kernel", "plain", "plain", "kernel"):
-        gan.set_use_kernels(path == "kernel")
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        a.record()
-        gan.distributed_train_step(real_I, real_S, NOISE, True)
-        b.record()
-        b.synchronize()
-        times[path].append(a.elapsed_time(b))
-        peak[path] = max(peak[path], torch.cuda.max_memory_allocated() / 2**30)
-    gan.set_use_kernels(True)
     res = {"batch": list(shape), "noise_std": NOISE, "launches": launches,
            "kernel_launches": kernel_launches, "losses": step_losses, "moved": moved_report,
-           "kernel_ms_per_step": float(np.median(times["kernel"])),
-           "plain_ms_per_step": float(np.median(times["plain"])),
-           "kernel_ms_all": times["kernel"], "plain_ms_all": times["plain"],
-           "kernel_peak_gib": peak["kernel"], "plain_peak_gib": peak["plain"]}
+           **train_steps_in_turns(gan, real_I, real_S)}
     print(tag, json.dumps(res))
     return res
 
@@ -2141,6 +2229,204 @@ def check_wgan(ops, tol, disc_shapes):
     return res
 
 
+def twod_tubes(rng, n):
+    """A seeded n x n binary image of random lines (the 2-D analog of
+    ``tubes``, as ``examples/train_synthetic_torch.py``'s make_tube_image)."""
+    seg = np.zeros((n, n), np.float32)
+    xs, ys = np.arange(n, dtype=np.float32)[:, None], np.arange(n, dtype=np.float32)[None, :]
+    for _ in range(TWOD_TUBES):
+        p0 = rng.uniform(0, n, 2)
+        d = rng.normal(size=2)
+        d /= np.linalg.norm(d)
+        px, py = xs - p0[0], ys - p0[1]
+        t = px * d[0] + py * d[1]
+        seg = np.maximum(seg, ((px - t * d[0]) ** 2 + (py - t * d[1]) ** 2
+                               < rng.uniform(1.5, 4.0) ** 2).astype(np.float32))
+    return seg
+
+
+def time_twod_big_step(ops):
+    """Config 2's 2-D train step at 512 x 512 (batch 3, bf16, noise sigma
+    0.1, dropout on): the launches of ``TWOD_TRAIN_LAUNCHES``, ms of both
+    paths in turns after a warm-up step of each, and peak memory."""
+    from vangan_torch.config import VanGanConfig
+    from vangan_torch.vangan import VanGan
+
+    cfg = VanGanConfig(SUBVOL_PATCH_SIZE=(TWOD_BIG,) * 3, BATCH_SIZE=STEP_BATCH,
+                       cldice_iters=SKEL_ITERS, **TWOD)
+    gan = VanGan(cfg, device=DEVICE)
+    shape, real_I, real_S = step_batch((TWOD_BIG, TWOD_BIG))
+    torch.cuda.synchronize()
+    reset_counters(ops)
+    out = gan.distributed_train_step(real_I, real_S, NOISE, True)
+    torch.cuda.synchronize()
+    launches = counters(ops)
+    require(launches == TWOD_TRAIN_LAUNCHES, f"twod_big_step: one step launched {launches}, "
+            f"expected {TWOD_TRAIN_LAUNCHES}")
+    require(all(math.isfinite(float(v)) for v in out.values()), "twod_big_step: losses")
+    gan.set_use_kernels(False)
+    gan.distributed_train_step(real_I, real_S, NOISE, True)  # the plain path's warm-up
+    res = {"batch": list(shape), "launches": launches,
+           **train_steps_in_turns(gan, real_I, real_S)}
+    print("twod_big_step", json.dumps(res))
+    return res
+
+
+def check_twod_predict_and_metric(ops):
+    """``predict`` through cli.main with a DIMENSIONS: 2 config on a seeded
+    2048 x 2048 .npy image, stride 64 (phase 7's checks on one (h, w) page),
+    then ``evaluate_segmentation`` of that prediction against seeded lines
+    on the card: no skeleton kernel launch, scores equal to the CPU's."""
+    from vangan_torch import cli
+    from vangan_torch.config import VanGanConfig
+    from vangan_torch.data.preprocess import read_tiff
+    from vangan_torch.inference.stitcher import stitch_origins, stitch_subvolumes
+    from vangan_torch.metrics import evaluate_segmentation
+    from vangan_torch.vangan import VanGan
+
+    conv_ops, in_ops, skel_ops = ops
+    n = TWOD_IMAGE
+    cfg = VanGanConfig(SUBVOL_PATCH_SIZE=(TWOD_N,) * 3, stitcher_batch=BATCH, **TWOD)
+    with tempfile.TemporaryDirectory(prefix="vangan_smoke_2d_") as tmp:
+        in_dir, out_dir = os.path.join(tmp, "in"), os.path.join(tmp, "out")
+        os.makedirs(in_dir)
+        rng = np.random.default_rng(SEED + 14)
+        img = rng.normal(100.0, 40.0, (n, n, 1)).astype(np.float32)
+        np.save(os.path.join(in_dir, "img.npy"), img)
+        weights, cfg_path = os.path.join(tmp, "weights.pt"), os.path.join(tmp, "cfg.yaml")
+        VanGan(cfg, device=DEVICE).save_weights(weights)
+        cfg.to_yaml(cfg_path)
+        pad = int(0.25 * n)
+        origins = stitch_origins((n + 2 * pad, n + 2 * pad, 1), (TWOD_N, TWOD_N, 1),
+                                 (STRIDE, STRIDE, 1))
+        n_batches = -(-len(set(origins)) // cfg.stitcher_batch)
+
+        reset_counters(ops)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cli.main(["predict", "--config", cfg_path, "--input", in_dir, "--output", out_dir,
+                  "--weights", weights, "--stride", str(STRIDE), str(STRIDE), str(STRIDE),
+                  "--device", DEVICE])
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = {"conv3d_fwd": conv_ops.launches, "instnorm_fwd": in_ops.launches}
+        out = read_tiff(os.path.join(out_dir, "VANGAN_img.tiff"))
+        require(out.shape == (1, n, n, 1), f"twod predict: TIFF shape {out.shape}")
+        out = out[0]
+        require(bool(np.isfinite(out).all()) and out.min() >= 0.0 and out.max() <= 255.0,
+                "twod predict: TIFF not finite or outside [0, 255]")
+        require(launches == {"conv3d_fwd": CONV_PATH_CALLS * n_batches,
+                             "instnorm_fwd": IN_PATH_CALLS * n_batches},
+                f"twod predict launches {launches}, expected {n_batches} gen_IS batches")
+        gan = VanGan(cfg, device=DEVICE)
+        gan.load_weights(weights)
+        gan.gen_IS.set_use_kernels(False)
+        plain = {}
+        for dtype in (torch.bfloat16, torch.float32):
+            gan.gen_IS.dtype = dtype
+            plain[dtype] = torch.from_numpy(stitch_subvolumes(
+                gan.gen_IS_batched, img, cfg.subvol_size, stride=(STRIDE,) * 3, complete=True,
+                padFactor=0.25, save=False, batch_size=cfg.stitcher_batch, device=DEVICE))
+        close = bf16_vs_reference(torch.from_numpy(out), plain[torch.bfloat16],
+                                  plain[torch.float32], "twod predict")
+    predict = {"image": [n, n], "patches": len(origins), "batches": n_batches,
+               "seconds": seconds, "mpix_per_s": n * n / seconds / 1e6, "launches": launches,
+               "grey_levels": close}
+    print("twod_predict", json.dumps(predict))
+
+    truth = twod_tubes(np.random.default_rng(SEED + 15), n)
+    pred = out[..., 0]
+    skel0 = skel_ops.launches
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    scores = evaluate_segmentation(pred, truth, iters=SKEL_ITERS, device=DEVICE)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    require(skel_ops.launches == skel0, "twod metric: a 2-D skeleton launched K6")
+    cpu = evaluate_segmentation(pred, truth, iters=SKEL_ITERS, device="cpu")
+    require(scores == cpu, f"twod metric: card {scores} vs CPU {cpu}")
+    metric = {"image": [n, n], "scores": scores, "seconds": seconds,
+              "mpix_per_s": n * n / seconds / 1e6, "k6_launches": skel_ops.launches - skel0}
+    print("twod_metric", json.dumps(metric))
+    return predict, metric
+
+
+def time_twod_skeleton():
+    """The 2-D skeleton's torch ops (``morphology.soft_skel``, 15
+    iterations) at the step's batch of 128 x 128 and 512 x 512 images:
+    CUDA-event ms of the forward and of forward and backward, what a 2-D
+    skeleton kernel could save of the step (two skeletons a step, one
+    differentiated)."""
+    from vangan_torch.ops import morphology
+
+    g = torch.Generator(device=DEVICE).manual_seed(SEED + 16)
+    res = {}
+    for n in (TWOD_N, TWOD_BIG):
+        x = torch.rand(STEP_BATCH, n, n, 1, device=DEVICE, generator=g)
+        gy = torch.randn(x.shape, device=DEVICE, generator=g)
+        xg = x.clone().requires_grad_()
+
+        def fwd_bwd():
+            torch.autograd.grad(morphology.soft_skel(xg, SKEL_ITERS), xg, gy)
+
+        with torch.inference_mode():
+            res[f"fwd_ms_{n}"] = cuda_ms(lambda: morphology.soft_skel(x, SKEL_ITERS))
+        res[f"fwd_bwd_ms_{n}"] = cuda_ms(fwd_bwd)
+    print("twod_skeleton", json.dumps(res))
+    return res
+
+
+def check_twod(ops, tol, card):
+    """Phase 14: config 2 with DIMENSIONS: 2 at full width (ResU-Nets f=16
+    with 4 levels, PatchGANs f=64) on 128 x 128 images."""
+    from vangan_torch.config import VanGanConfig
+    from vangan_torch.models.factory import build_discriminator, build_generator
+
+    conv_ops, in_ops, skel_ops = ops
+    sample = (TWOD_N, TWOD_N)
+    cfg = VanGanConfig(SUBVOL_PATCH_SIZE=(TWOD_N,) * 3, **TWOD)
+    g = torch.Generator().manual_seed(SEED)
+    model = build_generator("resUnet", cfg, generator=g).to(DEVICE).eval()
+    disc = build_discriminator(cfg, generator=g).to(DEVICE).eval()
+    shapes, disc_shapes = path_shapes(model, sample), path_shapes(disc, sample)
+    del model, disc
+    out = {"conv_rows": check_convs("gen_IS_2d", shapes, CONV_PATH_CALLS, tol)
+           + check_convs("disc_I_2d", disc_shapes, DISC_CONV_CALLS, tol),
+           "in_rows": check_instnorms("gen_IS_2d", shapes, IN_PATH_CALLS, tol)
+           + check_instnorms("disc_I_2d", disc_shapes, DISC_IN_CALLS, tol,
+                             extra=TWOD_TINY_PLANES)}
+    torch.cuda.empty_cache()
+    out["test"] = check_test_step(conv_ops, in_ops, skel_ops, want=TWOD_TEST_LAUNCHES,
+                                  tag="twod_test_step", sample=sample, **TWOD)
+    torch.cuda.empty_cache()
+    out["train"] = check_train_step(ops, TWOD_TRAIN_LAUNCHES, TWOD_TRAIN_KERNEL_LAUNCHES,
+                                    tag="twod_train_step", sample=sample,
+                                    spread_draws=TWOD_SPREAD_DRAWS, **TWOD)
+    torch.cuda.empty_cache()
+    out["big"] = time_twod_big_step(ops)
+    torch.cuda.empty_cache()
+    out["predict"], out["metric"] = check_twod_predict_and_metric(ops)
+    out["skeleton"] = time_twod_skeleton()
+    summary = {"card": card, "train_launches": out["train"]["launches"],
+               "train_ms": out["train"]["kernel_ms_per_step"],
+               "train_plain_ms": out["train"]["plain_ms_per_step"],
+               "train_peak_gib": out["train"]["kernel_peak_gib"],
+               "test_ms": out["test"]["kernel_ms_per_step"],
+               "test_plain_ms": out["test"]["plain_ms_per_step"],
+               "train_512_ms": out["big"]["kernel_ms_per_step"],
+               "train_512_plain_ms": out["big"]["plain_ms_per_step"],
+               "train_512_peak_gib": out["big"]["kernel_peak_gib"],
+               "predict_mpix_per_s": out["predict"]["mpix_per_s"],
+               "metric_s": out["metric"]["seconds"], "skeleton": out["skeleton"]}
+    for op in ("fwd", "dgrad", "wgrad"):
+        summary[f"conv_{op}_bf16_ms"] = sum(len(r["convs"]) * r[f"{op}_bf16_ms"]
+                                            for r in out["conv_rows"])
+        summary[f"conv_{op}_bf16_conv2d_ms"] = sum(len(r["convs"]) * r[f"{op}_bf16_library_ms"]
+                                                   for r in out["conv_rows"])
+    print("twod", json.dumps(summary))
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -2193,6 +2479,8 @@ def main() -> int:
     data_eval = check_data_eval((conv_ops, in_ops, skel_ops), card)
     torch.cuda.empty_cache()
     wgan = check_wgan((conv_ops, in_ops, skel_ops), tol, disc_shapes)
+    torch.cuda.empty_cache()
+    twod = check_twod((conv_ops, in_ops, skel_ops), tol, card)
 
     require("jax" not in sys.modules and "vangan_tpu" not in sys.modules,
             "the port imported JAX or the JAX package")
@@ -2212,6 +2500,7 @@ def main() -> int:
                 "launches": train["launches"][name],
                 "config4_launches": c4["train"]["launches"][name],
                 "wgan_launches": wgan["launches"][1][name],
+                "twod_launches": twod["train"]["launches"][name],
                 "max_abs_err": max(r[f"{op}_bf16_abs_err"] for r in conv_rows),
                 "ms": total(f"{op}_bf16_ms"), "plain_ms": total(f"{op}_bf16_plain_ms"),
                 **summed_bound([(len(r["convs"]), r["bound"][op]) for r in conv_rows]),
@@ -2225,7 +2514,8 @@ def main() -> int:
                  "source": f"vangan_torch/ops/csrc/instnorm_{op}.cu", "replaces": replaces,
                  "launches": train["launches"][name],
                  "config4_launches": c4["train"]["launches"][name],
-                 "wgan_launches": wgan["launches"][1][name], "max_abs_err": max(errs_),
+                 "wgan_launches": wgan["launches"][1][name],
+                 "twod_launches": twod["train"]["launches"][name], "max_abs_err": max(errs_),
                  "ms": total(f"{op}_bf16_ms"), "plain_ms": total(f"{op}_bf16_plain_ms"),
                  **summed_bound([(len(r["uses"]), r["bound"][op]) for r in in_rows]),
                  "library_ms": None}
@@ -2246,7 +2536,8 @@ def main() -> int:
                         "vangan_tpu/ops/pallas/conv3d.py:904"),
              fold_launches=train["launches"]["conv3d_dgrad_fold"],
              config4_fold_launches=c4["train"]["launches"]["conv3d_dgrad_fold"],
-             wgan_fold_launches=wgan["launches"][1]["conv3d_dgrad_fold"]),
+             wgan_fold_launches=wgan["launches"][1]["conv3d_dgrad_fold"],
+             twod_fold_launches=twod["train"]["launches"]["conv3d_dgrad_fold"]),
         conv_entry("conv3d_wgrad", "wgrad", "vangan_torch/ops/csrc/conv3d_wgrad.cu",
                    "vangan_tpu/ops/pallas/conv3d.py:817"),
         dict(in_entry("instnorm_fwd", "fwd", "vangan_tpu/ops/pallas/instnorm.py:309"),
@@ -2260,6 +2551,7 @@ def main() -> int:
          "launches": train["launches"]["soft_skel_fwd"],
          "config4_launches": c4["train"]["launches"]["soft_skel_fwd"],
          "wgan_launches": wgan["launches"][1]["soft_skel_fwd"],
+         "twod_launches": twod["train"]["launches"]["soft_skel_fwd"],
          "metric_launches": data_eval["metric_launches"],
          "max_abs_err": max(skel["tanh_noise_max_abs_err"], skel["binary_faces_max_abs_err"],
                             *data_eval["skel_max_abs_err"].values()),
@@ -2272,6 +2564,7 @@ def main() -> int:
          "launches": train["launches"]["soft_skel_bwd"],
          "kernel_launches": train["kernel_launches"]["soft_skel_bwd"],
          "wgan_launches": wgan["launches"][1]["soft_skel_bwd"],
+         "twod_launches": twod["train"]["launches"]["soft_skel_bwd"],
          "config4_launches": c4["train"]["launches"]["soft_skel_bwd"],
          "config4_kernel_launches": c4["train"]["kernel_launches"]["soft_skel_bwd"],
          "max_abs_err": skel["bwd_max_abs_err"], "ms": skel["bwd_ms"],

@@ -10,10 +10,11 @@ against their paired truth with Dice and clDice
     python examples/train_synthetic_torch.py [--epochs 2] [--patch 32] [--volumes 8]
     python examples/train_synthetic_torch.py --preset results    # the RESULTS.md run
     python examples/train_synthetic_torch.py --device cpu ...    # plain torch on the CPU
+    python examples/train_synthetic_torch.py --dims 2 --vol-shape 96 96   # 2-D images
 
-The flags are those of the JAX example, but ``--dims 2`` raises (the 2-D
-mode is not ported, ROADMAP.md Queue 1 item 4) and there is no ``--remat``;
-``--device`` picks the card (default) or the CPU. ``--preset results``
+The flags are those of the JAX example, but there is no ``--remat``;
+``--device`` picks the card (default) or the CPU. ``--dims 2`` trains the
+DIMENSIONS=2 mode on 2-D tube images (``make_tube_image``). ``--preset results``
 prints the RESULTS.md table row and appends it only to a file named by
 ``--results-md``. Everything is written under ``--out``, by default a new
 directory under ``$TMPDIR``. The last line is a JSON summary: the scores,
@@ -60,6 +61,29 @@ def make_tube_volume(rng: np.random.Generator, shape=(96, 96, 64), n_tubes=12):
     return img.astype(np.float32), (2.0 * seg - 1.0).astype(np.float32)
 
 
+def make_tube_image(rng: np.random.Generator, shape=(96, 96), n_tubes=12):
+    """2-D analog of make_tube_volume: random line segments with radius
+    (the DIMENSIONS=2 demo input): returns (imaging image, binary segmentation)."""
+    seg = np.zeros(shape, dtype=np.float32)
+    xs = np.arange(shape[0])[:, None]
+    ys = np.arange(shape[1])[None, :]
+    for _ in range(n_tubes):
+        p0 = rng.uniform(0, 1, 2) * np.asarray(shape)
+        d = rng.normal(size=2)
+        d /= np.linalg.norm(d)
+        radius = rng.uniform(1.5, 4.0)
+        px, py = xs - p0[0], ys - p0[1]
+        t = px * d[0] + py * d[1]
+        dx, dy = px - t * d[0], py - t * d[1]
+        seg = np.maximum(seg, (dx**2 + dy**2 < radius**2).astype(np.float32))
+    img = seg.copy()
+    for axis in range(2):
+        img = (np.roll(img, 1, axis) + img + np.roll(img, -1, axis)) / 3.0
+    img = img + 0.25 * rng.normal(size=shape).astype(np.float32)
+    img = img + np.linspace(0, 0.3, shape[1], dtype=np.float32)[None, :]
+    return img.astype(np.float32), (2.0 * seg - 1.0).astype(np.float32)
+
+
 def main(argv=None) -> None:
     t_start = time.perf_counter()
     ap = argparse.ArgumentParser()
@@ -67,9 +91,9 @@ def main(argv=None) -> None:
     ap.add_argument("--patch", type=int, default=32)
     ap.add_argument("--volumes", type=int, default=8)
     ap.add_argument("--dims", type=int, choices=[2, 3], default=3,
-                    help="2 (the DIMENSIONS=2 mode) is not ported and raises")
+                    help="2: train on 2-D images (DIMENSIONS=2 mode)")
     ap.add_argument("--vol-shape", type=int, nargs="+", default=(96, 96, 64),
-                    help="synthetic volume size (x y z)")
+                    help="synthetic volume size (x y z; x y for --dims 2)")
     ap.add_argument("--tubes", type=int, default=12)
     ap.add_argument("--filters", type=int, default=8)
     ap.add_argument("--disc-filters", type=int, default=16)
@@ -92,9 +116,6 @@ def main(argv=None) -> None:
              "(128^3 patches, f=16/64, clDice(15), 20 epochs x 150 steps, 16 "
              "volumes of 256x256x128, seed 0); prints the table row")
     args = ap.parse_args(argv)
-    if args.dims == 2:
-        raise NotImplementedError("--dims 2 (DIMENSIONS=2) is not ported yet "
-                                  "(ROADMAP.md Queue 1 item 4)")
 
     if args.preset == "results":
         # explicitly-passed --epochs/--seed win over the preset pins, as in
@@ -131,14 +152,15 @@ def main(argv=None) -> None:
     rng = np.random.default_rng(args.seed)
 
     print("*** Generating synthetic dataset ***")
-    vshape = tuple(args.vol_shape)[:3]
+    make = make_tube_volume if args.dims == 3 else make_tube_image
+    vshape = tuple(args.vol_shape)[:args.dims]
     img_paths, seg_paths, truths = [], [], {}
     for d in ("imgA", "segB"):
         os.makedirs(os.path.join(data_dir, d), exist_ok=True)
     for i in range(args.volumes):
-        img, seg = make_tube_volume(rng, shape=vshape, n_tubes=args.tubes)
+        img, seg = make(rng, shape=vshape, n_tubes=args.tubes)
         # unpaired: imaging volumes and segmentation volumes from separate draws
-        img2, seg2 = make_tube_volume(rng, shape=vshape, n_tubes=args.tubes)
+        img2, seg2 = make(rng, shape=vshape, n_tubes=args.tubes)
         ip = os.path.join(data_dir, "imgA", f"v{i}.npy")
         sp = os.path.join(data_dir, "segB", f"v{i}.npy")
         np.save(ip, img[..., None])
@@ -163,6 +185,7 @@ def main(argv=None) -> None:
         output_dir=args.out,
         BATCH_SIZE=1,
         EPOCHS=args.epochs,
+        DIMENSIONS=args.dims,
         SUBVOL_PATCH_SIZE=(args.patch,) * 3,
         gen_filters=args.filters,
         disc_filters=args.disc_filters,
@@ -209,7 +232,10 @@ def main(argv=None) -> None:
     for ip in imaging_partition["testing"]:
         name = os.path.splitext(os.path.basename(ip))[0]
         pred = read_tiff(os.path.join(pred_dir, f"VANGAN_{name}.tiff"))
-        pred = np.transpose(pred, (1, 2, 0, 3))[..., 0]  # (z,x,y,c) -> (x,y,z)
+        if args.dims == 3:
+            pred = np.transpose(pred, (1, 2, 0, 3))[..., 0]  # (z,x,y,c) -> (x,y,z)
+        else:
+            pred = pred[0, ..., 0]  # one page (h, w)
         scores = evaluate_segmentation(pred, truths[ip], iters=args.cldice_iters,
                                        device=device)
         all_scores.append((name, scores))

@@ -172,8 +172,20 @@ def test_synthetic_example_runs_on_the_cpu(tmp_path):
 
 
 def test_synthetic_example_refuses_2d(tmp_path):
+    """``--dims 2`` was refused before the 2-D mode was ported; now it runs
+    the example on 2-D tube images (one epoch on the CPU) and scores each
+    one-page prediction."""
     proc = subprocess.run(
         [sys.executable, os.path.join(REPO, "examples", "train_synthetic_torch.py"),
-         "--dims", "2", "--device", "cpu", "--out", str(tmp_path / "run")],
+         "--dims", "2", "--epochs", "1", "--patch", "16", "--volumes", "4", "--vol-shape",
+         "40", "36", "--filters", "4", "--disc-filters", "8", "--cldice-iters", "2",
+         "--steps-per-epoch", "2", "--device", "cpu", "--out", str(tmp_path / "run")],
         capture_output=True, text=True, timeout=300)
-    assert proc.returncode != 0 and "Queue 1 item 4" in proc.stderr
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    summary = json.loads(proc.stdout.strip().splitlines()[-1])
+    for key in ("dice", "cldice"):
+        assert np.isfinite(summary[key]) and 0.0 <= summary[key] <= 1.0
+    assert summary["train_steps"] == 2
+    assert read_tiff(str(tmp_path / "run" / "predictions" / "VANGAN_v0.tiff")).shape == \
+        (1, 40, 36, 1)
+    assert os.path.exists(tmp_path / "run" / "GANMonitor" / "dataset_sample_2d.png")

@@ -117,7 +117,8 @@ def test_downsample_same_padding_is_tf_same():
 def test_unported_options_raise(kwargs):
     """Spectral norm and the Wasserstein head are ported (test_torch_wgan.py);
     a Wasserstein head without the patch size its Dense needs raises, and the
-    config still refuses the 2-D mode."""
+    config refuses a rank other than 2 or 3 (the 2-D mode is ported:
+    test_torch_2d_*.py)."""
     if "wasserstein" in kwargs:
         with pytest.raises(ValueError, match="patch_size"):
             PatchGANDiscriminator3D(filters=4, **kwargs)
@@ -125,5 +126,6 @@ def test_unported_options_raise(kwargs):
     disc = PatchGANDiscriminator3D(filters=4, patch_size=(16, 16, 16), **kwargs)
     out = disc(torch.rand(1, 16, 16, 16, 1))
     assert out.shape == ((1, 1) if "wasserstein" in kwargs else (1, 2, 2, 2, 1))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        VanGanConfig(DIMENSIONS=2)
+    assert VanGanConfig(DIMENSIONS=2).INPUT_IMG_SIZE == (3, 128, 128, 1)
+    with pytest.raises(ValueError, match="DIMENSIONS"):
+        VanGanConfig(DIMENSIONS=4)

@@ -962,3 +962,117 @@ def test_critic_gradient_penalty_on_the_kernels(cuda, use_SN):
     (gp_k, g_k), (gp_p, g_p) = out[True], out[False]
     assert abs(gp_k - gp_p) <= 1e-4 * abs(gp_p)
     assert float((g_k - g_p).norm()) <= 1e-3 * float(g_p.norm())
+
+
+# The 2-D mode's convs (DIMENSIONS=2: depth-1 volumes, (1, k, k) kernels,
+# strides (1, s, s), no pad on the depth axis), cut in size: the ResU-Net's
+# 3x3 reflect convs at strides 1 and 2, its 1x1 shortcut at stride 2 and
+# head, the PatchGAN's 4x4 stride-2 conv0 and 4x4 TF SAME conv, the ResNet's
+# 7x7 reflect stem and head (49 taps: the tensor cores, where 7^3 did not
+# go), and a bf16 brick three quarters padding on every route
+DEPTH1_CASES = [
+    ((1, 3, 3), 1, ((0, 0), (1, 1), (1, 1)), "reflect", 16, 16, False, (1, 33, 40)),
+    ((1, 3, 3), (1, 2, 2), ((0, 0), (1, 1), (1, 1)), "reflect", 16, 32, False, (1, 34, 29)),
+    ((1, 1, 1), (1, 2, 2), "same", "zeros", 32, 64, False, (1, 30, 33)),
+    ((1, 1, 1), 1, "same", "zeros", 16, 1, True, (1, 40, 36)),
+    ((1, 4, 4), (1, 2, 2), ((0, 0), (1, 1), (1, 1)), "reflect", 1, 64, False, (1, 36, 34)),
+    ((1, 4, 4), 1, "same", "zeros", 64, 32, False, (1, 17, 19)),
+    ((1, 7, 7), 1, ((0, 0), (3, 3), (3, 3)), "reflect", 1, 32, False, (1, 31, 30)),
+    ((1, 7, 7), 1, ((0, 0), (3, 3), (3, 3)), "reflect", 32, 1, True, (1, 29, 33)),
+    ((1, 3, 3), 1, ((0, 0), (1, 1), (1, 1)), "reflect", 96, 32, False, (1, 8, 8)),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("k,stride,padding,pad_mode,ci,co,bias,dims", DEPTH1_CASES)
+def test_conv3d_kernels_on_depth1_volumes(cuda, dtype, k, stride, padding, pad_mode, ci, co,
+                                          bias, dims):
+    """K1, K2 (with its fold on H and W) and K3 at the 2-D path's shapes
+    against the plain versions, at batch 3; the bf16 dW bit-identical in
+    two runs."""
+    g = torch.Generator().manual_seed(13)
+    x = torch.randn(3, ci, *dims, generator=g).to(cuda, dtype).requires_grad_()
+    w = (torch.randn(co, ci, *k, generator=g) * 0.3).to(cuda).requires_grad_()
+    b = torch.randn(co, generator=g).to(cuda).requires_grad_() if bias else None
+    s = norm_stride(stride)
+    pads = norm_padding(padding, k, s, dims)
+    before = (conv_ops.launches, conv_ops.dgrad_launches, conv_ops.wgrad_launches)
+    y = conv3d(x, w, b, stride, padding, pad_mode)
+    gy = torch.randn(y.shape, generator=g).to(cuda, dtype)
+    y.backward(gy)
+    torch.cuda.synchronize()
+    assert (conv_ops.launches, conv_ops.dgrad_launches, conv_ops.wgrad_launches) == \
+        (before[0] + 1, before[1] + 1, before[2] + 1)
+    with torch.inference_mode():
+        want = conv3d_plain(x.detach(), w.detach(), None if b is None else b.detach(), s, pads,
+                            pad_mode)
+    assert y.shape == want.shape and y.shape[2] == 1
+    assert _rel_err(y.detach(), want) <= TOL[dtype]
+    dx = conv_ops.conv3d_dgrad_plain(gy, w.detach(), x.shape, s, pads, pad_mode)
+    dw = conv_ops.conv3d_wgrad_plain(x.detach(), gy, w.shape, s, pads, pad_mode)
+    assert _rel_err(x.grad, dx) <= TOL[dtype]
+    assert _rel_err(w.grad, dw) <= (1e-3 if dtype == torch.float32 else 2e-2)
+    if dtype == torch.bfloat16:
+        again = conv_ops.conv3d_wgrad(x.detach(), gy, w.shape, s, pads, pad_mode)
+        assert torch.equal(w.grad, again)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("act", ["none", "relu", "leaky_relu"])
+@pytest.mark.parametrize("shape", [(3, 256, 1, 2, 2), (3, 256, 1, 4, 4), (3, 256, 1, 8, 8),
+                                   (3, 16, 1, 128, 128), (2, 7, 1, 3, 5)])
+def test_instnorm_kernels_on_small_planes(cuda, dtype, act, shape):
+    """K4 and K5 on the 2-D mode's planes: 4, 16 and 64 elements (a bf16
+    2 x 2 plane is 8 bytes, not one 16-byte vector), 128 x 128, and a ragged
+    15-element one; forward and backward against the plain versions."""
+    g = torch.Generator().manual_seed(14)
+    x = (torch.randn(*shape, generator=g) * 2 + 0.5).to(cuda, dtype).requires_grad_()
+    gamma = (torch.randn(shape[1], generator=g) * 0.5 + 1).to(cuda).requires_grad_()
+    beta = (torch.randn(shape[1], generator=g) * 0.2).to(cuda).requires_grad_()
+    gy = torch.randn(*shape, generator=g).to(cuda, dtype)
+    before = (in_ops.launches, in_ops.fwd_kernel_launches, in_ops.bwd_launches)
+    y = in_ops.instance_norm_act(x, gamma, beta, 1e-3, act, 0.2)
+    y.backward(gy)
+    torch.cuda.synchronize()
+    assert (in_ops.launches, in_ops.fwd_kernel_launches, in_ops.bwd_launches) == \
+        (before[0] + 1, before[1] + 1, before[2] + 1)
+    with torch.inference_mode():
+        want = in_ops.instance_norm_act_plain(x.detach(), gamma.detach(), beta.detach(), 1e-3,
+                                              act, 0.2)
+    assert _rel_err(y.detach(), want) <= TOL[dtype]
+    grads = in_ops.instance_norm_act_bwd_plain(x.detach(), gy, gamma.detach(), beta.detach(),
+                                               1e-3, act, 0.2)
+    for got, ref in zip((x.grad, gamma.grad, beta.grad), grads):
+        assert _rel_err(got, ref) <= TOL[dtype]
+
+
+def test_2d_generator_and_cldice_on_the_card(cuda):
+    """A 2-D ResU-Net (f=8, 4 levels) on 64 x 64 images: the f32 kernel path
+    within 1e-3 of the plain path on the tanh outputs (chip_smoke.py phase
+    5's rule), its narrow convs and every norm on the kernels; the 2-D
+    clDice loss with the skeleton kernels switched on launches no skeleton
+    kernel."""
+    from vangan_torch.losses.cldice import soft_dice_cldice_grouped
+    from vangan_torch.models.resunet import ResUNet3D
+
+    model = ResUNet3D(filters=8, num_layers=4, dims=2,
+                      generator=torch.Generator().manual_seed(0)).to(cuda).eval()
+    x = torch.rand(2, 64, 64, 1, generator=torch.Generator().manual_seed(1)).to(cuda) * 2 - 1
+    before = (conv_ops.launches, in_ops.launches)
+    with torch.inference_mode():
+        got = model(x)
+        model.set_use_kernels(False)
+        want = model(x)
+    torch.cuda.synchronize()
+    # convs with max(Ci, Co) < 128 on the kernels: 23 of the 30 at f=8
+    assert conv_ops.launches - before[0] == 23 and in_ops.launches - before[1] == 28
+    assert got.shape == (2, 64, 64, 1) and float((got - want).abs().max()) <= 1e-3
+    truth = (x > 0.3).float()
+    pred = torch.sigmoid(x * 3).requires_grad_()
+    skel0 = (skel_ops.launches, skel_ops.bwd_launches)
+    loss = soft_dice_cldice_grouped(truth, pred, 1, iters=5, use_kernel=True)
+    loss.backward()
+    torch.cuda.synchronize()
+    assert (skel_ops.launches, skel_ops.bwd_launches) == skel0
+    plain = soft_dice_cldice_grouped(truth.cpu(), pred.detach().cpu(), 1, iters=5)
+    assert abs(float(loss) - float(plain)) <= 1e-5 * abs(float(plain))

@@ -83,7 +83,8 @@ def test_threshold_and_shape_checks(volumes):
         metrics.evaluate_segmentation(pred[:-1], truth, **kw)
     with pytest.raises(ValueError, match="shape mismatch"):
         jax_metrics.evaluate_segmentation(pred[:-1], truth, iters=5)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-        metrics.cldice_metric(truth[:, :, 0], pred[:, :, 0], **kw)
+    # a bare 2-D image is the DIMENSIONS=2 mode's (tests/test_torch_2d_ops.py)
+    assert metrics.cldice_metric(truth[:, :, 0], pred[:, :, 0], **kw) == \
+        jax_metrics.cldice_metric(truth[:, :, 0], pred[:, :, 0], iters=5)
     with pytest.raises(ValueError, match="expected"):
         metrics.cldice_metric(truth[None, None, ..., None], pred[None, None, ..., None], **kw)

@@ -21,7 +21,9 @@ partitions (this package's or ``vangan_tpu``'s) and trains, writing
 sliding-window stitching and writes one TIFF per volume; given raw TIFFs, it
 first preprocesses them into ``<output>/preprocessed_npy``. ``--epoch N``
 serves what ``train`` saved at epoch N. ``sweep`` runs that inference from
-every ``--step``-th checkpoint. The flags are those of ``python -m
+every ``--step``-th checkpoint. A config with ``DIMENSIONS: 2`` runs each of
+them on 2-D ``(H, W, 1)`` images (one-page TIFFs in, one page out; the z of
+``--stride`` is not read). The flags are those of ``python -m
 vangan_tpu`` plus ``--weights`` (a weights file of the port) and ``--device``
 (default ``cuda``, which refuses to run without CUDA; ``cpu`` runs the plain
 torch versions of the kernels).

@@ -99,30 +99,37 @@ class VanGanConfig:
         self.SYNTH_IMG_SIZE = tuple(self.SYNTH_IMG_SIZE)
         self.TARG_SYNTH_IMG_SIZE = tuple(self.TARG_SYNTH_IMG_SIZE)
         self.SUBVOL_PATCH_SIZE = tuple(self.SUBVOL_PATCH_SIZE)
-        if self.DIMENSIONS != 3:
-            raise NotImplementedError("DIMENSIONS=2 is not ported yet "
-                                      "(ROADMAP.md Queue 1, other families and modes)")
+        if self.DIMENSIONS not in (2, 3):
+            raise ValueError(f"DIMENSIONS must be 2 or 3, got {self.DIMENSIONS}")
+
+    # The patch geometry of both ranks (main.py:87-101): DIMENSIONS=2 takes
+    # the first two sizes of SUBVOL_PATCH_SIZE, images (H, W, C).
+
+    @property
+    def _patch(self) -> Tuple[int, ...]:
+        return self.SUBVOL_PATCH_SIZE[:self.DIMENSIONS]
 
     @property
     def subvol_size(self) -> Tuple[int, ...]:
         """The stitcher's ``(GB, kx, ky, kz, C)`` patch spec (the reference's
-        INPUT_IMG_SIZE convention; the stitcher reads kx, ky, kz)."""
-        return (self.stitcher_batch, *self.SUBVOL_PATCH_SIZE[:3], 1)
+        INPUT_IMG_SIZE convention; the stitcher reads kx, ky, kz), in 2-D
+        ``(GB, kH, kW, C)``."""
+        return (self.stitcher_batch, *self._patch, 1)
 
     @property
     def INPUT_IMG_SIZE(self) -> Tuple[int, ...]:
-        """The global batch's shape ``(GB, X, Y, Z, 1)`` (main.py:87-101)."""
-        return (self.GLOBAL_BATCH_SIZE, *self.SUBVOL_PATCH_SIZE[:3], 1)
+        """The global batch's shape ``(GB, X, Y, Z, 1)``, in 2-D ``(GB, H, W, 1)``."""
+        return (self.GLOBAL_BATCH_SIZE, *self._patch, 1)
 
     @property
     def subvol_patch_shape(self) -> Tuple[int, ...]:
         """Per-sample imaging patch shape with channels (vangan.py:53-54)."""
-        return (*self.SUBVOL_PATCH_SIZE[:3], self.CHANNELS)
+        return (*self._patch, self.CHANNELS)
 
     @property
     def seg_subvol_patch_shape(self) -> Tuple[int, ...]:
         """Per-sample segmentation patch shape (vangan.py:55-56)."""
-        return (*self.SUBVOL_PATCH_SIZE[:3], 1)
+        return (*self._patch, 1)
 
     def decay_start_step(self, steps_per_epoch: int) -> int:
         return int(self.INITIATE_LR_DECAY * steps_per_epoch)

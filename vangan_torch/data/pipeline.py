@@ -10,7 +10,9 @@ for the same seed:
 - a segmentation crop is kept when ``max(crop) >= SEG_THRESH``, after at most
   ``REJECTION_MAX_TRIES`` re-crops (dataset.py:229-251);
 - flips with probability 0.5 each and rot90 by k = floor(U(-180, 180) / 90)
-  act on the (y, z) plane of an ``(x, y, z, c)`` volume (dataset.py:205-219);
+  act on the (y, z) plane of an ``(x, y, z, c)`` volume (dataset.py:205-219),
+  and on the (h, w) plane of an ``(h, w, c)`` image: with ``DIMENSIONS: 2``
+  the feed crops ``(h, w, c)`` patches of ``(H, W, C)`` images;
 - a background thread assembles batches into a bounded queue, and a worker's
   exception reaches the consumer as :class:`PipelineError`.
 
@@ -328,7 +330,9 @@ class VanGanDataset:
         a run (dataset.py:277-373), drawn with Pillow: ``dataset_sample_XY.png``
         and ``dataset_sample_YZ.png`` (six slices and a histogram a column; a
         third 'Paired Imaging' column in the semi-supervised mode) and
-        ``{Imaging,Segmentation}_Test_Input.tiff``."""
+        ``{Imaging,Segmentation}_Test_Input.tiff``. With 2-D images, one
+        panel ``dataset_sample_2d.png``: the image over its histogram, a
+        column each (dataset.py:293-330)."""
         from vangan_torch.data.preprocess import write_tiff
         from vangan_torch.monitor.panels import grey_tile, histogram_tile, save_grid
 
@@ -338,6 +342,13 @@ class VanGanDataset:
         dIS = self._paired_sample()
         cols = [dI, dS] + ([dIS] if dIS is not None else [])
         titles = ["Imaging Dataset", "Segmentation Dataset", "Paired Imaging Dataset"]
+
+        if dI.ndim == 3:
+            columns = [[grey_tile(img[..., 0], title),
+                        histogram_tile(img, "Pixel Frequency" if c == 0 else None)]
+                       for c, (img, title) in enumerate(zip(cols, titles))]
+            save_grid(os.path.join(out_dir, "dataset_sample_2d.png"), columns)
+            return
 
         write_tiff(os.path.join(out_dir, "Imaging_Test_Input.tiff"), np.transpose(dI, (2, 0, 1, 3)))
         write_tiff(os.path.join(out_dir, "Segmentation_Test_Input.tiff"),

@@ -70,6 +70,8 @@ def _process_one(task: Tuple) -> Optional[str]:
     (raw_path, file, out_dir, dimensions, domain, tiff_size, target_size, do_resize,
      preprocess_fn, save_filtered, filtered_dir) = task
     stack = read_tiff(os.path.join(raw_path, file))[..., 0]  # (z, y, x)
+    if dimensions == 2 and stack.shape[0] == 1:
+        stack = stack[0]  # a one-page image, (y, x), as the JAX package reads it
     base, _ = os.path.splitext(file)
 
     if dimensions == 3:

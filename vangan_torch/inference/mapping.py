@@ -25,9 +25,9 @@ def run_mapping(
     batch_size: Optional[int] = None,
     blend: str = "uniform",
 ) -> None:
-    """Map every ``.npy`` volume in ``test_set`` through gen_IS (segmentation)
-    or gen_SI (fake imaging, with per-patch min-max) and save stitched TIFFs
-    into ``filepath``."""
+    """Map every ``.npy`` volume (or, in the 2-D mode, image) in ``test_set``
+    through gen_IS (segmentation) or gen_SI (fake imaging, with per-patch
+    min-max) and save stitched TIFFs into ``filepath``."""
     gen = vangan.gen_IS_batched if segmentation else vangan.gen_SI_batched
     verb = "Segmenting" if segmentation else "Mapping"
     for n, path in enumerate(test_set):

@@ -100,22 +100,31 @@ def stitch_subvolumes(
     blend: str = "uniform",
     device="cuda",
 ) -> np.ndarray:
-    """Predict a full (X, Y, Z, C) volume by strided sliding-window stitching.
+    """Predict a full (X, Y, Z, C) volume, or (H, W, C) image, by strided
+    sliding-window stitching.
 
-    ``gen`` maps a float32 batch ``(B, kx, ky, kz, C)`` on ``device`` (the
-    card unless ``device="cpu"``; without CUDA a CUDA device raises) to
-    predictions of the same shape. ``subvol_size`` follows the reference
-    convention ``(GB, kx, ky, kz, C)``. Returns the stitched volume and, with
-    ``save``, writes it as a (z, x, y, c) TIFF.
+    ``gen`` maps a float32 batch ``(B, kx, ky, kz, C)`` (of an image: ``(B,
+    kH, kW, C)``) on ``device`` (the card unless ``device="cpu"``; without
+    CUDA a CUDA device raises) to predictions of the same shape.
+    ``subvol_size`` follows the reference convention ``(GB, kx, ky, kz, C)``;
+    an image takes the 2-D ``(GB, kH, kW, C)``, and reads only the x and y
+    of ``stride``. Returns the stitched volume and, with ``save``, writes it
+    as a (z, x, y, c) TIFF, an image as an (h, w, c) one.
     """
     if blend not in ("uniform", "gaussian"):
         raise ValueError(f"blend must be 'uniform' or 'gaussian', got {blend!r}")
     img = np.asarray(img, dtype=np.float32)
-    if img.ndim == 3:
-        raise NotImplementedError("2-D stitching is not ported yet "
-                                  "(ROADMAP.md Queue 1, other families and modes)")
+    two_d = img.ndim == 3
+    if two_d:
+        img = img[:, :, None, :]
+        if len(subvol_size) == 4:  # (GB, kH, kW, C)
+            subvol_size = (*subvol_size[:3], 1, subvol_size[3])
+        stride = (stride[0], stride[1], 1)
+        gen2 = gen
+        gen = lambda p: gen2(p[:, :, :, 0])[:, :, :, None]  # noqa: E731
     if img.ndim != 4:
-        raise ValueError(f"expected an (X, Y, Z, C) volume, got shape {img.shape}")
+        raise ValueError(f"expected an (X, Y, Z, C) volume or an (H, W, C) image, got shape "
+                         f"{img.shape}")
     device = resolve_device(device)
 
     oimgshape = img.shape
@@ -186,10 +195,13 @@ def stitch_subvolumes(
     pred = 255 * min_max_norm_np(pred)
     if not complete:
         pred = pred.astype("uint8")
+    if two_d:
+        pred = pred[:, :, 0, :]
     if save:
         if not complete:
             out_file = os.path.join(model_path, f"e{epoch + 1}_{name}.tiff")
         else:
             out_file = os.path.join(output_path or ".", f"{name}.tiff")
-        write_tiff(out_file, np.transpose(pred, (2, 0, 1, 3)))  # (z, x, y, c)
+        # (z, x, y, c); an image (h, w, c) as one page
+        write_tiff(out_file, pred[None] if two_d else np.transpose(pred, (2, 0, 1, 3)))
     return pred

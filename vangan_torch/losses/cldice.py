@@ -18,10 +18,13 @@ def _skel(img: torch.Tensor, iters: int, use_kernel: bool = False, needs_grad: b
     """Soft skeleton; ``use_kernel`` takes ``ops.skeleton`` (the CUDA kernels,
     forward and backward, on a CUDA tensor), else the plain version.
     ``needs_grad=False`` marks data (ground truth): its gradient is stopped,
-    and the kernel path keeps no residuals for it."""
+    and the kernel path keeps no residuals for it. A 2-D (B, H, W, C) image
+    takes ``morphology.soft_skel`` on either device: its erosion is not the
+    kernels' (see ``ops.morphology``), and the torch ops are its only
+    implementation, as XLA's is in the JAX package."""
     if not needs_grad:
         img = img.detach()
-    if use_kernel:
+    if use_kernel and img.dim() == 5:
         return skeleton.soft_skel(img, iters)
     return morphology.soft_skel(img, iters)
 

@@ -2,14 +2,15 @@
 
 Counterpart of ``vangan_tpu.metrics``: the standard binary definitions (the
 reference repo ships no quantitative evaluation, SURVEY.md §4), plus a
-volume-level evaluation of stitched predictions. The skeleton runs on
-``vangan_torch.ops.skeleton.soft_skel`` without a gradient: on the card its
-kernel (``csrc/skeleton_fwd.cu``, one launch a round), on the CPU its plain
-version. The sums are JAX's host sums (float64 for Dice, numpy float32 sums
-of the skeleton products for clDice), so on binary input, where the skeleton
-is exact, the scores equal the JAX package's to the last bit.
-
-3-D volumes only: the 2-D mode is not ported (ROADMAP.md Queue 1 item 4).
+volume-level evaluation of stitched predictions. A volume's skeleton runs
+on ``vangan_torch.ops.skeleton.soft_skel`` without a gradient: on the card
+its kernel (``csrc/skeleton_fwd.cu``, one launch a round), on the CPU its
+plain version. A 2-D image's (the DIMENSIONS=2 mode) runs
+``morphology.soft_skel``'s 2-D erosion in torch ops on either device, as
+the JAX package runs it in XLA. The sums are JAX's host sums (float64 for
+Dice, numpy float32 sums of the skeleton products for clDice), so on binary
+input, where the skeleton is exact, the scores equal the JAX package's to
+the last bit.
 """
 
 from __future__ import annotations
@@ -20,7 +21,7 @@ import numpy as np
 import torch
 
 from vangan_torch.device import resolve_device
-from vangan_torch.ops import skeleton
+from vangan_torch.ops import morphology, skeleton
 
 
 def dice_coefficient(y_true: np.ndarray, y_pred: np.ndarray, smooth: float = 1.0) -> float:
@@ -33,17 +34,18 @@ def dice_coefficient(y_true: np.ndarray, y_pred: np.ndarray, smooth: float = 1.0
 
 def _skeletonize(binary: np.ndarray, iters: int = 15, device="cuda") -> np.ndarray:
     """Morphological skeleton via the soft skeleton on binary input: a bare
-    (X, Y, Z) volume, or a batched (B, X, Y, Z, C) one."""
-    if binary.ndim in (2, 4):
-        raise NotImplementedError("2-D metrics are not ported yet (ROADMAP.md Queue 1 item 4)")
-    if binary.ndim not in (3, 5):
-        raise ValueError(f"expected (X, Y, Z) or (B, X, Y, Z, C), got shape {binary.shape}")
-    wrap = binary.ndim == 3
+    (X, Y, Z) volume or (H, W) image, or a batched (B, X, Y, Z, C) or
+    (B, H, W, C) one."""
+    if binary.ndim not in (2, 3, 4, 5):
+        raise ValueError(f"expected (X, Y, Z), (H, W) or their batched (B, ..., C), got shape "
+                         f"{binary.shape}")
+    wrap = binary.ndim in (2, 3)
     v = torch.from_numpy(np.asarray(binary, np.float32)).to(resolve_device(device))
     if wrap:
         v = v[None, ..., None]
+    skel = skeleton.soft_skel if v.dim() == 5 else morphology.soft_skel
     with torch.no_grad():
-        out = skeleton.soft_skel(v, iters).cpu().numpy()
+        out = skel(v, iters).cpu().numpy()
     return out[0, ..., 0] if wrap else out
 
 

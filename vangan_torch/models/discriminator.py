@@ -6,7 +6,9 @@ Counterpart of ``vangan_tpu.models.discriminator.PatchGANDiscriminator3D``
 2, stride 2, stride 1 'same'), head noise and a 3^3 'same' ``head`` conv to
 one logit channel. A 128^3 input gives 16^3 x 1 patch logits. Public input
 and output keep the JAX layout ``(B, X, Y, Z, 1)``; it computes in ``dtype``
-and returns float32 logits.
+and returns float32 logits. With ``dims=2`` it is the 2-D PatchGAN on
+``(B, H, W, 1)`` images (4x4 and 3x3 convs), run as depth-1 volumes: a 128^2
+input gives 16^2 x 1 logits.
 
 With ``use_SN`` every conv but the head is spectrally normalised
 (``layers.SpectralNorm``) and no InstanceNorm follows it: ``conv0`` then has
@@ -14,7 +16,7 @@ a live bias and LeakyReLU 0.2 alone. With ``wasserstein`` the critic's head
 follows: the logits flattened in X, Y, Z order, dropout 0.2 (in training,
 whatever ``use_dropout`` says) and ``w_dense``, a Linear to one score per
 sample, ``(B, 1)``. flax infers the Dense's width at init; here it is the
-head's voxel count for ``patch_size``.
+head's voxel count for ``patch_size`` (its first ``dims`` sizes).
 
 Noise and dropout act only with ``train=True``; they draw from the
 ``torch.Generator`` passed to the call, and σ is passed per call.
@@ -35,20 +37,23 @@ from vangan_torch.models.layers import (
     InstanceNorm,
     KernelSwitch,
     SpectralNorm,
+    from_volume,
     leaky_relu,
     standard_dropout,
+    to_volume,
     uniform_pads,
     variance_scaling_,
 )
 
 
-def head_dims(patch_size: Sequence[int], num_downsampling: int = 3) -> tuple:
-    """The head's (X, Y, Z) for a ``patch_size`` input: conv0 and the first
-    two blocks halve it (4^3, stride 2, reflect pad 1), the rest keep it."""
-    dims = tuple(patch_size[:3])
+def head_dims(patch_size: Sequence[int], num_downsampling: int = 3, dims: int = 3) -> tuple:
+    """The head's spatial sizes for an input of the first ``dims`` sizes of
+    ``patch_size`` (``SUBVOL_PATCH_SIZE``): conv0 and the first two blocks
+    halve each (4 wide, stride 2, reflect pad 1), the rest keep it."""
+    sizes = tuple(patch_size[:dims])
     for _ in range(1 + min(num_downsampling, 2)):
-        dims = tuple((n + 2 - 4) // 2 + 1 for n in dims)
-    return dims
+        sizes = tuple((n + 2 - 4) // 2 + 1 for n in sizes)
+    return sizes
 
 
 class PatchGANDiscriminator3D(KernelSwitch, nn.Module):
@@ -58,16 +63,17 @@ class PatchGANDiscriminator3D(KernelSwitch, nn.Module):
                  use_input_noise: bool = False, use_layer_noise: bool = False,
                  noise_std: float = 0.1, dtype: torch.dtype = torch.float32,
                  patch_size: Optional[Sequence[int]] = None,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None, dims: int = 3):
         super().__init__()
         if wasserstein and patch_size is None:
             raise ValueError("the Wasserstein head's w_dense needs the input's patch_size")
         self.dtype = dtype
+        self.dims = dims
         g = generator
         self.input_noise = GaussianNoise(noise_std) if use_input_noise else None
         # without spectral norm conv0 feeds inorm0, which cancels a bias
-        self.conv0 = ConvND(1, filters, 4, 2, padding=uniform_pads(1), pad_mode="reflect",
-                            use_bias=use_SN, generator=g)
+        self.conv0 = ConvND(1, filters, 4, 2, padding=uniform_pads(1, dims), pad_mode="reflect",
+                            use_bias=use_SN, generator=g, dims=dims)
         self.use_SN = use_SN
         if use_SN:
             self.SpectralNorm_0 = SpectralNorm("conv0", filters, generator=g)
@@ -79,14 +85,14 @@ class PatchGANDiscriminator3D(KernelSwitch, nn.Module):
             setattr(self, f"down{block}", DiscDownsample(
                 f, 2 * f, 4, 2 if stride2 else 1, "valid" if stride2 else "same",
                 use_dropout, dropout_rate, use_layer_noise, noise_std, use_spec_norm=use_SN,
-                generator=g))
+                generator=g, dims=dims))
             f *= 2
         self.num_downsampling = num_downsampling
         self.head_noise = GaussianNoise(noise_std) if use_layer_noise else None
-        self.head = ConvND(f, 1, 3, 1, padding="same", use_bias=True, generator=g)
+        self.head = ConvND(f, 1, 3, 1, padding="same", use_bias=True, generator=g, dims=dims)
         self.w_dense = None
         if wasserstein:
-            width = math.prod(head_dims(patch_size, num_downsampling))
+            width = math.prod(head_dims(patch_size, num_downsampling, dims))
             self.w_dropout = 0.2  # discriminator.py:117, not governed by use_dropout
             self.w_dense = nn.Linear(width, 1)
             with torch.no_grad():
@@ -96,15 +102,14 @@ class PatchGANDiscriminator3D(KernelSwitch, nn.Module):
     def forward(self, x: torch.Tensor, train: bool = False, noise_std: Optional[float] = None,
                 generator: Optional[torch.Generator] = None,
                 update_stats: Optional[bool] = None) -> torch.Tensor:
-        """Patch logits (B, X', Y', Z', 1), or the critic's (B, 1). With
+        """Patch logits (B, X', Y', Z', 1) (in 2-D (B, H', W', 1)), or the
+        critic's (B, 1). With
         spectral norm, ``update_stats`` (default ``train``) says whether the
         power iterations are stored: the gradient penalty's calls train
         without storing them."""
-        b, X, Y, Z, c = x.shape
-        if c != 1:
-            raise ValueError(f"the discriminator takes one channel, got shape {tuple(x.shape)}")
+        b = x.shape[0]
         stats = train if update_stats is None else update_stats
-        x = x.to(self.dtype).reshape(b, 1, X, Y, Z)
+        x = to_volume(x.to(self.dtype), self.dims, "the discriminator")
         if self.input_noise is not None:
             x = self.input_noise(x, train, noise_std, generator)
         if self.use_SN:
@@ -117,6 +122,6 @@ class PatchGANDiscriminator3D(KernelSwitch, nn.Module):
             x = self.head_noise(x, train, noise_std, generator)
         x = self.head(x)
         if self.w_dense is None:
-            return x.reshape(b, *x.shape[2:], 1).float()
+            return from_volume(x, self.dims).float()
         x = standard_dropout(x.reshape(b, -1).float(), self.w_dropout, train, generator)
         return self.w_dense(x)

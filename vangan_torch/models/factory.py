@@ -22,25 +22,25 @@ def build_generator(kind: str, cfg, role: str = "i2s",
     """Build a generator ('i2s' imaging->segmentation or 's2i'), as
     vangan.py:88-164 configures it (``vangan_tpu.models.factory``): 'resUnet',
     'vnet' (the s2i V-Net with BatchNorm, deconv upsampling and f filters;
-    the i2s V-Net with InstanceNorm, nearest upsampling and 2f) or 'resnet'.
+    the i2s V-Net with InstanceNorm, nearest upsampling and 2f) or 'resnet',
+    of rank ``cfg.DIMENSIONS`` (2: the 2-D networks, on ``(B, H, W, 1)``).
     Parameters are drawn from ``generator``. Each is called as
     ``net(x, train=False, generator=None)``."""
     if role not in ("i2s", "s2i"):
         raise ValueError(f"role must be 'i2s' or 's2i', got {role!r}")
     dtype, f = compute_dtype(cfg), cfg.gen_filters
+    kw = dict(dtype=dtype, generator=generator, dims=cfg.DIMENSIONS)
     if kind == "resnet":
         return ResNetGenerator3D(filters=2 * f, num_downsampling_blocks=3,
-                                 num_residual_blocks=6, num_upsample_blocks=3, dtype=dtype,
-                                 generator=generator)
+                                 num_residual_blocks=6, num_upsample_blocks=3, **kw)
     if kind == "vnet":
         i2s = role == "i2s"
         return VNet3D(use_batch_norm=not i2s, upsample_mode="simple" if i2s else "deconv",
                       dropout=0.5, dropout_type="spatial", use_attention_gate=False,
-                      filters=2 * f if i2s else f, num_layers=4, addnoise=False, dtype=dtype,
-                      generator=generator)
+                      filters=2 * f if i2s else f, num_layers=4, addnoise=False, **kw)
     if kind == "resUnet":
         return ResUNet3D(filters=f, num_layers=4, upsample_mode="simple",
-                         use_attention_gate=False, dtype=dtype, generator=generator)
+                         use_attention_gate=False, **kw)
     raise ValueError(f"Generator type not recognised: {kind!r}")
 
 
@@ -49,9 +49,10 @@ def build_discriminator(cfg, generator: Optional[torch.Generator] = None
     """PatchGAN discriminator with the VanGan defaults (vangan.py:167-192):
     input and layer noise of σ ``cfg.layer_noise``, spatial dropout 0.2, no
     spectral norm, and the Wasserstein head for ``cfg.wasserstein``, sized
-    for ``cfg.SUBVOL_PATCH_SIZE``; parameters are drawn from ``generator``."""
+    for ``cfg.SUBVOL_PATCH_SIZE`` (its first two sizes in 2-D), of rank
+    ``cfg.DIMENSIONS``; parameters are drawn from ``generator``."""
     return PatchGANDiscriminator3D(
         filters=cfg.disc_filters, use_dropout=True, dropout_rate=0.2,
         wasserstein=cfg.wasserstein, use_SN=False, use_input_noise=True,
         use_layer_noise=True, noise_std=cfg.layer_noise, dtype=compute_dtype(cfg),
-        patch_size=cfg.SUBVOL_PATCH_SIZE, generator=generator)
+        patch_size=cfg.SUBVOL_PATCH_SIZE, generator=generator, dims=cfg.DIMENSIONS)

@@ -11,6 +11,14 @@ BatchNorm keep their statistics in float32. Layers whose behaviour differs
 in training (dropout, noise, BatchNorm) take an explicit ``train`` argument,
 not ``module.training``, and draw from an explicit ``torch.Generator``.
 
+A 2-D network (``dims=2``, the DIMENSIONS=2 mode) runs on depth-1 volumes
+``(B, C, 1, H, W)``: a kernel extent or stride ``k`` is ``(1, k, k)`` on
+them, pads are ``(0, 0)`` on the depth axis, and a weight is
+``(Co, Ci, 1, kh, kw)`` with fan-in ``Ci * kh * kw``. A 2-D conv is exactly
+the 3-D conv of a depth-1 volume with a ``(1, kh, kw)`` kernel and a 2-D
+InstanceNorm reduces the same H * W plane, so 2-D layers run the same
+kernels as 3-D ones (the JAX package sends them to XLA instead).
+
 Each ``ConvND`` and ``InstanceNorm`` has a ``use_kernels`` switch: True (the
 default) sends the op to the hand-written kernels where the JAX package sends
 it to Pallas (convs with ``max(Ci, Co) < 128``; every InstanceNorm), forward
@@ -27,7 +35,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from vangan_torch.ops.conv3d import conv3d, conv3d_plain, norm_padding, norm_stride
+from vangan_torch.ops.conv3d import conv3d, conv3d_plain, norm_padding
 from vangan_torch.ops.instnorm import instance_norm_act, instance_norm_act_plain
 
 # Convs at or above this channel count go to torch (cuDNN), as the JAX package
@@ -51,8 +59,37 @@ def he_normal_(t: torch.Tensor, fan_in: int,
     return variance_scaling_(t, fan_in, 2.0, generator)
 
 
-def uniform_pads(p: int) -> Tuple[Tuple[int, int], ...]:
-    return ((p, p),) * 3
+def spatial(v: Union[int, Sequence[int]], dims: int = 3) -> Tuple[int, int, int]:
+    """A kernel extent, stride or factor (an int or one per spatial axis of
+    the network) on the three axes of ``(B, C, X, Y, Z)``: in 2-D the depth-1
+    axis gets 1."""
+    t = (v,) * dims if isinstance(v, int) else tuple(v)
+    if dims not in (2, 3) or len(t) not in (dims, 3):
+        raise ValueError(f"{v!r} for a {dims}-D network")
+    return (1,) * (3 - len(t)) + t
+
+
+def uniform_pads(p: int, dims: int = 3) -> Tuple[Tuple[int, int], ...]:
+    """Pads of ``p`` on each spatial axis of a ``dims``-D network, none on a
+    2-D network's depth-1 axis."""
+    return ((0, 0),) * (3 - dims) + ((p, p),) * dims
+
+
+def to_volume(x: torch.Tensor, dims: int, what: str) -> torch.Tensor:
+    """A public one-channel batch, ``(B, X, Y, Z, 1)`` or in 2-D
+    ``(B, H, W, 1)``, as the ``(B, 1, X, Y, Z)`` the layers run on (in 2-D
+    ``(B, 1, 1, H, W)``); a reshape."""
+    if x.dim() != dims + 2 or x.shape[-1] != 1:
+        axes = "X, Y, Z" if dims == 3 else "H, W"
+        raise ValueError(f"{what} takes one input channel, (B, {axes}, 1), got shape "
+                         f"{tuple(x.shape)}")
+    return x.reshape(x.shape[0], 1, *(1,) * (3 - dims), *x.shape[1:-1])
+
+
+def from_volume(y: torch.Tensor, dims: int) -> torch.Tensor:
+    """``to_volume``'s inverse for a one-channel ``(B, 1, X, Y, Z)``: the
+    public ``(B, ..., 1)`` of a ``dims``-D network."""
+    return y.reshape(y.shape[0], *y.shape[5 - dims:], 1)
 
 
 class KernelSwitch:
@@ -70,17 +107,20 @@ class KernelSwitch:
 class ConvND(nn.Module):
     """3-D conv with flax ``nn.Conv`` parameters (``weight`` in torch's
     (Co, Ci, kx, ky, kz), optional ``bias``), padding 'same' | 'valid' |
-    explicit widths, ``pad_mode`` 'zeros' | 'reflect'."""
+    explicit widths (three pairs, ``uniform_pads``), ``pad_mode`` 'zeros' |
+    'reflect'; with ``dims=2`` the conv of a 2-D network on depth-1 volumes
+    (flax's ``kernel`` (kh, kw, Ci, Co) is ``weight`` (Co, Ci, 1, kh, kw))."""
 
     def __init__(self, in_channels: int, features: int,
                  kernel_size: Union[int, Sequence[int]] = 3,
                  strides: Union[int, Sequence[int]] = 1, padding="same",
                  pad_mode: str = "zeros", use_bias: bool = True,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None, dims: int = 3):
         super().__init__()
-        k = (kernel_size,) * 3 if isinstance(kernel_size, int) else tuple(kernel_size)
+        k = spatial(kernel_size, dims)
+        self.dims = dims
         self.kernel_size = k
-        self.strides = norm_stride(strides)
+        self.strides = spatial(strides, dims)
         self.padding = padding
         self.pad_mode = pad_mode
         self.use_kernels = True
@@ -148,12 +188,12 @@ class PreActConvBlock(nn.Module):
 
     def __init__(self, in_channels: int, filters: int, kernel_size: int = 3,
                  strides: int = 1, use_bias: bool = True,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None, dims: int = 3):
         super().__init__()
         self.norm_act = NormAct(in_channels)
         self.conv = ConvND(in_channels, filters, kernel_size, strides,
-                           padding=uniform_pads(kernel_size // 2), pad_mode="reflect",
-                           use_bias=use_bias, generator=generator)
+                           padding=uniform_pads(kernel_size // 2, dims), pad_mode="reflect",
+                           use_bias=use_bias, generator=generator, dims=dims)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.conv(self.norm_act(x))
@@ -164,13 +204,13 @@ class Stem(nn.Module):
     (resunet_model.py:69-100)."""
 
     def __init__(self, in_channels: int, filters: int,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None, dims: int = 3):
         super().__init__()
-        self.conv1 = ConvND(in_channels, filters, 3, 1, padding=uniform_pads(1),
-                            pad_mode="reflect", use_bias=False, generator=generator)
-        self.conv_block = PreActConvBlock(filters, filters, generator=generator)
+        self.conv1 = ConvND(in_channels, filters, 3, 1, padding=uniform_pads(1, dims),
+                            pad_mode="reflect", use_bias=False, generator=generator, dims=dims)
+        self.conv_block = PreActConvBlock(filters, filters, generator=generator, dims=dims)
         self.shortcut = ConvND(in_channels, filters, 1, 1, padding="same", use_bias=False,
-                               generator=generator)
+                               generator=generator, dims=dims)
         self.shortcut_norm = NormAct(filters, act=False)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -182,22 +222,23 @@ class ResUNetResidualBlock(nn.Module):
     (resunet_model.py:103-143); the generators serve with no dropout."""
 
     def __init__(self, in_channels: int, filters: int, strides: int = 1,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None, dims: int = 3):
         super().__init__()
         self.block1 = PreActConvBlock(in_channels, filters, strides=strides,
-                                      use_bias=False, generator=generator)
-        self.block2 = PreActConvBlock(filters, filters, generator=generator)
+                                      use_bias=False, generator=generator, dims=dims)
+        self.block2 = PreActConvBlock(filters, filters, generator=generator, dims=dims)
         self.shortcut = ConvND(in_channels, filters, 1, strides, padding="same",
-                               use_bias=False, generator=generator)
+                               use_bias=False, generator=generator, dims=dims)
         self.shortcut_norm = NormAct(filters, act=False)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.shortcut_norm(self.shortcut(x)) + self.block2(self.block1(x))
 
 
-def upsample_nearest(x: torch.Tensor, factor: int = 2) -> torch.Tensor:
-    """Keras UpSampling3D (nearest-neighbour repeat) on (B, C, X, Y, Z)."""
-    return F.interpolate(x, scale_factor=factor, mode="nearest")
+def upsample_nearest(x: torch.Tensor, factor: int = 2, dims: int = 3) -> torch.Tensor:
+    """Keras UpSampling3D (nearest-neighbour repeat) on (B, C, X, Y, Z); in
+    2-D (UpSampling2D) on the H and W of depth-1 volumes."""
+    return F.interpolate(x, scale_factor=spatial(factor, dims), mode="nearest")
 
 
 def _need_generator(generator: Optional[torch.Generator], what: str) -> torch.Generator:
@@ -230,7 +271,8 @@ class GaussianNoise(nn.Module):
 
 def spatial_dropout(x: torch.Tensor, rate: float, train: bool = False,
                     generator: Optional[torch.Generator] = None) -> torch.Tensor:
-    """Keras SpatialDropout3D on (B, C, X, Y, Z) (layers.py:330-335): in
+    """Keras SpatialDropout3D on (B, C, X, Y, Z) (layers.py:330-335), and
+    SpatialDropout2D on depth-1 volumes: in
     training each (b, c) channel is dropped whole with probability ``rate``
     and kept ones are scaled by 1 / (1 - rate), as flax ``nn.Dropout`` with the
     spatial axes broadcast does."""
@@ -268,16 +310,17 @@ def make_dropout(dropout_type: Optional[str], rate: float) -> Optional[Callable]
     raise ValueError(f"dropout_type must be 'spatial', 'standard' or 'none', got {dropout_type!r}")
 
 
-def max_pool_2x(x: torch.Tensor) -> torch.Tensor:
-    """MaxPooling3D(2) on (B, C, X, Y, Z) (vnet.py:35-42, VALID windows). A
-    tied window sends its gradient to its first element in X, Y, Z order,
-    as ``reduce_window``'s does."""
-    return F.max_pool3d(x, 2)
+def max_pool_2x(x: torch.Tensor, dims: int = 3) -> torch.Tensor:
+    """MaxPooling3D(2) on (B, C, X, Y, Z) (vnet.py:35-42, VALID windows), in
+    2-D MaxPooling2D(2) on depth-1 volumes. A tied window sends its gradient
+    to its first element in X, Y, Z order, as ``reduce_window``'s does."""
+    return F.max_pool3d(x, spatial(2, dims))
 
 
 class BatchNorm(nn.Module):
     """flax ``nn.BatchNorm`` as the V-Net uses it (vnet.py:66-73): statistics
-    per channel over (B, X, Y, Z), eps 1e-3 (Keras'), momentum 0.99, learned
+    per channel over (B, X, Y, Z) (a depth-1 volume's over (B, 1, H, W)),
+    eps 1e-3 (Keras'), momentum 0.99, learned
     ``weight`` (flax ``scale``) and ``bias``, running ``mean`` and ``var``
     buffers (flax ``batch_stats``), all float32.
 
@@ -322,12 +365,13 @@ class ConvTranspose(nn.Module):
     windows do not overlap, so 'SAME' and 'VALID' both give ``s * n``.
     ``weight`` is torch's (Ci, Co, kx, ky, kz), flax's ``kernel``
     (kx, ky, kz, Ci, Co) flipped on its three spatial axes (flax does not
-    flip; ``weights.py`` maps it), and ``bias``. ``kernel_init``:
+    flip; ``weights.py`` maps it), and ``bias``; in 2-D (Ci, Co, 1, kh, kw)
+    and stride (1, s, s). ``kernel_init``:
     ``"lecun_normal"`` (flax's default) or ``"he_normal"``, fan_in Ci * taps."""
 
     def __init__(self, in_channels: int, features: int, kernel_size: int = 2,
                  strides: int = 2, kernel_init: str = "lecun_normal",
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None, dims: int = 3):
         super().__init__()
         if kernel_size != strides:
             raise ValueError(f"ConvTranspose takes kernel_size == strides, got {kernel_size}, "
@@ -335,9 +379,10 @@ class ConvTranspose(nn.Module):
         scales = {"lecun_normal": 1.0, "he_normal": 2.0}
         if kernel_init not in scales:
             raise ValueError(f"kernel_init must be one of {sorted(scales)}, got {kernel_init!r}")
-        self.strides = strides
-        w = torch.empty(in_channels, features, *(kernel_size,) * 3)
-        self.weight = nn.Parameter(variance_scaling_(w, in_channels * kernel_size ** 3,
+        self.dims = dims
+        self.strides = spatial(strides, dims)
+        w = torch.empty(in_channels, features, *spatial(kernel_size, dims))
+        self.weight = nn.Parameter(variance_scaling_(w, in_channels * kernel_size ** dims,
                                                      scales[kernel_init], generator))
         self.bias = nn.Parameter(torch.zeros(features))
 
@@ -351,12 +396,14 @@ class AttentionGate(nn.Module):
     relu(conv1(inp_1) + conv2(inp_2))))``, 1^3 convs with bias."""
 
     def __init__(self, in1_channels: int, in2_channels: int, n_intermediate_filters: int,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None, dims: int = 3):
         super().__init__()
         n = n_intermediate_filters
-        self.conv1 = ConvND(in1_channels, n, 1, 1, padding="same", generator=generator)
-        self.conv2 = ConvND(in2_channels, n, 1, 1, padding="same", generator=generator)
-        self.conv_out = ConvND(n, 1, 1, 1, padding="same", generator=generator)
+        conv = functools.partial(ConvND, kernel_size=1, strides=1, padding="same",
+                                 generator=generator, dims=dims)
+        self.conv1 = conv(in1_channels, n)
+        self.conv2 = conv(in2_channels, n)
+        self.conv_out = conv(n, 1)
 
     def forward(self, inp_1: torch.Tensor, inp_2: torch.Tensor) -> torch.Tensor:
         f = F.relu(self.conv1(inp_1) + self.conv2(inp_2))
@@ -369,9 +416,9 @@ class AttentionConcat(nn.Module):
     ``conv_below`` has channels."""
 
     def __init__(self, below_channels: int, skip_channels: int,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None, dims: int = 3):
         super().__init__()
-        self.gate = AttentionGate(skip_channels, below_channels, below_channels, generator)
+        self.gate = AttentionGate(skip_channels, below_channels, below_channels, generator, dims)
 
     def forward(self, conv_below: torch.Tensor, skip_connection: torch.Tensor) -> torch.Tensor:
         return torch.cat([conv_below, self.gate(skip_connection, conv_below)], dim=1)
@@ -383,14 +430,15 @@ class CycleGANResidualBlock(nn.Module):
     followed by InstanceNorm with he_normal gamma (ReLU after the first),
     and an identity skip."""
 
-    def __init__(self, dim: int, generator: Optional[torch.Generator] = None):
+    def __init__(self, dim: int, generator: Optional[torch.Generator] = None,
+                 dims: int = 3):
         super().__init__()
         g = generator
-        self.conv1 = ConvND(dim, dim, 3, 1, padding=uniform_pads(1), pad_mode="reflect",
-                            use_bias=False, generator=g)
+        self.conv1 = ConvND(dim, dim, 3, 1, padding=uniform_pads(1, dims), pad_mode="reflect",
+                            use_bias=False, generator=g, dims=dims)
         self.inorm1 = InstanceNorm(dim, act="relu", gamma_init="he_normal", generator=g)
-        self.conv2 = ConvND(dim, dim, 3, 1, padding=uniform_pads(1), pad_mode="reflect",
-                            use_bias=False, generator=g)
+        self.conv2 = ConvND(dim, dim, 3, 1, padding=uniform_pads(1, dims), pad_mode="reflect",
+                            use_bias=False, generator=g, dims=dims)
         self.inorm2 = InstanceNorm(dim, gamma_init="he_normal", generator=g)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -455,10 +503,11 @@ class DiscDownsample(nn.Module):
                  strides: int = 2, padding: str = "valid", use_dropout: bool = True,
                  dropout_rate: float = 0.2, use_layer_noise: bool = False,
                  noise_std: float = 0.1, leaky_slope: float = 0.2,
-                 use_spec_norm: bool = False, generator: Optional[torch.Generator] = None):
+                 use_spec_norm: bool = False, generator: Optional[torch.Generator] = None,
+                 dims: int = 3):
         super().__init__()
         if padding == "valid":
-            pad, pad_mode = uniform_pads(1), "reflect"
+            pad, pad_mode = uniform_pads(1, dims), "reflect"
         elif padding == "same":
             pad, pad_mode = "same", "zeros"
         else:
@@ -467,7 +516,7 @@ class DiscDownsample(nn.Module):
         self.dropout_rate = dropout_rate
         self.noise = GaussianNoise(noise_std) if use_layer_noise else None
         self.conv = ConvND(in_channels, filters, kernel_size, strides, padding=pad,
-                           pad_mode=pad_mode, use_bias=False, generator=generator)
+                           pad_mode=pad_mode, use_bias=False, generator=generator, dims=dims)
         self.leaky_slope = leaky_slope
         self.use_spec_norm = use_spec_norm
         if use_spec_norm:

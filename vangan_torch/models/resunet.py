@@ -10,8 +10,10 @@ nearest upsample by a 2^3 stride-2 ``ConvTranspose`` (he_normal init, as
 resunet.py:94-107), and ``use_attention_gate`` concatenates the upsampled
 features with an attention-gated skip (``AttentionConcat``). Public input
 and output keep the JAX layout ``(B, X, Y, Z, 1)``; inside, the model runs on
-``(B, C, X, Y, Z)``, which for C = 1 is a reshape. It computes in ``dtype``
-and returns float32.
+``(B, C, X, Y, Z)``, which for C = 1 is a reshape. With ``dims=2`` (the
+DIMENSIONS=2 mode) it is the 2-D network on ``(B, H, W, 1)`` images, run as
+depth-1 volumes (``layers.spatial``). It computes in ``dtype`` and returns
+float32.
 """
 
 from __future__ import annotations
@@ -29,6 +31,8 @@ from vangan_torch.models.layers import (
     PreActConvBlock,
     ResUNetResidualBlock,
     Stem,
+    from_volume,
+    to_volume,
     upsample_nearest,
 )
 
@@ -37,38 +41,36 @@ class ResUNet3D(KernelSwitch, nn.Module):
     def __init__(self, filters: int = 16, num_layers: int = 4,
                  upsample_mode: str = "simple", use_attention_gate: bool = False,
                  dtype: torch.dtype = torch.float32,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None, dims: int = 3):
         super().__init__()
         if upsample_mode not in ("deconv", "simple"):
             raise ValueError(f"upsample_mode must be 'deconv' or 'simple', got {upsample_mode!r}")
+        self.dims = dims
         self.num_layers = num_layers
         self.upsample_mode = upsample_mode
         self.use_attention_gate = use_attention_gate
         self.dtype = dtype
         f = [filters * 2**i for i in range(num_layers + 1)]
-        g = generator
-        self.stem = Stem(1, f[0], generator=g)
+        kw = dict(generator=generator, dims=dims)
+        self.stem = Stem(1, f[0], **kw)
         for e in range(1, num_layers + 1):
-            setattr(self, f"enc{e}", ResUNetResidualBlock(f[e - 1], f[e], strides=2, generator=g))
-        self.bridge1 = PreActConvBlock(f[-1], f[-1], use_bias=False, generator=g)
-        self.bridge2 = PreActConvBlock(f[-1], f[-1], generator=g)
+            setattr(self, f"enc{e}", ResUNetResidualBlock(f[e - 1], f[e], strides=2, **kw))
+        self.bridge1 = PreActConvBlock(f[-1], f[-1], use_bias=False, **kw)
+        self.bridge2 = PreActConvBlock(f[-1], f[-1], **kw)
         for d in reversed(range(num_layers)):
             if upsample_mode == "deconv":
                 setattr(self, f"deconv{d}", ConvTranspose(f[d + 1], f[d + 1], 2, 2,
-                                                          kernel_init="he_normal", generator=g))
+                                                          kernel_init="he_normal", **kw))
             if use_attention_gate:
-                setattr(self, f"attn{d}", AttentionConcat(f[d + 1], f[d], generator=g))
-            setattr(self, f"dec{d}", ResUNetResidualBlock(f[d + 1] + f[d], f[d], generator=g))
-        self.head = ConvND(f[0], 1, 1, 1, padding="same", use_bias=True, generator=g)
+                setattr(self, f"attn{d}", AttentionConcat(f[d + 1], f[d], **kw))
+            setattr(self, f"dec{d}", ResUNetResidualBlock(f[d + 1] + f[d], f[d], **kw))
+        self.head = ConvND(f[0], 1, 1, 1, padding="same", use_bias=True, **kw)
 
     def forward(self, x: torch.Tensor, train: bool = False,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """``train`` and ``generator`` are the generators' common signature;
         this configuration has no layer that acts on them."""
-        b, X, Y, Z, c = x.shape
-        if c != 1:
-            raise ValueError(f"ResUNet3D takes one input channel, got shape {tuple(x.shape)}")
-        x = x.to(self.dtype).reshape(b, 1, X, Y, Z)
+        x = to_volume(x.to(self.dtype), self.dims, "ResUNet3D")
         x = self.stem(x)
         skips = [x]
         for e in range(1, self.num_layers + 1):
@@ -79,10 +81,10 @@ class ResUNet3D(KernelSwitch, nn.Module):
             if self.upsample_mode == "deconv":
                 x = getattr(self, f"deconv{d}")(x)
             else:
-                x = upsample_nearest(x, 2)
+                x = upsample_nearest(x, 2, self.dims)
             if self.use_attention_gate:
                 x = getattr(self, f"attn{d}")(x, skips[d])
             else:
                 x = torch.cat([x, skips[d]], dim=1)
             x = getattr(self, f"dec{d}")(x)
-        return torch.tanh(self.head(x).reshape(b, X, Y, Z, 1).float())
+        return torch.tanh(from_volume(self.head(x), self.dims).float())

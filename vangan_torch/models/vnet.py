@@ -10,7 +10,8 @@ The i2s role uses InstanceNorm and biased convs, the s2i role BatchNorm
 (running statistics in buffers) and convs without bias.
 
 Public input and output keep the JAX layout ``(B, X, Y, Z, 1)``; inside, the
-model runs on ``(B, C, X, Y, Z)``. It computes in ``dtype`` and returns
+model runs on ``(B, C, X, Y, Z)``. With ``dims=2`` it is the 2-D network on
+``(B, H, W, 1)`` images, run as depth-1 volumes. It computes in ``dtype`` and returns
 float32. ``train`` selects the batch statistics of BatchNorm (and moves its
 buffers) and turns dropout on, which draws from the ``generator`` passed to
 the call.
@@ -31,8 +32,10 @@ from vangan_torch.models.layers import (
     ConvTranspose,
     InstanceNorm,
     KernelSwitch,
+    from_volume,
     make_dropout,
     max_pool_2x,
+    to_volume,
     uniform_pads,
     upsample_nearest,
 )
@@ -44,13 +47,13 @@ class VNetConvBlock(nn.Module):
 
     def __init__(self, in_channels: int, filters: int, use_batch_norm: bool = True,
                  dropout: float = 0.3, dropout_type: str = "spatial",
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None, dims: int = 3):
         super().__init__()
         self.use_batch_norm = use_batch_norm
         for i, ci in enumerate((in_channels, filters)):
-            setattr(self, f"conv{i}", ConvND(ci, filters, 3, 1, padding=uniform_pads(1),
+            setattr(self, f"conv{i}", ConvND(ci, filters, 3, 1, padding=uniform_pads(1, dims),
                                              pad_mode="reflect", use_bias=not use_batch_norm,
-                                             generator=generator))
+                                             generator=generator, dims=dims))
             if use_batch_norm:
                 setattr(self, f"bn{i}", BatchNorm(filters))
             else:
@@ -79,7 +82,7 @@ class VNet3D(KernelSwitch, nn.Module):
                  dropout: float = 0.5, dropout_type: str = "spatial",
                  use_attention_gate: bool = False, filters: int = 16, num_layers: int = 4,
                  addnoise: bool = False, dtype: torch.dtype = torch.float32,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None, dims: int = 3):
         super().__init__()
         if addnoise:
             # the JAX package draws it from PRNGKey(0) at eval time (vnet.py:104-113)
@@ -91,8 +94,9 @@ class VNet3D(KernelSwitch, nn.Module):
         self.upsample_mode = upsample_mode
         self.use_attention_gate = use_attention_gate
         self.dtype = dtype
-        g = generator
-        block = dict(use_batch_norm=use_batch_norm, dropout_type=dropout_type, generator=g)
+        self.dims = dims
+        kw = dict(generator=generator, dims=dims)
+        block = dict(use_batch_norm=use_batch_norm, dropout_type=dropout_type, **kw)
         ci, f = 1, filters
         for layer in range(num_layers):
             setattr(self, f"down{layer}", VNetConvBlock(ci, f, dropout=dropout, **block))
@@ -101,34 +105,31 @@ class VNet3D(KernelSwitch, nn.Module):
         for i in range(num_layers):
             ci, f = f, f // 2
             if upsample_mode == "deconv":
-                setattr(self, f"deconv{i}", ConvTranspose(ci, f, 2, 2, generator=g))
+                setattr(self, f"deconv{i}", ConvTranspose(ci, f, 2, 2, **kw))
             else:
-                setattr(self, f"upconv{i}", ConvND(ci, f, 3, 1, padding="same", generator=g))
+                setattr(self, f"upconv{i}", ConvND(ci, f, 3, 1, padding="same", **kw))
             if use_attention_gate:
-                setattr(self, f"attn{i}", AttentionConcat(f, f, generator=g))
+                setattr(self, f"attn{i}", AttentionConcat(f, f, **kw))
             setattr(self, f"up{i}", VNetConvBlock(2 * f, f, dropout=0.0, **block))
-        self.head = ConvND(f, 1, 1, 1, padding="same", generator=g)
+        self.head = ConvND(f, 1, 1, 1, padding="same", **kw)
 
     def forward(self, x: torch.Tensor, train: bool = False,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        b, X, Y, Z, c = x.shape
-        if c != 1:
-            raise ValueError(f"VNet3D takes one input channel, got shape {tuple(x.shape)}")
-        x = x.to(self.dtype).reshape(b, 1, X, Y, Z)
+        x = to_volume(x.to(self.dtype), self.dims, "VNet3D")
         skips = []
         for layer in range(self.num_layers):
             x = getattr(self, f"down{layer}")(x, train, generator)
             skips.append(x)
-            x = max_pool_2x(x)
+            x = max_pool_2x(x, self.dims)
         x = self.bottleneck(x, train, generator)
         for i, skip in enumerate(reversed(skips)):
             if self.upsample_mode == "deconv":
                 x = getattr(self, f"deconv{i}")(x)
             else:
-                x = getattr(self, f"upconv{i}")(upsample_nearest(x, 2))
+                x = getattr(self, f"upconv{i}")(upsample_nearest(x, 2, self.dims))
             if self.use_attention_gate:
                 x = getattr(self, f"attn{i}")(x, skip)
             else:
                 x = torch.cat([x, skip], dim=1)
             x = getattr(self, f"up{i}")(x, train, generator)
-        return torch.tanh(self.head(x).reshape(b, X, Y, Z, 1).float())
+        return torch.tanh(from_volume(self.head(x), self.dims).float())

@@ -78,9 +78,9 @@ class GanMonitor:
                      outputFull: bool = False, process_img: bool = False) -> None:
         """``{epoch+1}_{filename}.png``: ``nfig`` z-slices of a random
         validation crop, its translation by ``genX``, the cycle back by
-        ``genY`` and ``genY``'s identity map, over a histogram row; and the
-        stitched 3-D volume on the ``PERIOD_3D_CALLBACK`` cadence after epoch
-        160."""
+        ``genY`` and ``genY``'s identity map, over a histogram row (a 2-D
+        crop: one image row over the histogram row); and the stitched volume
+        on the ``PERIOD_3D_CALLBACK`` cadence after epoch 160."""
         sample_full, idx = next(dataset_iter)
         sample_name = os.path.splitext(os.path.basename(str(setlist[idx])))[0]
         sample = random_crop(sample_full, self.imgSize[1:], self._rng)[None]
@@ -96,10 +96,14 @@ class GanMonitor:
         identity = apply(genY, sample)
         panels = (sample[0], prediction[0], cycled[0], identity[0])
         titles = ("Input image", "Translated image", "Cycled image", "Identity image")
-        depth = panels[0].shape[2]
-        columns = [[grey_tile(arr[:, :, j * int(depth / nfig), 0], title)
-                    for j in range(nfig)] + [histogram_tile(arr)]
-                   for arr, title in zip(panels, titles)]
+        if panels[0].ndim == 3:  # DIMENSIONS=2 (gan_monitor.py:115-117 of the JAX package)
+            columns = [[grey_tile(arr[:, :, 0], title), histogram_tile(arr)]
+                       for arr, title in zip(panels, titles)]
+        else:
+            depth = panels[0].shape[2]
+            columns = [[grey_tile(arr[:, :, j * int(depth / nfig), 0], title)
+                        for j in range(nfig)] + [histogram_tile(arr)]
+                       for arr, title in zip(panels, titles)]
         save_grid(os.path.join(self.monitor_dir, f"{epoch + 1}_{filename}.png"), columns)
 
         # the 3-D dump's cadence (custom_callback.py:322-324)

@@ -47,7 +47,13 @@ _ERODE_TAPS = [d for d in _TAPS if 1 in d]           # the 19-voxel erosion wind
 
 def soft_skel(img: torch.Tensor, iters: int) -> torch.Tensor:
     """Soft skeleton of ``img`` (B, X, Y, Z, C). The kernels on a CUDA tensor,
-    ``morphology.soft_skel`` on a CPU tensor; differentiable in ``img``."""
+    ``morphology.soft_skel`` on a CPU tensor; differentiable in ``img``.
+    Anything but a 5-D volume raises, on either device: a 2-D image's
+    skeleton erodes otherwise (``morphology``), and no kernel computes it."""
+    if img.dim() != 5:
+        raise ValueError(f"soft_skel: the skeleton kernels take (B, X, Y, Z, C) volumes, got "
+                         f"shape {tuple(img.shape)}; a 2-D image's skeleton is "
+                         "morphology.soft_skel")
     if img.device.type == "cpu":
         return morphology.soft_skel(img, iters)
     if torch.is_grad_enabled() and img.requires_grad:

@@ -1,10 +1,13 @@
-"""3-D SSIM loss map, in plain torch.
+"""3-D (and 2-D) SSIM loss map, in plain torch.
 
 Counterpart of ``vangan_tpu.ops.ssim.ssim3d_loss_map`` (the reference's
 loss_functions.py:87-117): a separable 3-tap Gaussian (σ 1.5) on the
 reference's grid ``[-1, 0, 1]``, zero SAME padding, computed in float32,
 k1 = 0.01, k2 = 0.03; returns the per-voxel ``1 - SSIM`` map. The blur is
-shifted adds along each spatial axis, in the JAX package's order.
+shifted adds along each spatial axis, in the JAX package's order: X, Y, Z
+of a ``(B, X, Y, Z, C)`` volume, H and W of a ``(B, H, W, C)`` image (the
+DIMENSIONS=2 mode). A 2-D image is never blurred as a depth-1 volume: on a
+size-1 axis the zero-padded blur would scale every value by the centre tap.
 """
 
 from __future__ import annotations
@@ -35,8 +38,9 @@ def _blur_axis(x: torch.Tensor, taps: np.ndarray, axis: int) -> torch.Tensor:
 
 
 def _blur3d(x: torch.Tensor, taps: np.ndarray) -> torch.Tensor:
-    """Separable blur over the spatial axes of a (B, X, Y, Z, C) tensor."""
-    for axis in (1, 2, 3):
+    """Separable blur over the spatial axes of a channels-last tensor:
+    (B, X, Y, Z, C) or (B, H, W, C)."""
+    for axis in range(1, x.dim() - 1):
         x = _blur_axis(x, taps, axis)
     return x
 
@@ -44,7 +48,8 @@ def _blur3d(x: torch.Tensor, taps: np.ndarray) -> torch.Tensor:
 def ssim3d_loss_map(y_true: torch.Tensor, y_pred: torch.Tensor, max_val: float = 1.0,
                     filter_size: int = 3, filter_sigma: float = 1.5, k1: float = 0.01,
                     k2: float = 0.03) -> torch.Tensor:
-    """Per-voxel ``1 - SSIM`` between two (B, X, Y, Z, C) tensors."""
+    """Per-voxel ``1 - SSIM`` between two (B, X, Y, Z, C) tensors, or per
+    pixel between two (B, H, W, C) images."""
     taps = _gaussian_kernel(filter_size, filter_sigma)
     y_true = y_true.float()
     y_pred = y_pred.float()

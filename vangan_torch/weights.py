@@ -8,6 +8,9 @@ the leaf belongs to:
 - ``ConvTranspose`` ``kernel`` (kx, ky, kz, Ci, Co) <-> ``weight``
   (Ci, Co, kx, ky, kz), flipped on the three spatial axes (flax's transposed
   conv does not flip its kernel, torch's does);
+- a 2-D network's (``dims=2``, run on depth-1 volumes) kernels (kh, kw, Ci,
+  Co) <-> ``weight`` (Co, Ci, 1, kh, kw), and (Ci, Co, 1, kh, kw) flipped on
+  kh and kw for a ``ConvTranspose``;
 - Dense ``kernel`` (in, out) <-> Linear ``weight`` (out, in) (the critic's
   ``w_dense``);
 - InstanceNorm and BatchNorm ``scale`` <-> ``weight``;
@@ -53,6 +56,37 @@ def _transposed_convs(model: torch.nn.Module) -> set:
     return {name for name, m in model.named_modules() if isinstance(m, ConvTranspose)}
 
 
+def _convs_2d(model: torch.nn.Module) -> set:
+    """The module paths of ``model``'s convs and transposed convs of a 2-D
+    network, whose torch weights have a depth-1 axis flax's kernels lack."""
+    from vangan_torch.models.layers import ConvND, ConvTranspose
+
+    return {name for name, m in model.named_modules()
+            if isinstance(m, (ConvND, ConvTranspose)) and m.dims == 2}
+
+
+def _kernel_to_torch(arr: np.ndarray, transposed: bool) -> np.ndarray:
+    """A flax conv kernel (spatial..., Ci, Co), 3-D or 2-D, as torch's 5-D
+    weight: (Co, Ci, kx, ky, kz), or (Ci, Co, ...) flipped for a transposed
+    conv; a 2-D kernel gets the depth-1 axis in front of kh, kw."""
+    sp = arr.ndim - 2
+    if transposed:
+        arr = np.transpose(np.flip(arr, tuple(range(sp))), (sp, sp + 1, *range(sp)))
+    else:
+        arr = np.transpose(arr, (sp + 1, sp, *range(sp)))
+    return arr if sp == 3 else arr[:, :, None]
+
+
+def _kernel_to_flax(arr: np.ndarray, transposed: bool, dims: int) -> np.ndarray:
+    """``_kernel_to_torch``'s inverse for a network of rank ``dims``."""
+    if dims == 2:
+        arr = arr[:, :, 0]
+    sp = arr.ndim - 2
+    if transposed:
+        return np.flip(np.transpose(arr, (*range(2, 2 + sp), 0, 1)), tuple(range(sp)))
+    return np.transpose(arr, (*range(2, 2 + sp), 1, 0))
+
+
 def _spectral_norms(model: torch.nn.Module) -> Dict[str, str]:
     """The module paths of ``model``'s ``SpectralNorm`` layers -> the name of
     the conv each normalises."""
@@ -69,12 +103,10 @@ def flax_to_torch(params: Mapping, model: torch.nn.Module,
     deconvs, norms = _transposed_convs(model), _spectral_norms(model)
     sd = {}
     for (*mods, leaf), arr in _flatten(params).items():
-        if leaf == "kernel" and ".".join(mods) in deconvs:
-            name, arr = "weight", np.transpose(np.flip(arr, (0, 1, 2)), (3, 4, 0, 1, 2))
-        elif leaf == "kernel" and arr.ndim == 2:
+        if leaf == "kernel" and arr.ndim == 2:
             name, arr = "weight", arr.T
         elif leaf == "kernel":
-            name, arr = "weight", np.transpose(arr, (4, 3, 0, 1, 2))
+            name, arr = "weight", _kernel_to_torch(arr, ".".join(mods) in deconvs)
         elif leaf == "scale":
             name = "weight"
         elif leaf == "bias":
@@ -99,15 +131,16 @@ def torch_to_flax_variables(state_dict: Mapping[str, torch.Tensor],
     ``"batch_stats"`` when the state_dict holds BatchNorm or spectral-norm
     buffers; nested dicts of numpy arrays."""
     deconvs, norms = _transposed_convs(model), _spectral_norms(model)
+    convs_2d = _convs_2d(model)
     out: dict = {}
     for key, t in state_dict.items():
         *mods, name = key.split(".")
         arr = t.detach().cpu().float().numpy()
         collection = "params"
-        if name == "weight" and arr.ndim == 5 and ".".join(mods) in deconvs:
-            leaf, arr = "kernel", np.flip(np.transpose(arr, (2, 3, 4, 0, 1)), (0, 1, 2))
-        elif name == "weight" and arr.ndim == 5:
-            leaf, arr = "kernel", np.transpose(arr, (2, 3, 4, 1, 0))
+        path = ".".join(mods)
+        if name == "weight" and arr.ndim == 5:
+            leaf = "kernel"
+            arr = _kernel_to_flax(arr, path in deconvs, 2 if path in convs_2d else 3)
         elif name == "weight" and arr.ndim == 2:
             leaf, arr = "kernel", arr.T
         elif name == "weight":
