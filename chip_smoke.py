@@ -189,12 +189,46 @@ Phases, each of which raises on failure:
    plain-path stitches, Mpix/s); and ``evaluate_segmentation`` of that
    prediction against seeded lines on the card: no K6 launch, scores equal
    to the CPU's; and the 2-D skeleton's torch ops timed at the step's
-   shapes. Its numbers on the ``twod*`` lines.
+   shapes. Its numbers on the ``twod*`` lines;
+15. data parallelism (BASELINE config 5: config 2 with ``N_DEVICES: 2``,
+   ``BATCH_SIZE`` 3 a rank, a global batch of 6 at 128^3), through
+   ``vangan_torch.parallel``: (a) world 1 over NCCL in this process, two
+   ``VanGan.distributed_train_step`` steps (bf16, noise and dropout on)
+   bit-identical, parameters and losses, to the same steps without a
+   group, and the two in turns timed; (b) two ranks sharing the card over
+   gloo (``parallel.spawn``, joined within ``DP_TIMEOUT_S``): one step of
+   each on the seeded global batch must launch each kernel ``TRAIN_LAUNCHES``
+   times and K4/K7 ``TRAIN_KERNEL_LAUNCHES`` kernels (each rank's counters,
+   set to 0 just before it), give ten finite losses equal on both ranks, and
+   leave the two ranks' parameters bit-identical; then, from the seeded
+   weights with noise 0 and dropout off, the averaged gradients and losses
+   against one process's step of the same global batch under the same
+   contract: bf16 at 128^3 each network's gradient and each loss within
+   max(SPREAD_FACTOR x the one-process step's distance from its own
+   arithmetic by halves, 1e-3) relative (each half at the rank's scales,
+   averaged: the rounding that splitting the batch brings, since a kernel's
+   or cuDNN's bf16 result may depend on the batch it runs in), and f32 on
+   the batch cropped to ``DP_CROP``^3 by phase 8's f32 rules (losses 1e-3,
+   gradients SPREAD_FACTOR x the one-process spread under a 1e-6 weight
+   perturbation, or by halves if that is larger); (c) BASELINE config 4
+   (V-Nets, BatchNorm across the ranks) by phase 8's f32 rules on the crop,
+   and each moved BatchNorm statistic, after the step's forward and after
+   gen_SI's forward alone on the data, within max(SPREAD_FACTOR x its
+   spread, 1e-5) relative L2, equal on both ranks; (d) phase 7's 256^3 volume stitched
+   with the patches split over the two ranks against the one-process
+   stitch, max |diff| <= 255 x 2^-16 on the [0, 255] scale (the same patch
+   predictions, added in another order in float32); (e) with two cards,
+   the two ranks over NCCL (one a card): launches, bit-identical ranks, ms
+   per step and patches/s (else a line says it did not run); (f) ms per
+   step of each, the all-reduce's ms for the gradients' bytes (world 1 over
+   NCCL on a buffer of that size; the two gloo ranks' own), and each rank's
+   peak memory. Its numbers on the ``dp*`` lines;
 
 Then one JSON line of the seven kernels (launches counted in one train step
 of phase 8, the path that runs them all, and of phase 10 as
 ``config4_launches``; phase 13's step 1 as ``wgan_launches``; phase 14's
-2-D train step as ``twod_launches``; phase 12's as
+2-D train step as ``twod_launches``; phase 15's per rank as
+``dp_launches``; phase 12's as
 ``raw_predict_launches`` for K1 and K4 and ``metric_launches`` for K6; for
 K4 and K7 the kernel launches beside the calls; ms, plain ms, library ms and the bound summed over the convs / norms
 of one gen_IS and one disc_I call at batch 3 (phases 2-3), one 3 x 128^3
@@ -369,6 +403,15 @@ TWOD_TINY_PLANES = ((256, (1, 2, 2)), (256, (1, 4, 4)), (256, (1, 8, 8)))
 # path alike (the per-draw spreads are on the twod_train_step_agreement
 # line); one draw does not bound it.
 TWOD_SPREAD_DRAWS = 5
+
+
+# phase 15: data parallelism, config 2 (and config 4) with N_DEVICES 2: two
+# ranks of BATCH_SIZE 3, a global batch of 6 at 128^3
+DP_WORLD = 2
+DP = {"N_DEVICES": DP_WORLD}
+DP_CROP = 96           # the f32 checks' crop, phase 10's C4_F32_CROP
+DP_TIMED_STEPS = 3
+DP_TIMEOUT_S = 600     # a rank that runs longer fails the phase
 
 
 def require(cond, msg):
@@ -2427,6 +2470,435 @@ def check_twod(ops, tol, card):
     return out
 
 
+def no_dropout(nets):
+    """Dropout off in every network: a rank draws its own masks, so a
+    comparison across processes runs without them (noise sigma 0 too)."""
+    from vangan_torch.models.layers import DiscDownsample
+    from vangan_torch.models.vnet import VNetConvBlock
+
+    for net in nets.values():
+        for m in net.modules():
+            if isinstance(m, DiscDownsample):
+                m.use_dropout = False
+            elif isinstance(m, VNetConvBlock):
+                m.dropout = None
+
+
+def dp_batch(n, sample):
+    """A seeded global batch of ``n`` samples on the host, as phase 6's:
+    real_I uniform in [-1, 1], real_S binary in {-1, 1}."""
+    rng = np.random.default_rng(SEED + 7)
+    shape = (n, *sample, 1)
+    real_I = rng.uniform(-1, 1, shape).astype(np.float32)
+    real_S = np.where(rng.uniform(size=shape) > 0.7, 1.0, -1.0).astype(np.float32)
+    return real_I, real_S
+
+
+def dp_reset(gan, init, dtype, perturb=0.0):
+    """Seeded weights in ``dtype``, fresh optimizers, dropout off; with
+    ``perturb``, every weight scaled by (1 + perturb N(0, 1))."""
+    from vangan_torch.training.state import make_train_state
+
+    for name, net in gan.nets.items():
+        net.load_state_dict(init[name])
+        net.dtype = dtype
+    no_dropout(gan.nets)
+    gan.state = make_train_state(gan.nets, gan.cfg, gan.steps_per_epoch)
+    if perturb:
+        with torch.no_grad():
+            pg = torch.Generator(device=gan.device).manual_seed(SEED + 6)
+            for net in gan.nets.values():
+                for prm in net.parameters():
+                    prm.mul_(1 + perturb * torch.randn(prm.shape, device=gan.device,
+                                                       generator=pg))
+
+
+def dp_grads(gan, real_I, real_S, crop, halves=False):
+    """Each network's flat f32 gradient (on the host) and the losses of one
+    training forward, noise sigma 0, on the rank's rows of the host global
+    batch cropped to ``crop``^3, averaged over the ranks; and the running
+    statistics after it. With ``halves`` (one process) the two ranks'
+    arithmetic without them: each half of the batch at the rank's scales,
+    the two averaged."""
+    from vangan_torch.parallel import all_reduce_grads, all_reduce_mean, rows
+    from vangan_torch.training import step
+    from vangan_torch.training.state import NETWORKS
+
+    n = len(real_I)
+    parts = [rows(gan.group, n)]
+    scales = gan.scales
+    if halves:
+        parts = [slice(0, n // 2), slice(n // 2, n)]
+        scales = scales.for_rank(2)
+    flat, losses = None, None
+    for part in parts:
+        box = (part,) + (slice(0, crop),) * 3
+        x, y = (torch.from_numpy(np.ascontiguousarray(a[box])).to(gan.device)
+                for a in (real_I, real_S))
+        g, res = step.compute_grads(gan.nets, gan.cfg, scales, x, y, 0.0, gan.generator)
+        f = {n: torch.cat([t.float().flatten() for t in all_reduce_grads(gan.group, g[n])])
+             for n in NETWORKS}
+        res = all_reduce_mean(gan.group, res)
+        flat = f if flat is None else {k: flat[k] + f[k] for k in f}
+        losses = res if losses is None else {k: losses[k] + res[k] for k in res}
+        del g, x, y
+    stats = {f"{n}.{b}": t.detach().float().cpu().clone() for n, net in gan.nets.items()
+             for b, t in net.named_buffers()}
+    return ({k: (v / len(parts)).cpu() for k, v in flat.items()},
+            {k: float(v / len(parts)) for k, v in losses.items()}, stats)
+
+
+def dp_bn_forward(gan, real_S, crop):
+    """gen_SI (config 4's s2i V-Net) alone, in training, on the rank's rows
+    of ``real_S`` cropped to ``crop``^3: its BatchNorm buffers after the
+    call, on the host."""
+    from vangan_torch.parallel import rows
+
+    box = (rows(gan.group, len(real_S)),) + (slice(0, crop),) * 3
+    x = torch.from_numpy(np.ascontiguousarray(real_S[box])).to(gan.device)
+    with torch.no_grad():
+        gan.gen_SI(x, True, gan.generator)
+    return {b: t.float().cpu().clone() for b, t in gan.gen_SI.named_buffers()}
+
+
+def predict_volume():
+    """Phase 7's seeded 256^3 volume."""
+    rng = np.random.default_rng(SEED + 2)
+    return rng.normal(100.0, 40.0, (VOLUME,) * 3 + (1,)).astype(np.float32)
+
+
+def dp_step_times(gan, real_I, real_S, steps=DP_TIMED_STEPS):
+    """CUDA-event ms of ``steps`` train steps on the global batch."""
+    times = []
+    for _ in range(steps):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        gan.distributed_train_step(real_I, real_S, NOISE, True)
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return times
+
+
+def dp_rank(group, out_dir, parity=True):
+    """Phase 15 on one rank of ``group`` (two sharing the card over gloo, or
+    one a card over NCCL): the main path's step with its counters, the
+    parameters after it (to ``out_dir``), timed steps, the all-reduce alone,
+    and with ``parity`` the averaged gradients of configs 2 and 4 and the
+    split stitch for the one-process comparisons."""
+    import copy
+
+    from vangan_torch.config import VanGanConfig
+    from vangan_torch.inference.stitcher import stitch_subvolumes
+    from vangan_torch.ops import conv3d as conv_ops
+    from vangan_torch.ops import instnorm as in_ops
+    from vangan_torch.ops import skeleton as skel_ops
+    from vangan_torch.parallel import all_reduce_grads
+    from vangan_torch.training import step
+    from vangan_torch.training.state import NETWORKS
+    from vangan_torch.vangan import VanGan
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    ops, rank = (conv_ops, in_ops, skel_ops), group.rank
+    cfg = VanGanConfig(SUBVOL_PATCH_SIZE=(N,) * 3, BATCH_SIZE=STEP_BATCH,
+                       cldice_iters=SKEL_ITERS, stitcher_batch=BATCH, N_DEVICES=group.world)
+    real_I, real_S = dp_batch(cfg.GLOBAL_BATCH_SIZE, (N,) * 3)
+    gan = VanGan(cfg, group=group)
+    init = {name: copy.deepcopy(net.state_dict()) for name, net in gan.nets.items()}
+
+    # the main path: one bf16 step on the global batch, noise and dropout on
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counters(ops)
+    out = gan.distributed_train_step(real_I, real_S, NOISE, True)
+    torch.cuda.synchronize()
+    res = {"rank": rank, "device": str(gan.device), "launches": counters(ops),
+           "kernel_launches": kernel_counters(ops),
+           "losses": {k: float(v) for k, v in out.items()}}
+    torch.save({n: torch.cat([p.detach().flatten() for p in gan.nets[n].parameters()]).cpu()
+                for n in NETWORKS}, os.path.join(out_dir, f"params{rank}.pt"))
+    res["ms_all"] = dp_step_times(gan, real_I, real_S)
+    res["ms_per_step"] = float(np.median(res["ms_all"]))
+    res["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+
+    # the all-reduce alone, on the gradients of one step
+    x, y = (torch.from_numpy(a[rank * STEP_BATCH:(rank + 1) * STEP_BATCH]).to(gan.device)
+            for a in (real_I, real_S))
+    grads, _ = step.compute_grads(gan.nets, cfg, gan.scales, x, y, NOISE, gan.generator)
+    del x, y
+    res["grad_bytes"] = sum(t.numel() * t.element_size() for g in grads.values() for t in g)
+    res["all_reduce_ms"] = cuda_ms(lambda: [all_reduce_grads(group, g) for g in grads.values()],
+                                   reps=3)
+    del grads
+    if not parity:
+        return res
+
+    # parity with one process: seeded weights, noise 0, dropout off
+    for tag, dtype, crop in (("bf16", torch.bfloat16, N), ("f32_crop", torch.float32, DP_CROP)):
+        dp_reset(gan, init, dtype)
+        flat, res[tag], _ = dp_grads(gan, real_I, real_S, crop)
+        if group.main:
+            torch.save(flat, os.path.join(out_dir, f"{tag}.pt"))
+        del flat
+
+    # the split stitch of phase 7's volume, from the seeded weights in bf16
+    dp_reset(gan, init, torch.bfloat16)
+    vol = predict_volume()
+    conv_ops.launches = in_ops.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = stitch_subvolumes(gan.gen_IS_batched, vol, cfg.subvol_size, stride=(STRIDE,) * 3,
+                            complete=True, padFactor=0.25, save=False, batch_size=BATCH,
+                            device=gan.device, group=group)
+    torch.cuda.synchronize()
+    res["predict_s"] = time.perf_counter() - t0
+    res["predict_launches"] = {"conv3d_fwd": conv_ops.launches, "instnorm_fwd": in_ops.launches}
+    res["predict_is_none"] = out is None
+    if group.main:
+        np.save(os.path.join(out_dir, "predict.npy"), out)
+    del gan, init, out
+    torch.cuda.empty_cache()
+
+    # config 4 (BatchNorm across the ranks) on the f32 crop
+    gan = VanGan(VanGanConfig(SUBVOL_PATCH_SIZE=(N,) * 3, BATCH_SIZE=STEP_BATCH,
+                              cldice_iters=SKEL_ITERS, **C4, **DP), group=group)
+    init = {name: copy.deepcopy(net.state_dict()) for name, net in gan.nets.items()}
+    dp_reset(gan, init, torch.float32)
+    flat, res["config4_f32_crop"], res["config4_stats"] = dp_grads(gan, real_I, real_S, DP_CROP)
+    if group.main:
+        torch.save(flat, os.path.join(out_dir, "config4_f32_crop.pt"))
+    dp_reset(gan, init, torch.float32)
+    res["config4_bn_forward"] = dp_bn_forward(gan, real_S, DP_CROP)
+    return res
+
+
+def dp_rel(a, b):
+    return float((a - b).norm() / b.norm())
+
+
+def dp_rel_loss(a, b):
+    return abs(a - b) / max(abs(b), 1e-30)
+
+
+def check_dp(card):
+    """Phase 15: data parallelism (see the module note)."""
+    import copy
+
+    from vangan_torch import parallel
+    from vangan_torch.config import VanGanConfig
+    from vangan_torch.inference.stitcher import stitch_subvolumes
+    from vangan_torch.training.state import NETWORKS
+    from vangan_torch.vangan import VanGan
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    report = {"card": card}
+    with tempfile.TemporaryDirectory(prefix="vangan_smoke_dp_") as tmp:
+        # (b)-(d): two ranks sharing the card over gloo
+        t0 = time.perf_counter()
+        ranks = parallel.spawn(dp_rank, DP_WORLD, (tmp,), device=DEVICE, shared_card=True,
+                               timeout=DP_TIMEOUT_S)
+        report["gloo_ranks_s"] = time.perf_counter() - t0
+        for r in ranks:
+            require(r["launches"] == TRAIN_LAUNCHES, f"dp rank {r['rank']}: one step launched "
+                    f"{r['launches']}, expected {TRAIN_LAUNCHES}")
+            require(r["kernel_launches"] == TRAIN_KERNEL_LAUNCHES,
+                    f"dp rank {r['rank']}: {r['kernel_launches']} kernels")
+            require(len(r["losses"]) == 10 and all(map(math.isfinite, r["losses"].values())),
+                    f"dp rank {r['rank']}: losses {r['losses']}")
+            require(r["losses"] == ranks[0]["losses"], "dp: the ranks' averaged losses differ")
+        p0, p1 = (torch.load(os.path.join(tmp, f"params{r}.pt")) for r in range(DP_WORLD))
+        require(all(torch.equal(p0[n], p1[n]) for n in NETWORKS),
+                "dp: the two ranks' parameters differ after the step")
+        require(all(bool(torch.isfinite(p0[n]).all()) for n in NETWORKS),
+                "dp: non-finite parameters after the step")
+        del p0, p1
+        require(ranks[1]["predict_is_none"] and not ranks[0]["predict_is_none"],
+                "dp: the split stitch returned on the wrong rank")
+        report["gloo"] = [{k: r[k] for k in ("rank", "device", "ms_per_step", "ms_all",
+                                             "peak_gib", "all_reduce_ms", "grad_bytes",
+                                             "predict_s", "predict_launches")}
+                          for r in ranks]
+        report["launches"] = ranks[0]["launches"]
+
+        # the one-process references: the same global batch, the same contract
+        cfg = VanGanConfig(SUBVOL_PATCH_SIZE=(N,) * 3, BATCH_SIZE=STEP_BATCH,
+                           cldice_iters=SKEL_ITERS, stitcher_batch=BATCH, **DP)
+        real_I, real_S = dp_batch(cfg.GLOBAL_BATCH_SIZE, (N,) * 3)
+        gan = VanGan(cfg, device=DEVICE)
+        init = {name: copy.deepcopy(net.state_dict()) for name, net in gan.nets.items()}
+        agreement = {}
+
+        def hold(tag, ref, spreads, got, got_losses, floor):
+            """``got`` (the ranks' averaged gradients and losses) against
+            ``ref`` (one process): each within max(SPREAD_FACTOR x the
+            largest distance of a ``spreads`` run from ``ref``, ``floor``),
+            each f32 loss within 1e-3."""
+            rep = {"grads": {}, "losses": {}}
+            for n in NETWORKS:
+                d = dp_rel(got[n], ref[0][n])
+                spread = max(dp_rel(o[0][n], ref[0][n]) for o in spreads.values())
+                rep["grads"][n] = {"dp_vs_one": d, **{f"{k}_vs_one": dp_rel(o[0][n], ref[0][n])
+                                                      for k, o in spreads.items()}}
+                require(d <= max(SPREAD_FACTOR * spread, floor),
+                        f"dp {tag} {n}: gradient {d:.3e} from one process, spread {spread:.3e}")
+            for k, v in ref[1].items():
+                d = dp_rel_loss(got_losses[k], v)
+                spread = max(dp_rel_loss(o[1][k], v) for o in spreads.values())
+                rep["losses"][k] = {"dp": got_losses[k], "one": v, "dp_vs_one": d,
+                                    "spread": spread}
+                lim = 1e-3 if "f32" in tag else max(SPREAD_FACTOR * spread, floor)
+                require(d <= lim, f"dp {tag} {k}: loss {got_losses[k]} vs one process {v}")
+            agreement[tag] = rep
+            return rep
+
+        # bf16: the one-process step's distance from its own arithmetic by
+        # halves is the rounding that splitting the batch brings (a kernel's
+        # or cuDNN's result may depend on the batch it runs in)
+        dp_reset(gan, init, torch.bfloat16)
+        one = dp_grads(gan, real_I, real_S, N)
+        dp_reset(gan, init, torch.bfloat16)
+        halves = dp_grads(gan, real_I, real_S, N, halves=True)
+        got = torch.load(os.path.join(tmp, "bf16.pt"))
+        hold("bf16", one, {"halves": halves}, got, ranks[0]["bf16"], 1e-3)
+        agreement["bf16"]["dp_vs_halves"] = {n: dp_rel(got[n], halves[0][n]) for n in NETWORKS}
+        del one, halves, got
+        dp_reset(gan, init, torch.float32)
+        one = dp_grads(gan, real_I, real_S, DP_CROP)
+        dp_reset(gan, init, torch.float32)
+        halves = dp_grads(gan, real_I, real_S, DP_CROP, halves=True)
+        dp_reset(gan, init, torch.float32, perturb=1e-6)
+        moved = dp_grads(gan, real_I, real_S, DP_CROP)
+        hold("f32_crop", one, {"halves": halves, "perturbed": moved},
+             torch.load(os.path.join(tmp, "f32_crop.pt")), ranks[0]["f32_crop"], 0.0)
+        del one, halves, moved
+
+        # (d) the stitch in one process
+        dp_reset(gan, init, torch.bfloat16)
+        want = stitch_subvolumes(gan.gen_IS_batched, predict_volume(), cfg.subvol_size,
+                                 stride=(STRIDE,) * 3, complete=True, padFactor=0.25,
+                                 save=False, batch_size=BATCH, device=DEVICE)
+        got = np.load(os.path.join(tmp, "predict.npy"))
+        diff = float(np.abs(got - want).max())
+        report["predict"] = {"volume": [VOLUME] * 3, "max_abs_diff": diff,
+                             "tolerance": 255 * 2.0 ** -16}
+        require(got.shape == want.shape and diff <= 255 * 2.0 ** -16,
+                f"dp predict: two ranks' stitch {diff} from one process's")
+        del gan, init, want, got
+        torch.cuda.empty_cache()
+
+        # (c) config 4 on the f32 crop, its BatchNorm statistics too
+        gan = VanGan(VanGanConfig(SUBVOL_PATCH_SIZE=(N,) * 3, BATCH_SIZE=STEP_BATCH,
+                                  cldice_iters=SKEL_ITERS, **C4, **DP), device=DEVICE)
+        init = {name: copy.deepcopy(net.state_dict()) for name, net in gan.nets.items()}
+        dp_reset(gan, init, torch.float32)
+        one = dp_grads(gan, real_I, real_S, DP_CROP)
+        dp_reset(gan, init, torch.float32, perturb=1e-6)
+        moved = dp_grads(gan, real_I, real_S, DP_CROP)
+        hold("config4_f32_crop", one, {"perturbed": moved},
+             torch.load(os.path.join(tmp, "config4_f32_crop.pt")), ranks[0]["config4_f32_crop"],
+             0.0)
+        stats = {}
+        for name, ref in one[2].items():
+            d = dp_rel(ranks[0]["config4_stats"][name], ref)
+            spread = dp_rel(moved[2][name], ref)
+            stats[name] = (d, spread)
+            require(torch.equal(ranks[0]["config4_stats"][name], ranks[1]["config4_stats"][name]),
+                    f"dp config 4 {name}: the ranks' running statistics differ")
+            require(d <= max(SPREAD_FACTOR * spread, 1e-5),
+                    f"dp config 4 {name}: statistic {d:.3e} from one process's, "
+                    f"spread {spread:.3e}")
+        require(len(stats) > 0, "dp config 4: no BatchNorm statistic")
+        report["config4_stats"] = {"buffers": len(stats),
+                                   "max_dp_vs_one": max(d for d, _ in stats.values()),
+                                   "max_spread": max(s for _, s in stats.values())}
+        # gen_SI's forward alone (its input is data, not a fake): each
+        # BatchNorm's moved statistics within max(SPREAD_FACTOR x spread, 1e-5)
+        dp_reset(gan, init, torch.float32)
+        one = dp_bn_forward(gan, real_S, DP_CROP)
+        dp_reset(gan, init, torch.float32, perturb=1e-6)
+        moved = dp_bn_forward(gan, real_S, DP_CROP)
+        stats = {}
+        for name, ref in one.items():
+            got = ranks[0]["config4_bn_forward"][name]
+            require(torch.equal(got, ranks[1]["config4_bn_forward"][name]),
+                    f"dp config 4 gen_SI.{name}: the ranks' statistics differ")
+            stats[name] = (dp_rel(got, ref), dp_rel(moved[name], ref))
+            require(stats[name][0] <= max(SPREAD_FACTOR * stats[name][1], 1e-5),
+                    f"dp config 4 gen_SI.{name}: forward statistic {stats[name]}")
+        report["config4_bn_forward"] = {"buffers": len(stats),
+                                        "max_dp_vs_one": max(d for d, _ in stats.values()),
+                                        "max_spread": max(s for _, s in stats.values())}
+        del gan, init, one, moved
+        torch.cuda.empty_cache()
+    report["agreement"] = agreement
+
+    # (a) world 1 over NCCL against no group, bit for bit; (f) times
+    with tempfile.TemporaryDirectory(prefix="vangan_smoke_dp1_") as tmp:
+        group = parallel.init_group(0, 1, "file://" + os.path.join(tmp, "store"), DEVICE)
+        try:
+            report["world1"] = check_world_one(group)
+        finally:
+            parallel.destroy(group)
+
+    # (e) two cards over NCCL
+    if torch.cuda.device_count() >= DP_WORLD:
+        with tempfile.TemporaryDirectory(prefix="vangan_smoke_dpn_") as tmp:
+            ranks = parallel.spawn(dp_rank, DP_WORLD, (tmp, False), device=DEVICE,
+                                   timeout=DP_TIMEOUT_S)
+            p0, p1 = (torch.load(os.path.join(tmp, f"params{r}.pt")) for r in range(DP_WORLD))
+            require(all(torch.equal(p0[n], p1[n]) for n in NETWORKS),
+                    "dp nccl: the two ranks' parameters differ after the step")
+            for r in ranks:
+                require(r["launches"] == TRAIN_LAUNCHES, f"dp nccl rank {r['rank']}: "
+                        f"{r['launches']}")
+            ms = max(r["ms_per_step"] for r in ranks)
+            report["nccl"] = {"ranks": [{k: r[k] for k in ("rank", "device", "ms_per_step",
+                                                          "ms_all", "peak_gib", "all_reduce_ms",
+                                                          "grad_bytes")} for r in ranks],
+                              "patches_per_s": DP_WORLD * STEP_BATCH / (ms / 1e3)}
+    else:
+        report["nccl"] = (f"not run: {torch.cuda.device_count()} card(s), "
+                          f"two ranks over NCCL need {DP_WORLD}")
+    report["phase_s"] = time.perf_counter() - t_phase
+    print("dp", json.dumps(report))
+    return report
+
+
+def check_world_one(group):
+    """(a): two steps of a world of 1 (no collective call) and of no group,
+    from the seeded weights and noise draws: parameters and losses equal bit
+    for bit; the two timed in turns; the NCCL all-reduce of a buffer of the
+    gradients' bytes."""
+    from vangan_torch.config import VanGanConfig
+    from vangan_torch.training.state import NETWORKS
+    from vangan_torch.vangan import VanGan
+
+    cfg = VanGanConfig(SUBVOL_PATCH_SIZE=(N,) * 3, BATCH_SIZE=STEP_BATCH, cldice_iters=SKEL_ITERS)
+    _, real_I, real_S = step_batch((N,) * 3)
+    gans = {"bare": VanGan(cfg, device=DEVICE), "world1": VanGan(cfg, group=group)}
+    losses = {k: [gan.distributed_train_step(real_I, real_S, NOISE, True) for _ in range(2)]
+              for k, gan in gans.items()}
+    for a, b in zip(losses["bare"], losses["world1"]):
+        require(all(torch.equal(a[k], b[k]) for k in a), "dp world 1: losses differ")
+    for n in NETWORKS:
+        require(all(torch.equal(p, q) for p, q in zip(gans["bare"].nets[n].parameters(),
+                                                      gans["world1"].nets[n].parameters())),
+                f"dp world 1: {n}'s parameters differ from the step without a group")
+    times = {"bare": [], "world1": []}
+    for k in ("bare", "world1", "world1", "bare", "bare", "world1"):
+        times[k] += dp_step_times(gans[k], real_I, real_S, 1)
+    numel = sum(p.numel() for net in gans["bare"].nets.values() for p in net.parameters())
+    del gans, losses
+    torch.cuda.empty_cache()
+    flat = torch.ones(numel, device=DEVICE)
+    ms = cuda_ms(lambda: torch.distributed.all_reduce(flat, group=group.pg))
+    return {"ms_per_step": {k: float(np.median(v)) for k, v in times.items()},
+            "ms_all": times, "grad_bytes": 4 * numel, "nccl_all_reduce_ms": ms,
+            "nccl_all_reduce_gb_per_s": 4 * numel / (ms / 1e3) / 1e9}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -2481,6 +2953,8 @@ def main() -> int:
     wgan = check_wgan((conv_ops, in_ops, skel_ops), tol, disc_shapes)
     torch.cuda.empty_cache()
     twod = check_twod((conv_ops, in_ops, skel_ops), tol, card)
+    torch.cuda.empty_cache()
+    dp = check_dp(card)
 
     require("jax" not in sys.modules and "vangan_tpu" not in sys.modules,
             "the port imported JAX or the JAX package")
@@ -2501,6 +2975,7 @@ def main() -> int:
                 "config4_launches": c4["train"]["launches"][name],
                 "wgan_launches": wgan["launches"][1][name],
                 "twod_launches": twod["train"]["launches"][name],
+                "dp_launches": dp["launches"][name],
                 "max_abs_err": max(r[f"{op}_bf16_abs_err"] for r in conv_rows),
                 "ms": total(f"{op}_bf16_ms"), "plain_ms": total(f"{op}_bf16_plain_ms"),
                 **summed_bound([(len(r["convs"]), r["bound"][op]) for r in conv_rows]),
@@ -2515,7 +2990,8 @@ def main() -> int:
                  "launches": train["launches"][name],
                  "config4_launches": c4["train"]["launches"][name],
                  "wgan_launches": wgan["launches"][1][name],
-                 "twod_launches": twod["train"]["launches"][name], "max_abs_err": max(errs_),
+                 "twod_launches": twod["train"]["launches"][name],
+                 "dp_launches": dp["launches"][name], "max_abs_err": max(errs_),
                  "ms": total(f"{op}_bf16_ms"), "plain_ms": total(f"{op}_bf16_plain_ms"),
                  **summed_bound([(len(r["uses"]), r["bound"][op]) for r in in_rows]),
                  "library_ms": None}
@@ -2552,6 +3028,7 @@ def main() -> int:
          "config4_launches": c4["train"]["launches"]["soft_skel_fwd"],
          "wgan_launches": wgan["launches"][1]["soft_skel_fwd"],
          "twod_launches": twod["train"]["launches"]["soft_skel_fwd"],
+         "dp_launches": dp["launches"]["soft_skel_fwd"],
          "metric_launches": data_eval["metric_launches"],
          "max_abs_err": max(skel["tanh_noise_max_abs_err"], skel["binary_faces_max_abs_err"],
                             *data_eval["skel_max_abs_err"].values()),
@@ -2565,6 +3042,7 @@ def main() -> int:
          "kernel_launches": train["kernel_launches"]["soft_skel_bwd"],
          "wgan_launches": wgan["launches"][1]["soft_skel_bwd"],
          "twod_launches": twod["train"]["launches"]["soft_skel_bwd"],
+         "dp_launches": dp["launches"]["soft_skel_bwd"],
          "config4_launches": c4["train"]["launches"]["soft_skel_bwd"],
          "config4_kernel_launches": c4["train"]["kernel_launches"]["soft_skel_bwd"],
          "max_abs_err": skel["bwd_max_abs_err"], "ms": skel["bwd_ms"],

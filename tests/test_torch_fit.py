@@ -144,11 +144,6 @@ def test_fit_waits_for_the_checkpoint_when_a_step_raises():
     assert log[-1] == ("wait",)
 
 
-def test_fit_refuses_more_than_one_device():
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-        loop.fit(VanGanConfig(N_DEVICES=2, BATCH_SIZE=1), None, None, None)
-
-
 # --- python -m vangan_torch train, end to end on the CPU ---
 
 

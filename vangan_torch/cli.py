@@ -23,10 +23,13 @@ first preprocesses them into ``<output>/preprocessed_npy``. ``--epoch N``
 serves what ``train`` saved at epoch N. ``sweep`` runs that inference from
 every ``--step``-th checkpoint. A config with ``DIMENSIONS: 2`` runs each of
 them on 2-D ``(H, W, 1)`` images (one-page TIFFs in, one page out; the z of
-``--stride`` is not read). The flags are those of ``python -m
-vangan_tpu`` plus ``--weights`` (a weights file of the port) and ``--device``
-(default ``cuda``, which refuses to run without CUDA; ``cpu`` runs the plain
-torch versions of the kernels).
+``--stride`` is not read). With ``N_DEVICES: k`` in the config (0: every
+card) ``train``, ``predict`` and ``sweep`` run data-parallel, one process a
+card (``--device cpu``: k gloo ranks on the CPU), rank 0 writing the files;
+``torchrun --nproc_per_node k -m vangan_torch ...`` starts the same ranks.
+The flags are those of ``python -m vangan_tpu`` plus ``--weights`` (a
+weights file of the port) and ``--device`` (default ``cuda``, which refuses
+to run without CUDA; ``cpu`` runs the plain torch versions of the kernels).
 """
 
 from __future__ import annotations
@@ -118,10 +121,56 @@ def cmd_preprocess(args) -> None:
     seg.preprocess(resize=args.resize)
 
 
-def cmd_train(args) -> None:
+def _run_ranks(args, body) -> None:
+    """Run ``body(args, cfg, device, group)`` on every device the config asks
+    for, one process each (the JAX CLI's one command over every device):
+    ``N_DEVICES`` is capped to the visible cards, 0 meaning all of them
+    (``VanGanConfig.cap_devices``); on the CPU each of ``N_DEVICES`` gloo
+    ranks is a process. One device runs ``body`` here with no group; more
+    spawn one process a device, after the kernels are built. Under
+    ``torchrun`` (``RANK`` and ``WORLD_SIZE`` set) this process is one of
+    its ranks."""
     device = _device(args)
     cfg = _load_cfg(args)
-    cfg.require_one_device()
+    import torch
+
+    from vangan_torch import parallel
+
+    if parallel.launched_by_torchrun():
+        group = parallel.from_env(device)
+        try:
+            if cfg.cap_devices(group.world) != group.world:
+                sys.exit(f"{args.cmd}: torchrun started {group.world} ranks, N_DEVICES asks "
+                         f"for {cfg.N_DEVICES}")
+            body(args, cfg, group.device, group)
+        finally:
+            parallel.destroy(group)
+        return
+    visible = torch.cuda.device_count() if device.type == "cuda" else max(cfg.N_DEVICES, 1)
+    world = cfg.cap_devices(visible)
+    if world == 1:
+        body(args, cfg, device, None)
+        return
+    if device.type == "cuda":
+        from vangan_torch.ops import build
+
+        build.build()  # once, before the ranks load it
+    print(f"{args.cmd}: {world} ranks on {device.type}")
+    parallel.spawn(_rank, world, (body, args, cfg), device=device)
+
+
+def _rank(group, body, args, cfg) -> None:
+    body(args, cfg, group.device, group)
+
+
+def cmd_train(args) -> None:
+    _run_ranks(args, _train)
+
+
+def _train(args, cfg, device, group) -> None:
+    from vangan_torch.parallel import is_main
+
+    rank0 = is_main(group)
     os.makedirs(cfg.output_dir, exist_ok=True)
 
     from vangan_torch.config import save_args
@@ -136,19 +185,23 @@ def cmd_train(args) -> None:
 
     imaging, seg = _load_partitions(cfg, args.data_dir)
     dataset = VanGanDataset(cfg, imaging.partition, seg.partition, seed=cfg.seed,
-                            semi_supervised_dir=args.semi_supervised_dir, device=device)
+                            semi_supervised_dir=args.semi_supervised_dir, device=device,
+                            group=group)
     summary = None
     try:
-        if cfg.plot_dataset_samples:
+        if cfg.plot_dataset_samples and rank0:
             dataset.plot_sample_dataset(os.path.join(cfg.output_dir, "GANMonitor"))
-        summary = TBSummary(os.path.join(cfg.output_dir, "TB_Logs"))
-        gan = VanGan(cfg, device=device, steps_per_epoch=dataset.train_steps)
-        monitor = GanMonitor(
-            cfg, dataset=dataset, imaging_val_data=imaging.partition["validation"],
-            segmentation_val_data=seg.partition["validation"],
-            monitor_dir=os.path.join(cfg.output_dir, "GANMonitor"),
-        )
-        save_args(cfg, os.path.join(cfg.output_dir, "Args_Settings.txt"))
+        if rank0:  # fit logs on rank 0 only; no event files from the others
+            summary = TBSummary(os.path.join(cfg.output_dir, "TB_Logs"))
+        gan = VanGan(cfg, device=device, steps_per_epoch=dataset.train_steps, group=group)
+        monitor = None
+        if rank0:
+            monitor = GanMonitor(
+                cfg, dataset=dataset, imaging_val_data=imaging.partition["validation"],
+                segmentation_val_data=seg.partition["validation"],
+                monitor_dir=os.path.join(cfg.output_dir, "GANMonitor"),
+            )
+            save_args(cfg, os.path.join(cfg.output_dir, "Args_Settings.txt"))
 
         start_epoch = 0
         if args.resume_epoch is not None:
@@ -172,36 +225,43 @@ def cmd_train(args) -> None:
 
 
 def cmd_predict(args) -> None:
-    device = _device(args)
+    _run_ranks(args, _predict)
 
+
+def _predict(args, cfg, device, group) -> None:
     from vangan_torch.inference.mapping import run_mapping
+    from vangan_torch.parallel import is_main
     from vangan_torch.vangan import VanGan
 
-    cfg = _load_cfg(args)
+    rank0 = is_main(group)
     preprocess_fn = _resolve_preprocess_fn(args.preprocess)
     listing = sorted(os.listdir(args.input))
-    gan = VanGan(cfg, device=device)
+    gan = VanGan(cfg, device=device, group=group)
     if args.weights is not None:
         gan.load_weights(args.weights)
     elif args.epoch is not None:
         path = gan.weights_path(args.epoch)
-        print(f"Trying to load weights from path: {path}")
+        if rank0:
+            print(f"Trying to load weights from path: {path}")
         if os.path.exists(path):
             gan.load_weights(path)
-        else:
+        elif rank0:
             # the JAX CLI's behaviour (vangan_tpu/checkpoint.py, reference vangan.py:268)
             print("Error: Checkpoint not found!")
     os.makedirs(args.output, exist_ok=True)
     if any(f.lower().endswith((".tif", ".tiff")) for f in listing):
         # the reference's "segment new data" recipe (main.py:255-270):
-        # process_new_data on the host, then run_mapping on the device
+        # process_new_data on the host (rank 0), then run_mapping on the device
         from vangan_torch.data.preprocess import DataPreprocessor
 
         npy_dir = os.path.join(args.output, "preprocessed_npy")
-        pre = DataPreprocessor(cfg, partition_id="A", domain="imaging")
-        pre.process_new_data(args.input, npy_dir, tiff_size=cfg.RAW_IMG_SIZE,
-                             target_size=cfg.TARG_RAW_IMG_SIZE, resize=args.resize,
-                             preprocess_fn=preprocess_fn)
+        if rank0:
+            pre = DataPreprocessor(cfg, partition_id="A", domain="imaging")
+            pre.process_new_data(args.input, npy_dir, tiff_size=cfg.RAW_IMG_SIZE,
+                                 target_size=cfg.TARG_RAW_IMG_SIZE, resize=args.resize,
+                                 preprocess_fn=preprocess_fn)
+        if group is not None:
+            group.barrier()
         files = [os.path.join(npy_dir, f) for f in sorted(os.listdir(npy_dir))
                  if f.endswith(".npy")]
     else:
@@ -211,13 +271,14 @@ def cmd_predict(args) -> None:
 
 
 def cmd_sweep(args) -> None:
-    device = _device(args)
+    _run_ranks(args, _sweep)
 
+
+def _sweep(args, cfg, device, group) -> None:
     from vangan_torch.inference.mapping import epoch_sweep
     from vangan_torch.vangan import VanGan
 
-    cfg = _load_cfg(args)
-    gan = VanGan(cfg, device=device, steps_per_epoch=1)
+    gan = VanGan(cfg, device=device, steps_per_epoch=1, group=group)
     epoch_sweep(cfg, gan, args.input, start=args.start, end=args.end, step=args.step,
                 segmentation=not args.fake_imaging)
 

@@ -157,13 +157,35 @@ class VanGanConfig:
         with open(path, "w") as f:
             yaml.safe_dump(dataclasses.asdict(self), f, sort_keys=False)
 
-    def require_one_device(self) -> None:
-        """Training runs on one card: ``N_DEVICES`` > 1 raises. (The losses
-        alone take ``N_DEVICES`` as the JAX package's per-device grouping,
-        which the test step's parity tests use.)"""
-        if self.N_DEVICES != 1:
-            raise NotImplementedError(f"N_DEVICES={self.N_DEVICES}: multi-GPU data parallelism "
-                                      "is not ported yet (ROADMAP.md Queue 1 item 5)")
+    def cap_devices(self, visible: int) -> int:
+        """Cap ``N_DEVICES`` to the ``visible`` devices, 0 meaning all of them,
+        as ``vangan_tpu``'s ``cmd_train`` does after ``__post_init__``:
+        ``GLOBAL_BATCH_SIZE`` and ``cldice_groups`` keep the values derived
+        from the requested count (a 0 derives them from the count used).
+        Returns the count used; prints the cap where it cut a request."""
+        requested = self.N_DEVICES
+        self.N_DEVICES = min(requested or visible, visible)
+        if self.GLOBAL_BATCH_SIZE == 0:
+            self.GLOBAL_BATCH_SIZE = self.N_DEVICES * self.BATCH_SIZE
+        if self.cldice_groups == 0:
+            self.cldice_groups = self.N_DEVICES
+        if requested > self.N_DEVICES:
+            print(f"N_DEVICES={requested}: {visible} visible, running on {self.N_DEVICES}")
+        return self.N_DEVICES
+
+    def rank_batch(self, world: int) -> int:
+        """Each of ``world`` ranks' share of the global batch,
+        ``GLOBAL_BATCH_SIZE / world``; raises unless ``world`` is
+        ``N_DEVICES`` and divides the global batch and ``cldice_groups``
+        (each rank takes ``cldice_groups / world`` of the groups)."""
+        if world != self.N_DEVICES:
+            raise ValueError(f"{world} ranks for N_DEVICES={self.N_DEVICES}: data parallelism "
+                             "runs one rank per device")
+        for what, n in (("GLOBAL_BATCH_SIZE", self.GLOBAL_BATCH_SIZE),
+                        ("cldice_groups", self.cldice_groups)):
+            if n % world:
+                raise ValueError(f"{what}={n} does not split over {world} ranks")
+        return self.GLOBAL_BATCH_SIZE // world
 
 
 def save_args(cfg, filename: str) -> None:

@@ -35,6 +35,7 @@ import numpy as np
 import torch
 
 from vangan_torch.device import resolve_device
+from vangan_torch.parallel import Group, rows
 
 
 class PipelineError(RuntimeError):
@@ -155,7 +156,10 @@ class VanGanDataset:
     and ``val_batches`` yield ``(real_I, real_S)`` float32 tensors of shape
     ``(GLOBAL_BATCH_SIZE, *SUBVOL_PATCH_SIZE, C)`` on the host, pinned for a
     CUDA ``device`` (the default; without CUDA it raises) and pageable for
-    ``device="cpu"``."""
+    ``device="cpu"``. A rank of a data-parallel ``group`` gets its rows of
+    each global batch (``parallel.rows``): every rank samples the whole
+    stream, so the ranks together see the batches of one process (and of
+    the JAX package's data mesh). Steps per epoch count global batches."""
 
     def __init__(
         self,
@@ -167,6 +171,7 @@ class VanGanDataset:
         mmap: bool = True,
         semi_supervised_dir: Optional[str] = None,
         device="cuda",
+        group: Optional[Group] = None,
     ):
         self.cfg = cfg
         self.imaging_partition = imaging_partition
@@ -176,6 +181,7 @@ class VanGanDataset:
         self.mmap = mmap
         self.semi_supervised_dir = semi_supervised_dir
         self.device = resolve_device(device)
+        self.rows = rows(group, cfg.GLOBAL_BATCH_SIZE)
         self.SEG_THRESH = cfg.SEG_THRESH
         self._queues: list = []
         self._stop = threading.Event()
@@ -270,8 +276,8 @@ class VanGanDataset:
         def worker():
             try:
                 for real_I, real_S in it:
-                    if not _put_with_stop(q, (self._to_host(real_I), self._to_host(real_S)),
-                                          stop):
+                    if not _put_with_stop(q, (self._to_host(real_I[self.rows]),
+                                              self._to_host(real_S[self.rows])), stop):
                         return
             except BaseException as e:  # noqa: BLE001 -- forwarded to the consumer
                 _put_with_stop(q, (_PILL, e), stop)

@@ -11,6 +11,7 @@ from typing import Optional, Sequence, Tuple
 import numpy as np
 
 from vangan_torch.inference.stitcher import stitch_subvolumes
+from vangan_torch.parallel import is_main
 
 
 def run_mapping(
@@ -27,13 +28,18 @@ def run_mapping(
 ) -> None:
     """Map every ``.npy`` volume (or, in the 2-D mode, image) in ``test_set``
     through gen_IS (segmentation) or gen_SI (fake imaging, with per-patch
-    min-max) and save stitched TIFFs into ``filepath``."""
+    min-max) and save stitched TIFFs into ``filepath``. A ``vangan`` of data
+    parallelism (``vangan.group``, ``cfg.N_DEVICES > 1``; the JAX package's
+    mesh, mapping.py:42-48) splits each volume's patches over the ranks, and
+    rank 0 writes the TIFFs; every rank calls this."""
     gen = vangan.gen_IS_batched if segmentation else vangan.gen_SI_batched
+    group = getattr(vangan, "group", None)
     verb = "Segmenting" if segmentation else "Mapping"
     for n, path in enumerate(test_set):
         img = np.load(str(path))
         filename = os.path.splitext(os.path.basename(str(path)))[0]
-        print(f"{verb} {filename} ... ({n + 1} / {len(test_set)})")
+        if is_main(group):
+            print(f"{verb} {filename} ... ({n + 1} / {len(test_set)})")
         stitch_subvolumes(
             gen,
             img,
@@ -47,6 +53,7 @@ def run_mapping(
             batch_size=batch_size or vangan.cfg.stitcher_batch,
             blend=blend,
             device=vangan.device,
+            group=group,
         )
 
 

@@ -16,7 +16,11 @@ reference's ``GanMonitor.stitch_subvolumes``, custom_callback.py:47-223):
 - a voxel no patch covers would be 0/0 = NaN, as in the reference; with
   stride <= patch such voxels lie only in the margin, which is cropped
   before the division; the result is ``255 * min_max_norm`` (float32 with
-  ``complete=True``, else uint8).
+  ``complete=True``, else uint8);
+- given a data-parallel ``group`` (the JAX package's mesh path), rank r of k
+  runs the unique-origin batches r, r + k, ... into private accumulators,
+  one sum over the ranks adds them, and rank 0 divides, returns and saves
+  the volume (the other ranks return None).
 """
 
 from __future__ import annotations
@@ -29,6 +33,7 @@ import torch
 
 from vangan_torch.data.preprocess import write_tiff
 from vangan_torch.device import resolve_device
+from vangan_torch.parallel import Group, is_main
 
 
 def _axis_origins(length: int, k: int, stride: int) -> List[int]:
@@ -99,7 +104,8 @@ def stitch_subvolumes(
     save: bool = True,
     blend: str = "uniform",
     device="cuda",
-) -> np.ndarray:
+    group: Optional[Group] = None,
+) -> Optional[np.ndarray]:
     """Predict a full (X, Y, Z, C) volume, or (H, W, C) image, by strided
     sliding-window stitching.
 
@@ -109,7 +115,9 @@ def stitch_subvolumes(
     ``subvol_size`` follows the reference convention ``(GB, kx, ky, kz, C)``;
     an image takes the 2-D ``(GB, kH, kW, C)``, and reads only the x and y
     of ``stride``. Returns the stitched volume and, with ``save``, writes it
-    as a (z, x, y, c) TIFF, an image as an (h, w, c) one.
+    as a (z, x, y, c) TIFF, an image as an (h, w, c) one. With ``group``
+    every rank of it calls this on the same volume (``device`` is the
+    rank's): rank 0 returns and saves the volume, the others return None.
     """
     if blend not in ("uniform", "gaussian"):
         raise ValueError(f"blend must be 'uniform' or 'gaussian', got {blend!r}")
@@ -125,7 +133,7 @@ def stitch_subvolumes(
     if img.ndim != 4:
         raise ValueError(f"expected an (X, Y, Z, C) volume or an (H, W, C) image, got shape "
                          f"{img.shape}")
-    device = resolve_device(device)
+    device = resolve_device(device if group is None else group.device)
 
     oimgshape = img.shape
     xspacing = yspacing = zspacing = 0
@@ -150,7 +158,7 @@ def stitch_subvolumes(
             pD = 0
 
     origins = stitch_origins((H, W, D), (kH, kW, kD), stride)
-    if complete:
+    if complete and is_main(group):
         print(f"\tImage size (X,Y,Z,C): {oimgshape}")
         print(f"\tImage size w/ padding (X,Y,Z,C): {(H, W, D, C)}")
         print(f"\tSampling patch size (X,Y,Z,C): {(kH, kW, kD, 1)}")
@@ -163,30 +171,37 @@ def stitch_subvolumes(
 
     with torch.inference_mode():
         vol = torch.from_numpy(img).to(device)  # the one upload
-        pred = torch.zeros(img.shape, dtype=torch.float32, device=device)
-        count = torch.zeros(img.shape, dtype=torch.float32, device=device)
+        acc = torch.zeros((2, *img.shape), dtype=torch.float32, device=device)
+        pred, count = acc[0], acc[1]
         if blend == "gaussian":
             weight = torch.from_numpy(gaussian_window((kH, kW, kD))).to(device)
         else:
             weight = torch.ones((kH - 2 * pH, kW - 2 * pW, kD - 2 * pD, C), device=device)
-        for g0 in range(0, len(uniq), batch_size):
-            group = uniq[g0 : g0 + batch_size]
+        starts = range(0, len(uniq), batch_size)
+        if group is not None:
+            starts = starts[group.rank::group.world]
+        for g0 in starts:
+            batch = uniq[g0 : g0 + batch_size]
             patches = torch.stack([vol[i : i + kH, j : j + kW, k : k + kD]
-                                   for i, j, k in group.tolist()])
+                                   for i, j, k in batch.tolist()])
             if process_img:
                 patches = minmax_patches(patches)
-            n_valid = len(group)
+            n_valid = len(batch)
             if n_valid < batch_size:
                 patches = torch.cat([patches, patches[-1:].expand(
                     batch_size - n_valid, *patches.shape[1:])])
             out = gen(patches)[:n_valid].float()
             out = out[:, pH : kH - pH, pW : kW - pW, pD : kD - pD]
-            for (i, j, k), o, m in zip(group.tolist(), out, mult[g0 : g0 + batch_size]):
+            for (i, j, k), o, m in zip(batch.tolist(), out, mult[g0 : g0 + batch_size]):
                 sl = (slice(i + pH, i + kH - pH), slice(j + pW, j + kW - pW),
                       slice(k + pD, k + kD - pD))
                 w = weight * float(m)
                 pred[sl] += o * w
                 count[sl] += w
+        if group is not None:
+            group.sum_(acc)
+            if not is_main(group):
+                return None
         crop = (slice(xspacing, xspacing + oimgshape[0]),
                 slice(yspacing, yspacing + oimgshape[1]),
                 slice(zspacing, zspacing + oimgshape[2]))

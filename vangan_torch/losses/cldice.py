@@ -3,7 +3,10 @@
 Counterpart of ``vangan_tpu.losses.cldice``. Dice and clDice take global sums
 over the whole tensor (the reference's ``K.sum`` with no axis), so the value
 depends on the per-device batch grouping; ``soft_dice_cldice_grouped``
-reproduces it by summing per group and averaging over groups.
+reproduces it by summing per group and averaging over groups. Under data
+parallelism each rank groups its own shard (``LossScales.for_rank``): the
+global batch's groups are contiguous, so rank r holds groups
+``[r G / k, (r + 1) G / k)`` whole.
 """
 
 from __future__ import annotations

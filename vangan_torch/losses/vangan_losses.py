@@ -11,10 +11,18 @@ loss_functions.py), with its reduction contract:
   ``n_devices * global_mean / GLOBAL_BATCH`` (``reduce_mean_overall``).
 
 These scale quirks are part of the reference's effective loss weights.
+
+Under data parallelism each of k ranks holds ``GLOBAL_BATCH / k`` samples and
+computes its losses with ``LossScales.for_rank(k)``: the global batch of its
+share, one device, and ``groups / k`` clDice groups. The mean over the ranks
+of each of its terms is then the global program's term (a sum of per-sample
+means over the global batch, ``n_devices * global_mean / GLOBAL_BATCH``, a
+mean over the groups), so the ranks average their gradients and losses.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 from typing import Callable, Optional
 
@@ -45,6 +53,15 @@ class LossScales:
     @property
     def groups(self) -> int:
         return self.cldice_groups if self.cldice_groups is not None else self.n_devices
+
+    def for_rank(self, world: int) -> "LossScales":
+        """The scales of one of ``world`` equal shards, whose losses average
+        over the ranks to these scales' losses of the whole batch (see the
+        module note). ``world`` is ``n_devices`` and divides the batch and
+        the groups (``VanGanConfig.rank_batch`` checks them)."""
+        return dataclasses.replace(self, global_batch_size=self.global_batch_size // world,
+                                   n_devices=self.n_devices // world,
+                                   cldice_groups=self.groups // world)
 
     @classmethod
     def from_config(cls, cfg) -> "LossScales":

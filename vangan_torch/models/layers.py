@@ -35,6 +35,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from vangan_torch.ops.autograd import once_differentiable
 from vangan_torch.ops.conv3d import conv3d, conv3d_plain, norm_padding
 from vangan_torch.ops.instnorm import instance_norm_act, instance_norm_act_plain
 
@@ -317,6 +318,46 @@ def max_pool_2x(x: torch.Tensor, dims: int = 3) -> torch.Tensor:
     return F.max_pool3d(x, spatial(2, dims))
 
 
+class _CrossRankBatchNorm(torch.autograd.Function):
+    """Training-mode batch norm whose statistics run over every rank's batch
+    (equal shards): the forward sums x and then (x - mean)^2 over the ranks,
+    the backward the two per-channel gradient sums, sum(g) and sum(g xhat),
+    as ``torch.nn.SyncBatchNorm`` does; the parameters' gradients stay the
+    rank's own, to be averaged with the others'. Returns (y, mean, biased
+    var); computes in ``weight``'s dtype and keeps x, mean and 1/std."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, group, eps):
+        dims = [d for d in range(x.dim()) if d != 1]
+        shape = (1, -1) + (1,) * (x.dim() - 2)
+        n = x.numel() // x.shape[1] * group.world
+        mean = group.sum_(x.sum(dims, dtype=weight.dtype)) / n
+        xc = x.to(weight.dtype) - mean.view(shape)
+        var = group.sum_(xc.square().sum(dims)) / n
+        invstd = torch.rsqrt(var + eps)
+        y = torch.addcmul(bias.view(shape), xc, (invstd * weight).view(shape)).to(x.dtype)
+        ctx.save_for_backward(x, mean, invstd, weight)
+        ctx.group, ctx.n = group, n
+        ctx.mark_non_differentiable(mean, var)
+        return y, mean, var
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, gy, _gmean, _gvar):
+        x, mean, invstd, weight = ctx.saved_tensors
+        dims = [d for d in range(x.dim()) if d != 1]
+        shape = (1, -1) + (1,) * (x.dim() - 2)
+        xhat = (x.to(weight.dtype) - mean.view(shape)) * invstd.view(shape)
+        g = gy.to(weight.dtype)
+        sums = torch.cat([g.sum(dims), (g * xhat).sum(dims)])
+        c = weight.numel()
+        dbias, dweight = sums[:c].clone(), sums[c:].clone()
+        ctx.group.sum_(sums)
+        dx = (g - (sums[:c] / ctx.n).view(shape) - xhat * (sums[c:] / ctx.n).view(shape))
+        dx = dx * (invstd * weight).view(shape)
+        return dx.to(x.dtype), dweight, dbias, None, None
+
+
 class BatchNorm(nn.Module):
     """flax ``nn.BatchNorm`` as the V-Net uses it (vnet.py:66-73): statistics
     per channel over (B, X, Y, Z) (a depth-1 volume's over (B, 1, H, W)),
@@ -333,6 +374,13 @@ class BatchNorm(nn.Module):
     float32 and keeps only the input and the statistics for the backward;
     flax computes the variance as E[x^2] - E[x]^2 in float32, which differs
     in rounding only.
+
+    With ``group`` (a ``parallel.Group`` of more than one rank, set by
+    ``VanGan``) the batch is the global one, as under the JAX package's
+    data mesh: the statistics, and so the buffers, run over every rank's
+    shard (``_CrossRankBatchNorm``), and the buffers stay equal on every
+    rank. ``torch.nn.SyncBatchNorm`` would move them by the unbiased
+    variance.
     """
 
     def __init__(self, channels: int, epsilon: float = 1e-3, momentum: float = 0.99):
@@ -343,6 +391,7 @@ class BatchNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(channels))
         self.register_buffer("mean", torch.zeros(channels))
         self.register_buffer("var", torch.ones(channels))
+        self.group = None
 
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         # float32 parameters and statistics, float64 for a float64 input
@@ -350,10 +399,14 @@ class BatchNorm(nn.Module):
         if not train:
             return F.batch_norm(x, p(self.mean), p(self.var), p(self.weight), p(self.bias),
                                 False, 0.0, self.epsilon)
-        y, mean, invstd = torch.native_batch_norm(x, p(self.weight), p(self.bias), None, None,
-                                                  True, 0.0, self.epsilon)
+        if self.group is not None and self.group.world > 1:
+            y, mean, var = _CrossRankBatchNorm.apply(x, p(self.weight), p(self.bias),
+                                                     self.group, self.epsilon)
+        else:
+            y, mean, invstd = torch.native_batch_norm(x, p(self.weight), p(self.bias), None,
+                                                      None, True, 0.0, self.epsilon)
+            var = torch.clamp(invstd.detach().reciprocal().square() - self.epsilon, min=0.0)
         with torch.no_grad():
-            var = torch.clamp(invstd.reciprocal().square() - self.epsilon, min=0.0)
             self.mean.copy_(self.momentum * self.mean + (1 - self.momentum) * mean)
             self.var.copy_(self.momentum * self.var + (1 - self.momentum) * var)
         return y

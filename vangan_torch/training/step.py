@@ -45,6 +45,7 @@ from vangan_torch.losses import (
     wasserstein_discriminator_loss,
     wasserstein_generator_loss,
 )
+from vangan_torch.parallel import Group, all_reduce_grads, all_reduce_mean
 from vangan_torch.training.state import NETWORKS, TrainState
 
 RESULT_KEYS = ("total_IS_loss", "total_SI_loss", "D_I_loss", "D_S_loss", "gen_IS_loss",
@@ -163,10 +164,13 @@ def compute_losses(nets: Dict[str, nn.Module], cfg, scales: LossScales,
 
 
 def test_step(nets: Dict[str, nn.Module], cfg, scales: LossScales, real_I: torch.Tensor,
-              real_S: torch.Tensor) -> Dict[str, torch.Tensor]:
-    """Loss evaluation without gradients (vangan.py:442-457): noise σ 0, not training."""
+              real_S: torch.Tensor, group: Optional[Group] = None) -> Dict[str, torch.Tensor]:
+    """Loss evaluation without gradients (vangan.py:442-457): noise σ 0, not
+    training. With ``group``, on the rank's shard (``scales`` the rank's),
+    the losses averaged over the ranks: the JAX step's replicated result."""
     with torch.inference_mode():
-        return compute_losses(nets, cfg, scales, real_I, real_S, train=False)[1]
+        result = compute_losses(nets, cfg, scales, real_I, real_S, train=False)[1]
+        return all_reduce_mean(group, result)
 
 
 def compute_grads(nets: Dict[str, nn.Module], cfg, scales: LossScales, real_I: torch.Tensor,
@@ -192,8 +196,8 @@ def compute_grads(nets: Dict[str, nn.Module], cfg, scales: LossScales, real_I: t
 
 def train_step(nets: Dict[str, nn.Module], cfg, scales: LossScales, state: TrainState,
                real_I: torch.Tensor, real_S: torch.Tensor, noise_std: float, update_gen: bool,
-               generator: torch.Generator, mark: Callable[[str], None] = _no_mark
-               ) -> Dict[str, torch.Tensor]:
+               generator: torch.Generator, mark: Callable[[str], None] = _no_mark,
+               group: Optional[Group] = None) -> Dict[str, torch.Tensor]:
     """One optimisation step of all four networks (vangan.py:380-440): the
     gradients of ``compute_grads``, then each network's Adam update (clipped
     on the LSGAN path). With ``update_gen`` False the generators' parameters
@@ -201,13 +205,20 @@ def train_step(nets: Dict[str, nn.Module], cfg, scales: LossScales, state: Train
     running statistics and spectral-norm vectors, moved by the forward,
     advance either way, as the JAX step stores them (step.py:436). The
     gradient penalty weighs ``cfg.gp_weight`` from the second step of the
-    run (step.py:355-358). Returns the loss dict (0-d tensors on the device)."""
+    run (step.py:355-358). With ``group`` the batch is the rank's shard and
+    ``scales`` the rank's: each network's gradients, and the loss dict, are
+    averaged over the ranks before the update (the clip acts on the global
+    gradient, as JAX's), then every rank applies the same update. Returns
+    the loss dict (0-d tensors on the device)."""
     gp_scale = cfg.gp_weight if cfg.wasserstein and state.step > 0 else 0.0
     grads, result = compute_grads(nets, cfg, scales, real_I, real_S, noise_std, generator,
                                   mark, gp_scale)
-    for name in NETWORKS:
-        if update_gen or not name.startswith("gen"):
-            state.apply(name, grads[name])
+    updated = [name for name in NETWORKS if update_gen or not name.startswith("gen")]
+    grads = {name: all_reduce_grads(group, grads[name]) for name in updated}
+    result = all_reduce_mean(group, result)
+    mark("all_reduce")
+    for name in updated:
+        state.apply(name, grads[name])
     state.step += 1
     mark("optimizer")
     return result

@@ -7,6 +7,14 @@ training=True)``), evaluation (``distributed_test_step``, ``train(...,
 training=False)``) and checkpoints of the whole training state by epoch
 (``save_checkpoint``, ``load_checkpoint``). ``training.loop.fit`` runs the
 epochs.
+
+Given a ``parallel.Group``, a ``VanGan`` is one rank of data-parallel
+training on the group's device (the counterpart of the JAX package's data
+mesh): it steps on its share of the global batch and averages gradients
+and losses with the other ranks (``training.step``), holds the same
+parameters as every rank (broadcast from rank 0 after construction and
+after every load), draws its noise and dropout from its own generator, and
+writes files on rank 0 only.
 """
 
 from __future__ import annotations
@@ -23,6 +31,8 @@ from vangan_torch.config import VanGanConfig
 from vangan_torch.device import resolve_device
 from vangan_torch.losses import LossScales
 from vangan_torch.models.factory import build_discriminator, build_generator
+from vangan_torch.models.layers import BatchNorm
+from vangan_torch.parallel import Group, broadcast_state, is_main, rows
 from vangan_torch.training import step
 from vangan_torch.training.state import NETWORKS, make_train_state
 
@@ -40,13 +50,17 @@ class VanGan:
     CUDA a CUDA device raises), initialised from ``cfg.seed``, or the networks
     of ``models`` (a dict keyed by ``NETWORKS``), with one optimizer each whose
     LR schedule counts ``steps_per_epoch`` (default ``cfg.train_steps``, else
-    1) steps to an epoch."""
+    1) steps to an epoch. With ``group`` it is that rank of data-parallel
+    training (see the module note) on the group's device, ``device``
+    unread; the group's world must be ``cfg.N_DEVICES`` and divide the
+    global batch and the clDice groups."""
 
     def __init__(self, cfg: VanGanConfig, device="cuda",
                  models: Optional[Dict[str, torch.nn.Module]] = None,
-                 steps_per_epoch: Optional[int] = None):
+                 steps_per_epoch: Optional[int] = None, group: Optional[Group] = None):
         self.cfg = cfg
-        self.device = resolve_device(device)
+        self.group = group
+        self.device = resolve_device(device if group is None else group.device)
         self.steps_per_epoch = steps_per_epoch or cfg.train_steps or 1
         if models is None:
             g = torch.Generator().manual_seed(cfg.seed)
@@ -56,11 +70,25 @@ class VanGan:
                       "disc_S": build_discriminator(cfg, generator=g)}
         self.nets = {name: models[name].to(self.device).eval() for name in NETWORKS}
         self.scales = LossScales.from_config(cfg)
+        rank = 0
+        if group is not None:
+            cfg.rank_batch(group.world)  # raises unless the world splits the batch
+            self.scales = self.scales.for_rank(group.world)
+            rank = group.rank
+            for net in self.nets.values():
+                for m in net.modules():
+                    if isinstance(m, BatchNorm):
+                        m.group = group
         self.state = make_train_state(self.nets, cfg, self.steps_per_epoch)
         # noise and dropout draws of the train step: restarted from seed + 1
         # by every construction and not checkpointed, as the JAX package's
-        # _step_rng (vangan.py:96)
-        self.generator = torch.Generator(device=self.device).manual_seed(cfg.seed + 1)
+        # _step_rng (vangan.py:96); rank r > 0 of data parallelism draws from
+        # a seed of its own, since JAX draws over the whole global batch and
+        # equal draws on two shards would be another function
+        seed = cfg.seed + 1
+        if rank:
+            seed = int(np.random.SeedSequence([seed, rank]).generate_state(1)[0])
+        self.generator = torch.Generator(device=self.device).manual_seed(seed)
         self.current_epoch = 0
         self.checkpoint_loaded = False
         self._checkpointer: Optional[VanGanCheckpointer] = None
@@ -70,6 +98,7 @@ class VanGan:
         self.ncritic = cfg.ncritic
         self.icritic = 1
         self.updateGen = True
+        broadcast_state(group, self.nets.values())
 
     gen_IS = property(lambda self: self.nets["gen_IS"])
     gen_SI = property(lambda self: self.nets["gen_SI"])
@@ -96,7 +125,11 @@ class VanGan:
 
     def _on_device(self, batch) -> torch.Tensor:
         """A batch (numpy, or a torch tensor: pinned host memory from the
-        data feed is copied without blocking the host) on the device."""
+        data feed is copied without blocking the host) on the device; of a
+        global batch, the rank's rows (``parallel.rows``), and a batch of
+        the rank's share as it is."""
+        if self.group is not None and len(batch) == self.cfg.GLOBAL_BATCH_SIZE:
+            batch = batch[rows(self.group, len(batch))]
         return torch.as_tensor(batch, dtype=torch.float32).to(self.device, non_blocking=True)
 
     def distributed_train_step(self, real_I, real_S, noise_std: float,
@@ -104,28 +137,38 @@ class VanGan:
         """One optimisation step of the four networks on a (B, X, Y, Z, 1)
         imaging and segmentation batch (numpy or torch), discriminator noise
         σ ``noise_std``, the generators updated only with ``update_gen``:
-        the losses as a dict of 0-d tensors on the device."""
+        the losses as a dict of 0-d tensors on the device. A rank of data
+        parallelism takes the global batch, or its own share of it as the
+        feed gives it, and returns the losses averaged over the ranks."""
         return step.train_step(self.nets, self.cfg, self.scales, self.state,
                                self._on_device(real_I), self._on_device(real_S),
-                               float(noise_std), bool(update_gen), self.generator)
+                               float(noise_std), bool(update_gen), self.generator,
+                               group=self.group)
 
     def distributed_test_step(self, real_I, real_S) -> Dict[str, torch.Tensor]:
         """The losses of one (B, X, Y, Z, 1) imaging and segmentation batch
-        (numpy or torch), without gradients: a dict of 0-d tensors on the device."""
+        (numpy or torch), without gradients: a dict of 0-d tensors on the
+        device (a rank of data parallelism: as ``distributed_train_step``)."""
         return step.test_step(self.nets, self.cfg, self.scales, self._on_device(real_I),
-                              self._on_device(real_S))
+                              self._on_device(real_S), self.group)
 
     def weights_path(self, epoch: int) -> str:
         """Where weights of ``epoch`` live: ``<output_dir>/checkpoints/torch_e{epoch}.pt``."""
         return os.path.join(self.cfg.output_dir, "checkpoints", f"torch_e{epoch}.pt")
 
     def save_weights(self, path: str) -> None:
+        """The four networks' state_dicts to ``path`` (on rank 0 only)."""
+        if not is_main(self.group):
+            return
         os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
         torch.save({name: net.state_dict() for name, net in self.nets.items()}, path)
 
     def load_weights(self, path: str) -> None:
         """Load each network the file holds (strictly); both generators are
-        required, so a generators-only file loads for serving."""
+        required, so a generators-only file loads for serving. Every rank
+        loads, after a barrier, and takes rank 0's tensors."""
+        if self.group is not None:
+            self.group.barrier()
         state = torch.load(path, map_location=self.device, weights_only=True)
         missing = [n for n in ("gen_IS", "gen_SI") if n not in state]
         if missing:
@@ -133,6 +176,7 @@ class VanGan:
         for name, net in self.nets.items():
             if name in state:
                 net.load_state_dict(state[name], strict=True)
+        broadcast_state(self.group, self.nets.values())
 
     # --- checkpoints of the whole training state (vangan.py:247-268) ---
 
@@ -152,14 +196,21 @@ class VanGan:
                 "train_state": self.state.state_dict()}
 
     def save_checkpoint(self, epoch: int) -> None:
-        """Write ``torch_e{epoch+1}.pt`` asynchronously (the checkpointer's ``save``)."""
-        self.checkpointer.save(self.checkpoint_state(), epoch)
+        """Write ``torch_e{epoch+1}.pt`` asynchronously (the checkpointer's
+        ``save``), on rank 0 only."""
+        if is_main(self.group):
+            self.checkpointer.save(self.checkpoint_state(), epoch)
 
     def load_checkpoint(self, epoch: Optional[int] = None, expect_partial: bool = False,
                         newpath: Optional[str] = None) -> None:
         """Restore ``torch_e{epoch}.pt`` (of ``newpath`` if given): the
         networks, optimizers, counts and step; a missing file leaves the
-        state as it is, after "Error: Checkpoint not found!"."""
+        state as it is, after "Error: Checkpoint not found!". Every rank
+        loads, once rank 0's write in flight is on disk, and takes rank 0's
+        tensors."""
+        self.checkpointer.wait_until_finished()
+        if self.group is not None:
+            self.group.barrier()
         restored = self.checkpointer.load(self.checkpoint_state(), epoch, newpath=newpath,
                                           expect_partial=expect_partial)
         if restored is None:
@@ -167,6 +218,7 @@ class VanGan:
         for name, net in self.nets.items():
             net.load_state_dict(restored[name], strict=True)
         self.state.load_state_dict(restored["train_state"])
+        broadcast_state(self.group, self.nets.values(), self.state.opt.values())
         self.checkpoint_loaded = True
 
 
