@@ -223,12 +223,26 @@ Phases, each of which raises on failure:
    step of each, the all-reduce's ms for the gradients' bytes (world 1 over
    NCCL on a buffer of that size; the two gloo ranks' own), and each rank's
    peak memory. Its numbers on the ``dp*`` lines;
+16. gradient accumulation (``micro_batches``, ``check_micro``): config 2 at
+   BATCH_SIZE 3 in 3 slices (3x phase 8's launches, the slices' gradients
+   kernel against plain by phase 8's f32 rules on the whole batch at 128^3
+   and its bf16 rule, ms of both paths and peak memory); BASELINE config 5's
+   global batch of 12 on the one card in 4 slices (4x the launches, ms,
+   patches/s, peak memory; the step's rise above what it found allocated
+   within a batch-3 step's plus the gradient buffers and one incoming
+   gradient); config 4 in 3 slices in f32 on the 96^3 crop (its averaged
+   BatchNorm statistics kernel against plain); a ResU-Net and a V-Net with
+   the options no factory role sets (input noise, encoder dropout with a
+   per-layer change, sigmoid heads, two V-Net classes, the V-Net's
+   ``addnoise`` and decoder dropout), forward and backward, kernel against
+   plain. Its numbers on the ``micro3``, ``micro4_of_12``,
+   ``config4_micro3`` and ``generator_family`` lines;
 
 Then one JSON line of the seven kernels (launches counted in one train step
 of phase 8, the path that runs them all, and of phase 10 as
 ``config4_launches``; phase 13's step 1 as ``wgan_launches``; phase 14's
 2-D train step as ``twod_launches``; phase 15's per rank as
-``dp_launches``; phase 12's as
+``dp_launches``; phase 16's step of 3 slices as ``micro_launches``; phase 12's as
 ``raw_predict_launches`` for K1 and K4 and ``metric_launches`` for K6; for
 K4 and K7 the kernel launches beside the calls; ms, plain ms, library ms and the bound summed over the convs / norms
 of one gen_IS and one disc_I call at batch 3 (phases 2-3), one 3 x 128^3
@@ -412,6 +426,13 @@ DP = {"N_DEVICES": DP_WORLD}
 DP_CROP = 96           # the f32 checks' crop, phase 10's C4_F32_CROP
 DP_TIMED_STEPS = 3
 DP_TIMEOUT_S = 600     # a rank that runs longer fails the phase
+
+# phase 16: gradient accumulation (micro_batches), config 2 at BATCH_SIZE 3 in
+# 3 slices, and BASELINE config 5's global batch of 12 (4 cards x 3) on one
+# card in 4 slices; each slice launches what a train step of phase 8 does
+MICRO = 3
+MICRO_BIG_BATCH, MICRO_BIG = 12, 4
+MICRO_TIMED_STEPS = 3
 
 
 def require(cond, msg):
@@ -1090,6 +1111,55 @@ def reset_counters(ops):
     skel_ops.launches = skel_ops.bwd_launches = skel_ops.bwd_kernel_launches = 0
 
 
+def rel_l2(a, b):
+    return float((a - b).norm() / b.norm())
+
+
+def rel_loss(a, b):
+    return abs(a - b) / max(abs(b), 1e-30)
+
+
+def f32_agreement(kernel, plain, perturbed):
+    """Phase 8's f32 measures, kernel path against plain path: ``kernel`` and
+    ``plain`` are (flat f32 gradient per network, losses) from the same
+    weights and draws, ``perturbed`` the plain path's gradients with every
+    weight scaled by (1 + 1e-6 N(0, 1)), one per draw; the spread is the
+    largest draw's distance (``require_f32`` holds them to the rules)."""
+    (gk, lk), (gp, lp) = kernel, plain
+    return {"losses": {k: rel_loss(lk[k], lp[k]) for k in lp},
+            "grads": {n: {"kernel_vs_plain": rel_l2(gk[n], gp[n]),
+                          "plain_perturbed_vs_plain": max(rel_l2(d[n], gp[n])
+                                                          for d in perturbed)}
+                      for n in gp}}
+
+
+def require_f32(tag, out):
+    """Phase 8's f32 rules on ``f32_agreement``'s measures: each loss within
+    1e-3 relative, each gradient within SPREAD_FACTOR x the plain path's
+    spread."""
+    for k, v in out["losses"].items():
+        require(v <= 1e-3, f"{tag} {k}: f32 kernel loss {v:.3e} relative from plain")
+    for n, v in out["grads"].items():
+        require(v["kernel_vs_plain"] <= SPREAD_FACTOR * v["plain_perturbed_vs_plain"],
+                f"{tag} {n}: f32 kernel gradient {v['kernel_vs_plain']:.3e} from plain, "
+                f"the plain path's spread {v['plain_perturbed_vs_plain']:.3e}")
+
+
+def bf16_agreement(kernel16, plain16, plain32):
+    """Each network's bf16 kernel and bf16 plain gradient, relative L2 from
+    the f32 plain one (flat f32 gradients per network)."""
+    return {n: {"kernel_vs_f32": rel_l2(kernel16[n], plain32[n]),
+                "plain_vs_f32": rel_l2(plain16[n], plain32[n])} for n in plain32}
+
+
+def require_bf16(tag, out):
+    """Phase 8's bf16 rule: the kernel path within max(3x the plain path's
+    distance, 1e-3) of the f32 gradient."""
+    for n, v in out.items():
+        require(v["kernel_vs_f32"] <= max(3 * v["plain_vs_f32"], 1e-3),
+                f"{tag} {n}: bf16 kernel gradient too far from f32: {v}")
+
+
 def path_agreement(tag, grads_of, f32_crop=None, signed=(), spread_draws=1):
     """Phase 8's rules, kernel path against plain path, from ``grads_of(kernels,
     dtype, n, crop=N, perturb=0.0)`` -> (flat f32 gradient per network,
@@ -1127,9 +1197,13 @@ def path_agreement(tag, grads_of, f32_crop=None, signed=(), spread_draws=1):
         for kernels in (True, False):
             crop[kernels] = grads_of(kernels, f32, STEP_BATCH, f32_crop)
         crop["perturbed"] = grads_of(False, f32, STEP_BATCH, f32_crop, 1e-6)[0]
-    rel = lambda a, b: float((a - b).norm() / b.norm())  # noqa: E731
-    rel_loss = lambda a, b: abs(a - b) / max(abs(b), 1e-30)  # noqa: E731
     one, full = 1, STEP_BATCH
+    f32_out = f32_agreement((grads[True, f32, one], losses[True, f32, one]),
+                            (grads[False, f32, one], losses[False, f32, one]), draws)
+    bf16_out = bf16_agreement(grads[True, bf16, one], grads[False, bf16, one],
+                              grads[False, f32, one])
+    if crop:
+        crop = f32_agreement(crop[True], crop[False], [crop["perturbed"]])
     report = {"losses": {}, "grads": {}}
     for key, r in losses[False, f32, one].items():
         k16_3, p16_3 = losses[True, bf16, full][key], losses[False, bf16, full][key]
@@ -1137,37 +1211,39 @@ def path_agreement(tag, grads_of, f32_crop=None, signed=(), spread_draws=1):
             "f32_plain": r, "f32_kernel": losses[True, f32, one][key],
             "bf16_kernel": losses[True, bf16, one][key],
             "bf16_plain": losses[False, bf16, one][key],
-            "f32_rel": rel_loss(losses[True, f32, one][key], r),
+            "f32_rel": f32_out["losses"][key],
             "bf16_kernel_vs_plain": rel_loss(losses[True, bf16, one][key],
                                              losses[False, bf16, one][key]),
             "batch3_bf16_kernel": k16_3, "batch3_bf16_plain": p16_3,
             "batch3_bf16_kernel_vs_plain": rel_loss(k16_3, p16_3)}
         if crop:
-            report["losses"][key]["crop_f32_batch3_rel"] = rel_loss(crop[True][1][key],
-                                                                    crop[False][1][key])
+            report["losses"][key]["crop_f32_batch3_rel"] = crop["losses"][key]
     for n in NETWORKS:
         ref = grads[False, f32, one][n]
         p16_3 = grads[False, bf16, full][n]
         report["grads"][n] = {
-            "f32_kernel_vs_plain": rel(grads[True, f32, one][n], ref),
-            "f32_plain_perturbed_vs_plain": max(rel(d[n], ref) for d in draws),
-            "f32_plain_perturbed_draws": [rel(d[n], ref) for d in draws],
-            "bf16_kernel_vs_f32": rel(grads[True, bf16, one][n], ref),
-            "bf16_plain_vs_f32": rel(grads[False, bf16, one][n], ref),
-            "bf16_kernel_vs_plain": rel(grads[True, bf16, one][n], grads[False, bf16, one][n]),
-            "batch3_bf16_kernel_vs_plain": rel(grads[True, bf16, full][n], p16_3),
+            "f32_kernel_vs_plain": f32_out["grads"][n]["kernel_vs_plain"],
+            "f32_plain_perturbed_vs_plain": f32_out["grads"][n]["plain_perturbed_vs_plain"],
+            "f32_plain_perturbed_draws": [rel_l2(d[n], ref) for d in draws],
+            "bf16_kernel_vs_f32": bf16_out[n]["kernel_vs_f32"],
+            "bf16_plain_vs_f32": bf16_out[n]["plain_vs_f32"],
+            "bf16_kernel_vs_plain": rel_l2(grads[True, bf16, one][n],
+                                           grads[False, bf16, one][n]),
+            "batch3_bf16_kernel_vs_plain": rel_l2(grads[True, bf16, full][n], p16_3),
             # what a fault that drops two samples' share would read
-            "control_batch1_vs_batch3_plain": rel(grads[False, bf16, one][n], p16_3)}
+            "control_batch1_vs_batch3_plain": rel_l2(grads[False, bf16, one][n], p16_3)}
         if crop:
             report["grads"][n].update({
-                "crop_f32_batch3_kernel_vs_plain": rel(crop[True][0][n], crop[False][0][n]),
-                "crop_f32_batch3_plain_perturbed_vs_plain": rel(crop["perturbed"][n],
-                                                                crop[False][0][n])})
-    del grads, crop
+                "crop_f32_batch3_kernel_vs_plain": crop["grads"][n]["kernel_vs_plain"],
+                "crop_f32_batch3_plain_perturbed_vs_plain":
+                    crop["grads"][n]["plain_perturbed_vs_plain"]})
+    del grads
     print(f"{tag}_agreement", json.dumps(report))
+    require_f32(tag, f32_out)
+    require_bf16(tag, bf16_out)
+    if crop:
+        require_f32(f"{tag} at batch {STEP_BATCH} on the crop", crop)
     for key, v in report["losses"].items():
-        require(v["f32_rel"] <= 1e-3, f"{tag} {key}: f32 kernel {v['f32_kernel']} vs "
-                f"plain {v['f32_plain']}")
         # at batch 3 no f32 reference fits: the bf16 paths may differ there
         # by 3x what they differ by on one sample; a signed loss (the
         # Wasserstein values, means of scores of either sign) by its
@@ -1181,24 +1257,13 @@ def path_agreement(tag, grads_of, f32_crop=None, signed=(), spread_draws=1):
             require(v["batch3_bf16_kernel_vs_plain"] <= max(3 * v["bf16_kernel_vs_plain"],
                                                             1e-3),
                     f"{tag} {key} at batch {STEP_BATCH}: bf16 kernel vs plain: {v}")
-        require(v.get("crop_f32_batch3_rel", 0.0) <= 1e-3,
-                f"{tag} {key}: f32 kernel vs plain at batch {STEP_BATCH} on the crop: {v}")
     for n, v in report["grads"].items():
-        require(v["f32_kernel_vs_plain"] <= SPREAD_FACTOR * v["f32_plain_perturbed_vs_plain"],
-                f"{tag} {n}: f32 kernel gradient {v['f32_kernel_vs_plain']:.3e} from plain, "
-                f"the plain path's spread {v['f32_plain_perturbed_vs_plain']:.3e}")
-        require(v["bf16_kernel_vs_f32"] <= max(3 * v["bf16_plain_vs_f32"], 1e-3),
-                f"{tag} {n}: bf16 kernel gradient too far from f32: {v}")
         require(v["batch3_bf16_kernel_vs_plain"] <= max(3 * v["bf16_kernel_vs_plain"], 1e-3),
                 f"{tag} {n}: bf16 kernel gradient at batch {STEP_BATCH} too far from plain: {v}")
         # below what a step that dropped samples would read
         require(v["batch3_bf16_kernel_vs_plain"] < v["control_batch1_vs_batch3_plain"],
                 f"{tag} {n}: bf16 kernel gradient at batch {STEP_BATCH} as far from plain "
                 f"as one sample's: {v}")
-        if f32_crop:
-            require(v["crop_f32_batch3_kernel_vs_plain"] <=
-                    SPREAD_FACTOR * v["crop_f32_batch3_plain_perturbed_vs_plain"],
-                    f"{tag} {n}: f32 kernel gradient at batch {STEP_BATCH} on the crop: {v}")
 
     return report
 
@@ -1653,7 +1718,7 @@ def check_max_pool_ties():
     return res
 
 
-def check_generator_family(name, model, ops):
+def check_generator_family(name, model, ops, out_channels=1):
     """One generator alone at full width, batch 1, N^3, in training (its
     dropout drawn from one seed on both paths): forward and backward of
     ``sum(out * gy)``. Every kernel is called the count the path derives:
@@ -1671,7 +1736,8 @@ def check_generator_family(name, model, ops):
 
     rng = np.random.default_rng(SEED + 7)
     x = torch.from_numpy(rng.uniform(-1, 1, (1, N, N, N, 1)).astype(np.float32)).to(DEVICE)
-    gy = torch.from_numpy(rng.normal(size=(1, N, N, N, 1)).astype(np.float32)).to(DEVICE)
+    gy = torch.from_numpy(rng.normal(size=(1, N, N, N, out_channels)).astype(np.float32)
+                          ).to(DEVICE)
     model = model.to(DEVICE)
     init = copy.deepcopy(model.state_dict())
     seen = {"convs": 0, "dx": 0, "fold": 0, "norms": 0}
@@ -1723,7 +1789,7 @@ def check_generator_family(name, model, ops):
     require(launches == want and kernel_launches == {"instnorm_fwd": seen["norms"],
                                                      "soft_skel_bwd": 0},
             f"{name}: launched {launches} ({kernel_launches} kernels), expected {want}")
-    require(k16.shape == x.shape and bool(torch.isfinite(k16).all()) and
+    require(k16.shape == gy.shape and bool(torch.isfinite(k16).all()) and
             bool(torch.isfinite(gk16).all()), f"{name}: output or gradient not finite")
     p16, gp16 = run(False, torch.bfloat16)
     k32, gk32 = run(True, torch.float32)
@@ -1801,7 +1867,8 @@ def check_other_generators(ops, tol):
     g = torch.Generator().manual_seed(SEED)
     families = {
         "resunet_deconv": lambda: ResUNet3D(16, 4, upsample_mode="deconv", generator=g),
-        "resunet_attention": lambda: ResUNet3D(16, 4, use_attention_gate=True, generator=g),
+        "resunet_attention": lambda: ResUNet3D(16, 4, upsample_mode="simple",
+                                               use_attention_gate=True, generator=g),
         # the factory's ResNet takes no role (vangan_tpu/models/factory.py)
         "resnet": lambda: build_generator("resnet", VanGanConfig(), generator=g),
     }
@@ -2494,16 +2561,23 @@ def dp_batch(n, sample):
     return real_I, real_S
 
 
-def dp_reset(gan, init, dtype, perturb=0.0):
-    """Seeded weights in ``dtype``, fresh optimizers, dropout off; with
-    ``perturb``, every weight scaled by (1 + perturb N(0, 1))."""
+def dp_reset(gan, init, dtype, perturb=0.0, kernels=None, seed=None, dropout=False):
+    """Seeded weights in ``dtype``, fresh optimizers, dropout off unless
+    ``dropout``; with ``kernels``, that path; with ``seed``, the step's
+    generator reseeded (the same draws); with ``perturb``, every weight
+    scaled by (1 + perturb N(0, 1))."""
     from vangan_torch.training.state import make_train_state
 
     for name, net in gan.nets.items():
         net.load_state_dict(init[name])
         net.dtype = dtype
-    no_dropout(gan.nets)
+    if not dropout:
+        no_dropout(gan.nets)
+    if kernels is not None:
+        gan.set_use_kernels(kernels)
     gan.state = make_train_state(gan.nets, gan.cfg, gan.steps_per_epoch)
+    if seed is not None:
+        gan.generator.manual_seed(seed)
     if perturb:
         with torch.no_grad():
             pg = torch.Generator(device=gan.device).manual_seed(SEED + 6)
@@ -2673,14 +2747,6 @@ def dp_rank(group, out_dir, parity=True):
     return res
 
 
-def dp_rel(a, b):
-    return float((a - b).norm() / b.norm())
-
-
-def dp_rel_loss(a, b):
-    return abs(a - b) / max(abs(b), 1e-30)
-
-
 def check_dp(card):
     """Phase 15: data parallelism (see the module note)."""
     import copy
@@ -2737,15 +2803,15 @@ def check_dp(card):
             each f32 loss within 1e-3."""
             rep = {"grads": {}, "losses": {}}
             for n in NETWORKS:
-                d = dp_rel(got[n], ref[0][n])
-                spread = max(dp_rel(o[0][n], ref[0][n]) for o in spreads.values())
-                rep["grads"][n] = {"dp_vs_one": d, **{f"{k}_vs_one": dp_rel(o[0][n], ref[0][n])
+                d = rel_l2(got[n], ref[0][n])
+                spread = max(rel_l2(o[0][n], ref[0][n]) for o in spreads.values())
+                rep["grads"][n] = {"dp_vs_one": d, **{f"{k}_vs_one": rel_l2(o[0][n], ref[0][n])
                                                       for k, o in spreads.items()}}
                 require(d <= max(SPREAD_FACTOR * spread, floor),
                         f"dp {tag} {n}: gradient {d:.3e} from one process, spread {spread:.3e}")
             for k, v in ref[1].items():
-                d = dp_rel_loss(got_losses[k], v)
-                spread = max(dp_rel_loss(o[1][k], v) for o in spreads.values())
+                d = rel_loss(got_losses[k], v)
+                spread = max(rel_loss(o[1][k], v) for o in spreads.values())
                 rep["losses"][k] = {"dp": got_losses[k], "one": v, "dp_vs_one": d,
                                     "spread": spread}
                 lim = 1e-3 if "f32" in tag else max(SPREAD_FACTOR * spread, floor)
@@ -2762,7 +2828,7 @@ def check_dp(card):
         halves = dp_grads(gan, real_I, real_S, N, halves=True)
         got = torch.load(os.path.join(tmp, "bf16.pt"))
         hold("bf16", one, {"halves": halves}, got, ranks[0]["bf16"], 1e-3)
-        agreement["bf16"]["dp_vs_halves"] = {n: dp_rel(got[n], halves[0][n]) for n in NETWORKS}
+        agreement["bf16"]["dp_vs_halves"] = {n: rel_l2(got[n], halves[0][n]) for n in NETWORKS}
         del one, halves, got
         dp_reset(gan, init, torch.float32)
         one = dp_grads(gan, real_I, real_S, DP_CROP)
@@ -2801,8 +2867,8 @@ def check_dp(card):
              0.0)
         stats = {}
         for name, ref in one[2].items():
-            d = dp_rel(ranks[0]["config4_stats"][name], ref)
-            spread = dp_rel(moved[2][name], ref)
+            d = rel_l2(ranks[0]["config4_stats"][name], ref)
+            spread = rel_l2(moved[2][name], ref)
             stats[name] = (d, spread)
             require(torch.equal(ranks[0]["config4_stats"][name], ranks[1]["config4_stats"][name]),
                     f"dp config 4 {name}: the ranks' running statistics differ")
@@ -2824,7 +2890,7 @@ def check_dp(card):
             got = ranks[0]["config4_bn_forward"][name]
             require(torch.equal(got, ranks[1]["config4_bn_forward"][name]),
                     f"dp config 4 gen_SI.{name}: the ranks' statistics differ")
-            stats[name] = (dp_rel(got, ref), dp_rel(moved[name], ref))
+            stats[name] = (rel_l2(got, ref), rel_l2(moved[name], ref))
             require(stats[name][0] <= max(SPREAD_FACTOR * stats[name][1], 1e-5),
                     f"dp config 4 gen_SI.{name}: forward statistic {stats[name]}")
         report["config4_bn_forward"] = {"buffers": len(stats),
@@ -2863,6 +2929,225 @@ def check_dp(card):
                           f"two ranks over NCCL need {DP_WORLD}")
     report["phase_s"] = time.perf_counter() - t_phase
     print("dp", json.dumps(report))
+    return report
+
+
+def check_micro(ops, tol, train, card):
+    """Phase 16: gradient accumulation (``micro_batches``). (a) Config 2 at
+    BATCH_SIZE 3 in 3 slices: one bf16 step on the kernels must launch 3x
+    phase 8's counts, move every parameter whose gradient is not exactly 0
+    and give ten finite losses; the
+    slices' summed gradients and losses, kernel path against plain path, by
+    phase 8's f32 rules on the whole batch at 128^3 (each slice is one sample,
+    so the f32 plain path fits) and its bf16 rule against f32; ms per step of
+    both paths in turns and peak memory. (b) BASELINE config 5's global batch
+    of 12 on this one card in 4 slices: 4x phase 8's launches, finite
+    losses, ms per step, patches/s and peak memory; the step's rise above
+    what it found allocated (weights, Adam's moments, the batch) must stay
+    within a batch-3 step's rise, measured the same way, plus the gradient
+    buffers, which live across the slices, and one incoming gradient.
+    (c) Config 4 at BATCH_SIZE 3 in 3 slices on the batch cropped to 96^3
+    in f32: 3x phase 10's launches; gradients and losses by
+    phase 8's f32 rules, kernel against plain, and every BatchNorm
+    statistic (the mean of the slices') within max(SPREAD_FACTOR x its
+    spread, 1e-5) relative L2. (d) A ResU-Net and a V-Net with the options
+    no factory role sets, each alone at full width, forward and backward,
+    kernel against plain (``check_generator_family``)."""
+    import copy
+
+    from vangan_torch.config import VanGanConfig
+    from vangan_torch.models.resunet import ResUNet3D
+    from vangan_torch.models.vnet import VNet3D
+    from vangan_torch.training import step
+    from vangan_torch.training.state import NETWORKS
+    from vangan_torch.vangan import VanGan
+
+    f32, bf16 = torch.float32, torch.bfloat16
+    report = {"card": card}
+
+    def setup(batch, micro, sample=N, **kw):
+        cfg = VanGanConfig(BATCH_SIZE=batch, micro_batches=micro, cldice_iters=SKEL_ITERS,
+                           SUBVOL_PATCH_SIZE=(sample,) * 3, **kw)
+        gan = VanGan(cfg, device=DEVICE)
+        return gan, {name: copy.deepcopy(net.state_dict()) for name, net in gan.nets.items()}
+
+    def reset(gan, init, kernels, dtype, perturb=0.0):
+        dp_reset(gan, init, dtype, perturb, kernels=kernels, seed=SEED + 5, dropout=True)
+
+    def main_step(gan, init, real_I, real_S, times, tag):
+        """One bf16 step on the kernels, its counters read just after it."""
+        reset(gan, init, True, bf16)
+        torch.cuda.synchronize()
+        reset_counters(ops)
+        out = gan.distributed_train_step(real_I, real_S, NOISE, True)
+        torch.cuda.synchronize()
+        launches, kernel_launches = counters(ops), kernel_counters(ops)
+        want = {k: times * v for k, v in TRAIN_LAUNCHES.items()}
+        want_k = {k: times * v for k, v in TRAIN_KERNEL_LAUNCHES.items()}
+        require(launches == want and kernel_launches == want_k,
+                f"{tag}: one step launched {launches} ({kernel_launches} kernels), expected "
+                f"{want} ({want_k})")
+        losses = {k: float(v) for k, v in out.items()}
+        require(len(losses) == 10 and all(math.isfinite(v) for v in losses.values()),
+                f"{tag}: losses not all finite: {losses}")
+        unmoved = []
+        for name, net in gan.nets.items():
+            for k, prm in net.named_parameters():
+                require(bool(torch.isfinite(prm).all()), f"{tag} {name}.{k}: not finite")
+                if torch.equal(prm.detach(), init[name][k].to(prm.device)):
+                    unmoved.append((name, k))
+        # a parameter stays only where its summed bf16 gradient is exactly 0:
+        # a PatchGAN head's bias sums dL/dD over real and fake scores that
+        # nearly cancel on one-sample slices (8e-4 in f32, 0 in bf16 on both
+        # paths), so the same draws are run again for the gradients
+        if unmoved:
+            reset(gan, init, True, bf16)
+            g, _ = step.compute_grads(gan.nets, gan.cfg, gan.scales, real_I, real_S, NOISE,
+                                      gan.generator, micro=gan.cfg.micro_batches)
+            for name, k in unmoved:
+                i = [n for n, _ in gan.nets[name].named_parameters()].index(k)
+                require(not bool(g[name][i].any()),
+                        f"{tag} {name}.{k}: not moved by the step, gradient not 0")
+            del g
+        return {"launches": launches, "kernel_launches": kernel_launches, "losses": losses,
+                "unmoved_zero_gradient": [f"{n}.{k}" for n, k in unmoved]}
+
+    def grads_of(gan, init, real_I, real_S, kernels, dtype, perturb=0.0, crop=N):
+        reset(gan, init, kernels, dtype, perturb)
+        box = (slice(None),) + (slice(0, crop),) * 3
+        g, res = step.compute_grads(gan.nets, gan.cfg, gan.scales,
+                                    real_I[box].contiguous(), real_S[box].contiguous(), NOISE,
+                                    gan.generator, micro=gan.cfg.micro_batches)
+        stats = {f"{n}.{b}": t.detach().float().clone() for n, net in gan.nets.items()
+                 for b, t in net.named_buffers()}
+        return ({n: torch.cat([t.float().flatten() for t in g[n]]) for n in NETWORKS},
+                {k: float(v) for k, v in res.items()}, stats)
+
+    # (a) config 2, batch 3 in 3 slices: the main path first
+    t0 = time.perf_counter()
+    gan, init = setup(STEP_BATCH, MICRO)
+    _, real_I, real_S = step_batch()
+    a = main_step(gan, init, real_I, real_S, MICRO, "micro3")
+    runs = {(k, d): grads_of(gan, init, real_I, real_S, k, d)
+            for k, d in ((True, f32), (False, f32), (True, bf16), (False, bf16))}
+    perturbed = grads_of(gan, init, real_I, real_S, False, f32, perturb=1e-6)
+    a["f32"] = f32_agreement(runs[True, f32][:2], runs[False, f32][:2], [perturbed[0]])
+    a["bf16"] = bf16_agreement(runs[True, bf16][0], runs[False, bf16][0], runs[False, f32][0])
+    require_f32("micro3", a["f32"])
+    require_bf16("micro3", a["bf16"])
+    del runs, perturbed
+    for path in ("kernel", "plain"):  # warm-up of each path
+        reset(gan, init, path == "kernel", bf16)
+        gan.distributed_train_step(real_I, real_S, NOISE, True)
+    reset(gan, init, True, bf16)
+    a.update(train_steps_in_turns(gan, real_I, real_S))
+    a["phase8_kernel_ms_per_step"] = train["kernel_ms_per_step"]
+    a["phase8_kernel_peak_gib"] = train["kernel_peak_gib"]
+    a["s"] = time.perf_counter() - t0
+    report["micro3_of_3"] = a
+    print("micro3", json.dumps(a))
+    grad_bytes = sum(p.numel() * p.element_size() for net in gan.nets.values()
+                     for p in net.parameters())
+    largest_grad = max(p.numel() * p.element_size() for net in gan.nets.values()
+                       for p in net.parameters())
+    del gan, init
+    torch.cuda.empty_cache()
+
+    # (b) the global batch of 12 on one card, in 4 slices
+    def timed(gan, real_I, real_S, steps):
+        """ms of warmed-up kernel-path steps, the peak, and the peak above
+        what the step found allocated (weights, Adam's moments, the batch)."""
+        gan.distributed_train_step(real_I, real_S, NOISE, True)  # warm-up
+        times, peak, rise = [], 0.0, 0.0
+        for _ in range(steps):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            before = torch.cuda.memory_allocated()
+            times.append(cuda_ms(lambda: gan.distributed_train_step(real_I, real_S, NOISE, True),
+                                 reps=1))
+            peak = max(peak, torch.cuda.max_memory_allocated() / 2**30)
+            rise = max(rise, (torch.cuda.max_memory_allocated() - before) / 2**30)
+        return times, peak, rise
+
+    t0 = time.perf_counter()
+    gan, init = setup(MICRO_BIG_BATCH, MICRO_BIG)
+    big_I, big_S = (torch.from_numpy(t).to(DEVICE) for t in dp_batch(MICRO_BIG_BATCH, (N,) * 3))
+    b = main_step(gan, init, big_I, big_S, MICRO_BIG, "micro4_of_12")
+    reset(gan, init, True, bf16)
+    times, peak, rise = timed(gan, big_I, big_S, MICRO_TIMED_STEPS)
+    del gan, init
+    torch.cuda.empty_cache()
+    # the step of phase 8 (3 samples, one backward), measured the same way
+    gan, init = setup(STEP_BATCH, 1)
+    reset(gan, init, True, bf16)
+    times3, peak3, rise3 = timed(gan, big_I[:STEP_BATCH], big_S[:STEP_BATCH], 1)
+    b.update({"ms_per_step": float(np.median(times)), "ms_all": times,
+              "patches_per_s": MICRO_BIG_BATCH * 1e3 / float(np.median(times)),
+              "peak_gib": peak, "step_rise_gib": rise, "grad_gib": grad_bytes / 2**30,
+              "batch3_ms": times3[0], "batch3_peak_gib": peak3, "batch3_step_rise_gib": rise3,
+              "phase8_kernel_peak_gib": train["kernel_peak_gib"],
+              "phase8_patches_per_s": STEP_BATCH * 1e3 / train["kernel_ms_per_step"]})
+    # above what it found allocated, the step of 4 slices of 3 may take what
+    # the step of 3 takes, plus the gradient buffers, which live across the
+    # slices, plus one incoming gradient: from the second slice on, autograd
+    # adds each parameter's new gradient into its buffer, where the first
+    # backward takes the new tensor itself (measured 4 MB above the first
+    # two, NVIDIA H100 80GB HBM3, 700.00 W)
+    b["largest_grad_gib"] = largest_grad / 2**30
+    require(rise <= rise3 + (grad_bytes + largest_grad) / 2**30,
+            f"micro4_of_12: the step rose {rise:.3f} GiB, the batch-3 step {rise3:.3f} GiB "
+            f"plus {grad_bytes / 2**30:.3f} GiB of gradients and one of "
+            f"{largest_grad / 2**30:.3f} GiB")
+    b["s"] = time.perf_counter() - t0
+    report["micro4_of_12"] = b
+    print("micro4_of_12", json.dumps(b))
+    del gan, init, big_I, big_S
+    torch.cuda.empty_cache()
+
+    # (c) config 4 in 3 slices, f32 on the 96^3 crop; launches as phase 10's
+    t0 = time.perf_counter()
+    gan, init = setup(STEP_BATCH, MICRO, **C4)
+    reset_counters(ops)
+    kern = grads_of(gan, init, real_I, real_S, True, f32, crop=C4_F32_CROP)
+    torch.cuda.synchronize()
+    c = {"launches": counters(ops)}
+    want = {k: MICRO * v for k, v in C4_TRAIN_LAUNCHES.items()}
+    require(c["launches"] == want, f"config4 micro3: launched {c['launches']}, expected {want}")
+    plain = grads_of(gan, init, real_I, real_S, False, f32, crop=C4_F32_CROP)
+    pert = grads_of(gan, init, real_I, real_S, False, f32, 1e-6, crop=C4_F32_CROP)
+    c.update(f32_agreement(kern[:2], plain[:2], [pert[0]]))
+    require_f32("config4_micro3", c)
+    c["batch_norm"] = {}
+    for key, want_t in plain[2].items():
+        if "gen_SI" not in key:
+            continue
+        v = {"kernel_vs_plain": rel_l2(kern[2][key], want_t),
+             "plain_perturbed_vs_plain": rel_l2(pert[2][key], want_t),
+             "moved_abs": float((want_t - init["gen_SI"][key.split(".", 1)[1]].float().to(DEVICE))
+                                .norm())}
+        c["batch_norm"][key] = v
+        require(v["kernel_vs_plain"] <= max(SPREAD_FACTOR * v["plain_perturbed_vs_plain"], 1e-5)
+                and v["moved_abs"] > 0, f"config4 micro3 {key}: {v}")
+    require(c["batch_norm"], "config4 micro3: no BatchNorm statistic")
+    c["s"] = time.perf_counter() - t0
+    report["config4_micro3"] = c
+    print("config4_micro3", json.dumps(c))
+    del gan, init, kern, plain, pert
+    torch.cuda.empty_cache()
+
+    # (d) the generators' other options, each alone at full width
+    g = torch.Generator().manual_seed(SEED)
+    report["resunet_options"] = check_generator_family("resunet_options", ResUNet3D(
+        16, 4, upsample_mode="deconv", dropout_type="spatial", dropout=0.1,
+        dropout_change_per_layer=0.1, output_activation="sigmoid", use_input_noise=True,
+        generator=g), ops)
+    torch.cuda.empty_cache()
+    report["vnet_options"] = check_generator_family("vnet_options", VNet3D(
+        use_batch_norm=False, upsample_mode="simple", dropout=0.3, dropout_type="spatial",
+        filters=32, num_layers=4, addnoise=True, num_classes=2, output_activation="sigmoid",
+        dropout_change_per_layer=0.05, use_dropout_on_upsampling=True, generator=g), ops,
+        out_channels=2)
+    torch.cuda.empty_cache()
     return report
 
 
@@ -2955,6 +3240,8 @@ def main() -> int:
     twod = check_twod((conv_ops, in_ops, skel_ops), tol, card)
     torch.cuda.empty_cache()
     dp = check_dp(card)
+    torch.cuda.empty_cache()
+    micro = check_micro((conv_ops, in_ops, skel_ops), tol, train, card)
 
     require("jax" not in sys.modules and "vangan_tpu" not in sys.modules,
             "the port imported JAX or the JAX package")
@@ -2976,6 +3263,7 @@ def main() -> int:
                 "wgan_launches": wgan["launches"][1][name],
                 "twod_launches": twod["train"]["launches"][name],
                 "dp_launches": dp["launches"][name],
+                "micro_launches": micro["micro3_of_3"]["launches"][name],
                 "max_abs_err": max(r[f"{op}_bf16_abs_err"] for r in conv_rows),
                 "ms": total(f"{op}_bf16_ms"), "plain_ms": total(f"{op}_bf16_plain_ms"),
                 **summed_bound([(len(r["convs"]), r["bound"][op]) for r in conv_rows]),
@@ -2991,7 +3279,9 @@ def main() -> int:
                  "config4_launches": c4["train"]["launches"][name],
                  "wgan_launches": wgan["launches"][1][name],
                  "twod_launches": twod["train"]["launches"][name],
-                 "dp_launches": dp["launches"][name], "max_abs_err": max(errs_),
+                 "dp_launches": dp["launches"][name],
+                 "micro_launches": micro["micro3_of_3"]["launches"][name],
+                 "max_abs_err": max(errs_),
                  "ms": total(f"{op}_bf16_ms"), "plain_ms": total(f"{op}_bf16_plain_ms"),
                  **summed_bound([(len(r["uses"]), r["bound"][op]) for r in in_rows]),
                  "library_ms": None}
@@ -3029,6 +3319,7 @@ def main() -> int:
          "wgan_launches": wgan["launches"][1]["soft_skel_fwd"],
          "twod_launches": twod["train"]["launches"]["soft_skel_fwd"],
          "dp_launches": dp["launches"]["soft_skel_fwd"],
+         "micro_launches": micro["micro3_of_3"]["launches"]["soft_skel_fwd"],
          "metric_launches": data_eval["metric_launches"],
          "max_abs_err": max(skel["tanh_noise_max_abs_err"], skel["binary_faces_max_abs_err"],
                             *data_eval["skel_max_abs_err"].values()),
@@ -3043,6 +3334,7 @@ def main() -> int:
          "wgan_launches": wgan["launches"][1]["soft_skel_bwd"],
          "twod_launches": twod["train"]["launches"]["soft_skel_bwd"],
          "dp_launches": dp["launches"]["soft_skel_bwd"],
+         "micro_launches": micro["micro3_of_3"]["launches"]["soft_skel_bwd"],
          "config4_launches": c4["train"]["launches"]["soft_skel_bwd"],
          "config4_kernel_launches": c4["train"]["kernel_launches"]["soft_skel_bwd"],
          "max_abs_err": skel["bwd_max_abs_err"], "ms": skel["bwd_ms"],

@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Time (and optionally profile) the port's full-width train step on one GPU.
 
-    python scripts/bench_train_step_torch.py [--batch 3] [--gen resUnet] [--wasserstein]
-        [--profile]
+    python scripts/bench_train_step_torch.py [--batch 3] [--micro-batches 1] [--gen resUnet]
+        [--wasserstein] [--profile]
 
 The train step of BASELINE config 2 (``VanGan.distributed_train_step``: two
 ResU-Net generators f=16 applied twice each, or with ``--gen vnet`` the
@@ -13,7 +13,8 @@ applied three times each with noise sigma 0.1 and dropout, the full loss set
 with 15-iteration clDice, one backward, clip + Adam for all four networks;
 bf16, 128^3 patches; with ``--wasserstein`` the WGAN-GP step: the critics'
 Wasserstein head, the WGAN Adam, and the gradient penalty, on from the
-warm-up's second step) from seeded weights on a seeded batch (``real_I``
+warm-up's second step; with ``--micro-batches M`` gradient accumulation over
+M slices of the batch, which M must divide) from seeded weights on a seeded batch (``real_I``
 uniform in [-1, 1], ``real_S`` binary in {-1, 1}). It prints the card's name
 and power limit, then one JSON line per step on the kernel path and the
 plain path in turns after a warm-up step of each (plain, kernel, kernel,
@@ -21,7 +22,8 @@ plain, plain, kernel; ms per step by CUDA events, peak device memory), one
 JSON line per path of CUDA-event ms per layer group of the step (generator
 forward, cycle losses, discriminator forward, adversarial losses, the
 gradient penalty's first-order pass with ``--wasserstein``, backward,
-optimizer; median of 3 steps, events recorded at the step's phase marks), and
+optimizer; median of 3 steps, events recorded at the step's phase marks,
+summed over the slices), and
 with ``--profile`` a torch.profiler breakdown of one kernel-path step by
 kernel family, with the device ms of the transposed convs, BatchNorm and
 max-pool. The device's idle share is taken against the CUDA-event time of a
@@ -77,8 +79,10 @@ def layer_ms(gan, real_I, real_S, kernels: bool, reps: int = 3) -> dict:
         train_step.train_step(gan.nets, gan.cfg, gan.scales, gan.state, real_I, real_S, NOISE,
                               True, gan.generator, mark=mark)
         torch.cuda.synchronize()
-        runs.append({name: prev.elapsed_time(ev)
-                     for (_, prev), (name, ev) in zip(events, events[1:])})
+        run = {}
+        for (_, prev), (name, ev) in zip(events, events[1:]):
+            run[name] = run.get(name, 0.0) + prev.elapsed_time(ev)
+        runs.append(run)
     return {"path": "kernel" if kernels else "plain",
             "layer_ms": {g: float(np.median([r[g] for r in runs])) for g in runs[0]}}
 
@@ -109,6 +113,8 @@ def profile(gan, real_I, real_S, step_ms: float) -> dict:
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--batch", type=int, default=3)
+    p.add_argument("--micro-batches", type=int, default=1,
+                   help="gradient accumulation over this many slices of the batch")
     p.add_argument("--profile", action="store_true")
     p.add_argument("--gen", choices=("resUnet", "vnet", "resnet"), default="resUnet",
                    help="both generators' kind: resUnet (config 2), vnet (config 4), resnet")
@@ -123,8 +129,8 @@ def main(argv=None) -> int:
                          check=True, timeout=60)
     print(smi.stdout.strip())
 
-    cfg = VanGanConfig(BATCH_SIZE=args.batch, gen_i2s=args.gen, gen_s2i=args.gen,
-                       wasserstein=args.wasserstein)
+    cfg = VanGanConfig(BATCH_SIZE=args.batch, micro_batches=args.micro_batches,
+                       gen_i2s=args.gen, gen_s2i=args.gen, wasserstein=args.wasserstein)
     gan = VanGan(cfg, device="cuda")
     rng = np.random.default_rng(cfg.seed)
     shape = (cfg.GLOBAL_BATCH_SIZE, *cfg.SUBVOL_PATCH_SIZE, 1)
@@ -133,6 +139,7 @@ def main(argv=None) -> int:
     real_S = torch.from_numpy(np.where(seg, 1.0, -1.0).astype(np.float32)).cuda()
     print(json.dumps({"batch": list(shape), "cldice_iters": cfg.cldice_iters,
                       "compute_dtype": cfg.compute_dtype, "gen": args.gen, "noise_std": NOISE,
+                      "micro_batches": cfg.micro_batches,
                       "wasserstein": cfg.wasserstein}))
     for kernels in (True, False):  # warm-up (allocator, cuDNN plans, the kernel build)
         timed_step(gan, real_I, real_S, kernels)

@@ -61,7 +61,7 @@ def _pair(kind, option):
                   dropout=0.0, dropout_type="spatial", filters=8 if i2s else 4, num_layers=2,
                   use_attention_gate=option.get("attention", False))
         return (FlaxVNet3D(**kw, output_activation="tanh", layout="NXYZC", dtype=jnp.float32),
-                VNet3D(**kw, dims=2))
+                VNet3D(**kw, output_activation="tanh", dims=2))
     kw = dict(filters=4, num_downsampling_blocks=2, num_residual_blocks=2,
               num_upsample_blocks=2, stem_dropout=0.0, downsample_dropout=0.0)
     return FlaxResNet(**kw, layout="NXYZC", dtype=jnp.float32), ResNetGenerator3D(**kw, dims=2)

@@ -96,8 +96,8 @@ def _torch_gan(params=None, **cfg_kw):
                        cldice_iters=jcfg.cldice_iters, EPOCHS=jcfg.EPOCHS, **cfg_kw)
     g = torch.Generator().manual_seed(0)
     disc = dict(filters=8, dims=2, generator=g)
-    models = {"gen_IS": ResUNet3D(4, 2, dims=2, generator=g),
-              "gen_SI": ResUNet3D(4, 2, dims=2, generator=g),
+    models = {"gen_IS": ResUNet3D(4, 2, "simple", dims=2, generator=g),
+              "gen_SI": ResUNet3D(4, 2, "simple", dims=2, generator=g),
               "disc_I": PatchGANDiscriminator3D(**disc),
               "disc_S": PatchGANDiscriminator3D(**disc)}
     gan = VanGan(cfg, device="cpu", models=models, steps_per_epoch=STEPS_PER_EPOCH)

@@ -1055,7 +1055,7 @@ def test_2d_generator_and_cldice_on_the_card(cuda):
     from vangan_torch.losses.cldice import soft_dice_cldice_grouped
     from vangan_torch.models.resunet import ResUNet3D
 
-    model = ResUNet3D(filters=8, num_layers=4, dims=2,
+    model = ResUNet3D(filters=8, num_layers=4, upsample_mode="simple", dims=2,
                       generator=torch.Generator().manual_seed(0)).to(cuda).eval()
     x = torch.rand(2, 64, 64, 1, generator=torch.Generator().manual_seed(1)).to(cuda) * 2 - 1
     before = (conv_ops.launches, in_ops.launches)

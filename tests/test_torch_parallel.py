@@ -323,3 +323,48 @@ def test_spawn_fails_on_a_rank_error_and_on_timeout():
     with pytest.raises(TimeoutError, match="did not finish in 5 s"):
         parallel.spawn(worker.run, 2, ({"s": ("sleep_rank", {"seconds": 600})},),
                        device="cpu", timeout=5)
+
+
+def test_spawn_reports_the_rank_that_failed_first():
+    """Rank 1's error leaves rank 0 failing in its barrier: the error
+    ``spawn`` raises starts with rank 1's ``ValueError``, then rank 0's."""
+    with pytest.raises(parallel.RankError) as info:
+        parallel.spawn(worker.run, 2, ({"x": ("fail_rank", {})},), device="cpu",
+                       timeout=TIMEOUT_S)
+    text = str(info.value)
+    assert text.startswith("rank 1 failed first:\n"), text[:200]
+    assert "ValueError: rank 1 failed on purpose" in text.split("rank 0 failed")[0]
+
+
+@pytest.mark.parametrize("exit_codes, first", [
+    ((-15, 1), "rank 1 failed first:\n"),
+    ((-9, 1), "rank 0 exited with code -9 and left no error\nrank 1 failed first:\n"),
+])
+def test_spawn_skips_an_unreadable_error_and_names_a_silent_rank(tmp_path, exit_codes, first):
+    """An empty ``rank0.err`` (a rank stopped as it wrote) beside rank 1's
+    real one: the error raised is rank 1's, and rank 0's exit code is named,
+    first when it died on its own (SIGKILL) and last when ``join`` stopped it
+    (SIGTERM)."""
+    (tmp_path / "rank0.err").write_text("")
+    (tmp_path / "rank1.err").write_text(f"{12.5!r}\nValueError: rank 1 failed on purpose\n")
+
+    class Proc:
+        def __init__(self, code):
+            self.exitcode = code
+
+        def join(self, timeout=None):
+            pass
+
+    class Ctx:
+        processes = [Proc(c) for c in exit_codes]
+
+        def join(self, timeout=None):
+            raise torch.multiprocessing.ProcessRaisedException("secondary", 0, 1)
+
+    assert [r for _, r, _ in parallel._rank_errors(str(tmp_path), 2)] == [1]
+    with pytest.raises(parallel.RankError) as info:
+        parallel._join(Ctx(), str(tmp_path), 2, None)
+    text = str(info.value)
+    assert text.startswith(first), text
+    assert "ValueError: rank 1 failed on purpose" in text
+    assert "rank 0 exited with code" in text

@@ -41,7 +41,7 @@ def generators():
                        num_layers=2, layout="NXCYZ", dtype=jnp.float32)
     params = fm.init(jax.random.PRNGKey(7), jnp.zeros((1, 16, 16, 16, 1)))["params"]
     fwd = jax.jit(lambda x: fm.apply({"params": params}, x))
-    tm = load_flax_params(ResUNet3D(filters=4, num_layers=2), params).eval()
+    tm = load_flax_params(ResUNet3D(filters=4, num_layers=2, upsample_mode="simple"), params).eval()
 
     def torch_gen(x):
         with torch.inference_mode():

@@ -48,7 +48,7 @@ def _torch_gan(jax_cfg, params):
     cfg = VanGanConfig(N_DEVICES=jax_cfg.N_DEVICES, BATCH_SIZE=jax_cfg.BATCH_SIZE,
                        SUBVOL_PATCH_SIZE=jax_cfg.SUBVOL_PATCH_SIZE, compute_dtype="float32",
                        cldice_iters=jax_cfg.cldice_iters)
-    models = {"gen_IS": ResUNet3D(4, 2), "gen_SI": ResUNet3D(4, 2),
+    models = {"gen_IS": ResUNet3D(4, 2, "simple"), "gen_SI": ResUNet3D(4, 2, "simple"),
               "disc_I": PatchGANDiscriminator3D(**DISC),
               "disc_S": PatchGANDiscriminator3D(**DISC)}
     gan = VanGan(cfg, device="cpu", models=models)

@@ -93,7 +93,8 @@ def _torch_gan(jax_cfg, params=None, deterministic=True, seed=0):
     on = not deterministic
     disc = dict(filters=8, use_dropout=on, use_input_noise=on, use_layer_noise=on)
     g = torch.Generator().manual_seed(seed)
-    models = {"gen_IS": ResUNet3D(4, 2, generator=g), "gen_SI": ResUNet3D(4, 2, generator=g),
+    models = {"gen_IS": ResUNet3D(4, 2, "simple", generator=g),
+              "gen_SI": ResUNet3D(4, 2, "simple", generator=g),
               "disc_I": PatchGANDiscriminator3D(**disc, generator=g),
               "disc_S": PatchGANDiscriminator3D(**disc, generator=g)}
     gan = VanGan(cfg, device="cpu", models=models, steps_per_epoch=STEPS_PER_EPOCH)

@@ -142,7 +142,7 @@ def _models(role, rng, attention=False, shape=(2, 16, 16, 16, 1), **kw):
     variables["params"] = _perturbed(variables["params"], rng)
     if "batch_stats" in variables:
         variables["batch_stats"] = _stats(variables["batch_stats"], rng)
-    tm = VNet3D(**kw)
+    tm = VNet3D(**kw, output_activation="tanh")
     load_flax_params(tm, variables["params"], variables.get("batch_stats"))
     return fm, tm, variables, x
 
@@ -331,8 +331,20 @@ def test_attention_gate_matches_flax():
 
 
 def test_addnoise_raises_naming_roadmap():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        VNet3D(addnoise=True)
+    """A name kept from when ``addnoise=True`` raised: the V-Net now builds
+    with its noise branch, whose eval draw is fixed per shape (a generator
+    seeded 0), and the branch changes the output
+    (``test_torch_generator_options.py`` holds it against flax)."""
+    x = torch.from_numpy(np.random.default_rng(0).uniform(-1, 1, (1, 8, 8, 8, 1))
+                         .astype(np.float32))
+    g = torch.Generator().manual_seed(0)
+    tm = VNet3D(filters=2, num_layers=1, addnoise=True, generator=g).eval()
+    plain = VNet3D(filters=2, num_layers=1, addnoise=False)
+    plain.load_state_dict(tm.state_dict())
+    with torch.inference_mode():
+        y = tm(x)
+        assert torch.equal(tm(x), y)
+        assert not torch.allclose(plain(x), y)
 
 
 def test_flax_float32_is_the_less_precise_side():

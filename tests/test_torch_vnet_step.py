@@ -124,7 +124,8 @@ def _gan(perturb=0.0, head_scale=1.0):
                        cycle_loss_I_type=jax_cfg.cycle_loss_I_type,
                        lambda_topology=jax_cfg.lambda_topology, gen_i2s="vnet", gen_s2i="vnet")
     disc = dict(filters=8, use_dropout=False, use_input_noise=False, use_layer_noise=False)
-    models = {"gen_IS": VNet3D(**_roles("i2s")), "gen_SI": VNet3D(**_roles("s2i")),
+    models = {"gen_IS": VNet3D(**_roles("i2s"), output_activation="tanh"),
+              "gen_SI": VNet3D(**_roles("s2i"), output_activation="tanh"),
               "disc_I": PatchGANDiscriminator3D(**disc), "disc_S": PatchGANDiscriminator3D(**disc)}
     gan = VanGan(cfg, device="cpu", models=models, steps_per_epoch=STEPS_PER_EPOCH)
     load_flax_networks(gan, params, model_state)

@@ -102,7 +102,8 @@ def wgan_gan(params=None, seed=0, deterministic=True, use_SN=False, model_state=
     disc = dict(filters=8, use_dropout=on, use_input_noise=on, use_layer_noise=on,
                 wasserstein=True, use_SN=use_SN, patch_size=(16, 16, 16))
     g = torch.Generator().manual_seed(seed)
-    models = {"gen_IS": ResUNet3D(4, 2, generator=g), "gen_SI": ResUNet3D(4, 2, generator=g),
+    models = {"gen_IS": ResUNet3D(4, 2, "simple", generator=g),
+              "gen_SI": ResUNet3D(4, 2, "simple", generator=g),
               "disc_I": PatchGANDiscriminator3D(**disc, generator=g),
               "disc_S": PatchGANDiscriminator3D(**disc, generator=g)}
     gan = VanGan(cfg, device="cpu", models=models, steps_per_epoch=STEPS_PER_EPOCH)
@@ -133,7 +134,8 @@ def jax_alpha(monkeypatch):
     reals = {}
 
     def gp(scales, disc_apply, real, fake, generator=None, alpha=None):
-        dom = "I" if real is reals["I"] else "S"
+        # the step's one slice, ``x[0::1]``, is a view of the batch
+        dom = "I" if real.data_ptr() == reals["I"].data_ptr() else "S"
         return real_gp(scales, disc_apply, real, fake, generator, alpha=alphas[dom])
 
     monkeypatch.setattr(torch_step, "gradient_penalty", gp)

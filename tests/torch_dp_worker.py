@@ -31,7 +31,8 @@ def tiny_models(dtype=torch.float32):
     noise, no dropout), seeded; in ``dtype``."""
     g = torch.Generator().manual_seed(0)
     disc = dict(filters=8, use_dropout=False, use_input_noise=False, use_layer_noise=False)
-    models = {"gen_IS": ResUNet3D(4, 2, generator=g), "gen_SI": ResUNet3D(4, 2, generator=g),
+    gen = dict(upsample_mode="simple", generator=g)
+    models = {"gen_IS": ResUNet3D(4, 2, **gen), "gen_SI": ResUNet3D(4, 2, **gen),
               "disc_I": PatchGANDiscriminator3D(**disc, generator=g),
               "disc_S": PatchGANDiscriminator3D(**disc, generator=g)}
     for m in models.values():
@@ -57,12 +58,13 @@ def _flat(tensors):
 
 def grads_and_losses(gan, real_I, real_S, group=None):
     """The four restricted gradients (flat, one per network) and the loss
-    dict of one training forward on the rank's rows of the global batch,
-    averaged over the ranks of ``group``."""
+    dict of one training forward on the rank's rows of the global batch
+    (``micro_batches`` slices of them), averaged over the ranks of ``group``."""
     sl = rows(group, len(real_I))
     grads, result = step.compute_grads(gan.nets, gan.cfg, gan.scales,
                                        torch.from_numpy(real_I[sl]),
-                                       torch.from_numpy(real_S[sl]), 0.0, gan.generator)
+                                       torch.from_numpy(real_S[sl]), 0.0, gan.generator,
+                                       micro=gan.cfg.micro_batches)
     grads = {n: _flat(all_reduce_grads(group, grads[n])) for n in NETWORKS}
     result = all_reduce_mean(group, result)
     return grads, {k: float(v) for k, v in result.items()}
@@ -99,7 +101,7 @@ def vnet_rank(group, kw, state, x, gy):
     input's cotangent and the parameters' gradient of sum(y gy) over the
     global batch (the averaged gradient times the world), and the moved
     running statistics."""
-    net = VNet3D(**kw)
+    net = VNet3D(**kw, output_activation="tanh")
     net.load_state_dict(state)
     net.double()
     net.dtype = torch.float64

@@ -75,6 +75,11 @@ class VanGanConfig:
     gen_filters: int = 16
     disc_filters: int = 64
     seed: int = 0
+    # gradient accumulation: each step runs the batch as ``micro_batches``
+    # interleaved slices, one forward and backward each, the gradients summed
+    # and ONE optimizer update (``training.step``); BATCH_SIZE % micro_batches
+    # must be 0
+    micro_batches: int = 1
     compute_dtype: str = "bfloat16"  # conv compute dtype; params always float32
     cldice_groups: Optional[int] = None  # derived: N_DEVICES
     # clDice skeleton on the CUDA kernel (a CUDA tensor) or on the plain torch
@@ -94,6 +99,12 @@ class VanGanConfig:
             self.NO_NOISE = self.EPOCHS
         if self.cldice_groups is None:
             self.cldice_groups = self.N_DEVICES
+        if self.micro_batches < 1:
+            # JAX runs its one-batch step for 0 or less; the port asks for 1
+            raise ValueError(f"micro_batches ({self.micro_batches}) must be at least 1")
+        if self.BATCH_SIZE % self.micro_batches:
+            raise ValueError(f"micro_batches ({self.micro_batches}) must divide "
+                             f"BATCH_SIZE ({self.BATCH_SIZE})")
         self.RAW_IMG_SIZE = tuple(self.RAW_IMG_SIZE)
         self.TARG_RAW_IMG_SIZE = tuple(self.TARG_RAW_IMG_SIZE)
         self.SYNTH_IMG_SIZE = tuple(self.SYNTH_IMG_SIZE)

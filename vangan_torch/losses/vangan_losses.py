@@ -18,6 +18,19 @@ share, one device, and ``groups / k`` clDice groups. The mean over the ranks
 of each of its terms is then the global program's term (a sum of per-sample
 means over the global batch, ``n_devices * global_mean / GLOBAL_BATCH``, a
 mean over the groups), so the ranks average their gradients and losses.
+
+Under gradient accumulation (``micro_batches`` = m) each slice computes its
+losses with ``LossScales.for_micro(m)``: the same global batch, ``n_devices
+/ m`` and ``lambda_topology / m``, the configured clDice groups. Each slice
+divides by the whole batch, so the slices' terms SUM to the whole batch's
+(per-sample terms exactly, the ``axis=None`` ones because equal slices
+partition the batch), except clDice, which each slice groups over its own
+samples (JAX's ``micro_scales``, training/step.py:486-504). On rank r of k
+the two compose as ``for_rank(k).for_micro(m)``: batch G/k, ``n_devices / (k
+m)`` (1/m where k is N_DEVICES), ``lambda_topology / m`` and ``groups / k``
+groups; the ranks average and the slices sum, which gives JAX's micro step
+on the data mesh (each slice's rows sharded over the devices, clDice grouped
+by device within the slice).
 """
 
 from __future__ import annotations
@@ -62,6 +75,15 @@ class LossScales:
         return dataclasses.replace(self, global_batch_size=self.global_batch_size // world,
                                    n_devices=self.n_devices // world,
                                    cldice_groups=self.groups // world)
+
+    def for_micro(self, micro: int) -> "LossScales":
+        """The scales of one of ``micro`` equal slices of the batch, whose
+        losses sum over the slices (see the module note). The clDice groups
+        are pinned at these scales' ``groups``: ``n_devices`` becomes a
+        fraction, and the default would follow it."""
+        return dataclasses.replace(self, n_devices=self.n_devices / micro,
+                                   lambda_topology=self.lambda_topology / micro,
+                                   cldice_groups=self.groups)
 
     @classmethod
     def from_config(cls, cfg) -> "LossScales":

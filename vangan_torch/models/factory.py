@@ -36,11 +36,15 @@ def build_generator(kind: str, cfg, role: str = "i2s",
     if kind == "vnet":
         i2s = role == "i2s"
         return VNet3D(use_batch_norm=not i2s, upsample_mode="simple" if i2s else "deconv",
-                      dropout=0.5, dropout_type="spatial", use_attention_gate=False,
-                      filters=2 * f if i2s else f, num_layers=4, addnoise=False, **kw)
+                      dropout=0.5, dropout_change_per_layer=0.0, dropout_type="spatial",
+                      use_dropout_on_upsampling=False, use_attention_gate=False,
+                      filters=2 * f if i2s else f, num_layers=4, output_activation="tanh",
+                      addnoise=False, **kw)
     if kind == "resUnet":
-        return ResUNet3D(filters=f, num_layers=4, upsample_mode="simple",
-                         use_attention_gate=False, **kw)
+        return ResUNet3D(filters=f, num_layers=4, upsample_mode="simple", dropout=0.1,
+                         dropout_change_per_layer=0.1, dropout_type="none",
+                         use_attention_gate=False, output_activation="tanh",
+                         use_input_noise=False, **kw)
     raise ValueError(f"Generator type not recognised: {kind!r}")
 
 

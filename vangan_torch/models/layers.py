@@ -88,9 +88,13 @@ def to_volume(x: torch.Tensor, dims: int, what: str) -> torch.Tensor:
 
 
 def from_volume(y: torch.Tensor, dims: int) -> torch.Tensor:
-    """``to_volume``'s inverse for a one-channel ``(B, 1, X, Y, Z)``: the
-    public ``(B, ..., 1)`` of a ``dims``-D network."""
-    return y.reshape(y.shape[0], *y.shape[5 - dims:], 1)
+    """``to_volume``'s inverse: ``(B, C, X, Y, Z)`` as the public
+    ``(B, X, Y, Z, C)`` of a ``dims``-D network (in 2-D ``(B, C, 1, H, W)``
+    as ``(B, H, W, C)``); a reshape for one channel."""
+    if y.shape[1] == 1:
+        return y.reshape(y.shape[0], *y.shape[5 - dims:], 1)
+    y = y.movedim(1, -1)
+    return y.reshape(y.shape[0], *y.shape[4 - dims:])
 
 
 class KernelSwitch:
@@ -220,9 +224,13 @@ class Stem(nn.Module):
 
 class ResUNetResidualBlock(nn.Module):
     """Pre-activation residual block with projected shortcut
-    (resunet_model.py:103-143); the generators serve with no dropout."""
+    (resunet_model.py:103-143), and ``dropout_type`` dropout of rate
+    ``dropout`` on its output in training (layers.py:448-480 of the JAX
+    package), drawn from the call's generator; the factory's generators have
+    none."""
 
     def __init__(self, in_channels: int, filters: int, strides: int = 1,
+                 dropout_type: Optional[str] = "none", dropout: float = 0.0,
                  generator: Optional[torch.Generator] = None, dims: int = 3):
         super().__init__()
         self.block1 = PreActConvBlock(in_channels, filters, strides=strides,
@@ -231,9 +239,14 @@ class ResUNetResidualBlock(nn.Module):
         self.shortcut = ConvND(in_channels, filters, 1, strides, padding="same",
                                use_bias=False, generator=generator, dims=dims)
         self.shortcut_norm = NormAct(filters, act=False)
+        self.dropout = make_dropout(dropout_type, dropout)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.shortcut_norm(self.shortcut(x)) + self.block2(self.block1(x))
+    def forward(self, x: torch.Tensor, train: bool = False,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        out = self.shortcut_norm(self.shortcut(x)) + self.block2(self.block1(x))
+        if self.dropout is not None:
+            out = self.dropout(out, train=train, generator=generator)
+        return out
 
 
 def upsample_nearest(x: torch.Tensor, factor: int = 2, dims: int = 3) -> torch.Tensor:
@@ -309,6 +322,17 @@ def make_dropout(dropout_type: Optional[str], rate: float) -> Optional[Callable]
     if dropout_type in ("none", None):
         return None
     raise ValueError(f"dropout_type must be 'spatial', 'standard' or 'none', got {dropout_type!r}")
+
+
+OUTPUT_ACTIVATIONS = {"tanh": torch.tanh, "sigmoid": torch.sigmoid, None: lambda x: x}
+
+
+def head_activation(name: Optional[str]) -> Callable[[torch.Tensor], torch.Tensor]:
+    """A generator head's activation: ``"tanh"``, ``"sigmoid"`` or None (the
+    identity); any other name raises, as the JAX package's heads do."""
+    if name not in OUTPUT_ACTIVATIONS:
+        raise ValueError(f"unknown output activation {name!r}")
+    return OUTPUT_ACTIVATIONS[name]
 
 
 def max_pool_2x(x: torch.Tensor, dims: int = 3) -> torch.Tensor:

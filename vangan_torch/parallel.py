@@ -33,9 +33,11 @@ from __future__ import annotations
 import datetime
 import os
 import shutil
+import signal
 import tempfile
 import time
-from typing import Any, Callable, Dict, Iterable, List, Optional, Sequence
+import traceback
+from typing import Any, Callable, Dict, Iterable, List, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
@@ -189,12 +191,70 @@ def destroy(group: Optional[Group]) -> None:
 
 def _child(rank: int, fn: Callable, world: int, init_method: str, device, shared_card: bool,
            args: tuple, out_dir: str) -> None:
-    group = init_group(rank, world, init_method, device, shared_card)
+    group = None
     try:
+        group = init_group(rank, world, init_method, device, shared_card)
         result = fn(group, *args)
         torch.save(result, os.path.join(out_dir, f"rank{rank}.pt"))
+    except BaseException:
+        # when the rank failed, written before its group closes: a rank that
+        # raises makes the others fail in their next collective, and
+        # ``spawn`` reports the ranks' errors in this order. The text is
+        # formatted first and renamed into place, so a rank stopped while it
+        # writes leaves no partial file
+        text = f"{time.monotonic()!r}\n{traceback.format_exc()}"
+        path = os.path.join(out_dir, f"rank{rank}.err")
+        with open(path + ".tmp", "w") as f:
+            f.write(text)
+        os.replace(path + ".tmp", path)
+        raise
     finally:
         destroy(group)
+
+
+def _rank_errors(out_dir: str, world: int) -> List[Tuple[float, int, str]]:
+    """(when, rank, traceback) of each rank that wrote an error, earliest
+    first; a file that cannot be read as one is skipped."""
+    errors = []
+    for r in range(world):
+        try:
+            with open(os.path.join(out_dir, f"rank{r}.err")) as f:
+                stamp, _, trace = f.read().partition("\n")
+            errors.append((float(stamp), r, trace))
+        except (OSError, ValueError):
+            continue
+    return sorted(errors)
+
+
+class RankError(RuntimeError):
+    """A rank of ``spawn`` failed: the message holds the earliest rank's
+    traceback first, then those of the ranks that failed after it."""
+
+
+def _join(ctx, out_dir: str, world: int, timeout: Optional[float]) -> bool:
+    """``ctx.join(timeout)``; a failed rank raises the ranks' errors in the
+    order they happened (``join`` has stopped the other ranks by then)."""
+    try:
+        return ctx.join(timeout=timeout)
+    except (torch.multiprocessing.ProcessRaisedException,
+            torch.multiprocessing.ProcessExitedException):
+        for p in ctx.processes:
+            p.join(10)
+        errors = _rank_errors(out_dir, world)
+        if not errors:
+            raise
+        text = "\n".join(f"rank {r} failed{' first' if i == 0 else ' after it'}:\n{trace}"
+                         for i, (_, r, trace) in enumerate(errors))
+        # a rank that died without raising (killed, out of memory, a crash)
+        # wrote no file and may have been the first to fail, so it goes
+        # first; a rank ``join`` stopped with SIGTERM goes last
+        wrote = {r for _, r, _ in errors}
+        died, stopped = [], []
+        for r, p in enumerate(ctx.processes):
+            if r not in wrote and p.exitcode not in (None, 0):
+                (stopped if p.exitcode == -signal.SIGTERM else died).append(
+                    f"rank {r} exited with code {p.exitcode} and left no error")
+        raise RankError("\n".join(died + [text] + stopped)) from None
 
 
 def spawn(fn: Callable, world: int, args: tuple = (), device="cuda", shared_card: bool = False,
@@ -204,7 +264,10 @@ def spawn(fn: Callable, world: int, args: tuple = (), device="cuda", shared_card
     rank ``r`` on the device ``init_group`` gives it, and return what each
     rank's ``fn`` returned (saved with ``torch.save``: CPU tensors and plain
     values), in rank order. A rank that raises or exits stops the others and
-    raises here; past ``timeout`` seconds every rank is killed and
+    raises here, a ``RankError`` whose message starts with the error of the
+    rank that failed first (a rank's error makes the others fail in their
+    next collective, and ``torch.multiprocessing`` reports whichever failure
+    it sees first); past ``timeout`` seconds every rank is killed and
     ``TimeoutError`` raised."""
     tmp = tempfile.mkdtemp(prefix="vangan_ranks_")
     try:
@@ -213,8 +276,8 @@ def spawn(fn: Callable, world: int, args: tuple = (), device="cuda", shared_card
             _child, args=(fn, world, init_method, device, shared_card, args, tmp),
             nprocs=world, join=False, start_method="spawn")
         deadline = None if timeout is None else time.monotonic() + timeout
-        while not ctx.join(timeout=None if deadline is None else
-                           max(0.0, deadline - time.monotonic())):
+        while not _join(ctx, tmp, world, None if deadline is None else
+                        max(0.0, deadline - time.monotonic())):
             if deadline is not None and time.monotonic() >= deadline:
                 for p in ctx.processes:
                     if p.is_alive():

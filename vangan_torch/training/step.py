@@ -24,6 +24,19 @@ package has it (step.py:283-318; the reference adds it outside its tape, on
 disc_S for both domains). A spectral norm stores its power iteration at
 each training call of a critic, in JAX's order (real, then each fake's two
 judgements), but not at the penalty's calls, whose state JAX discards.
+
+With ``cfg.micro_batches`` = m the train step accumulates gradients, as
+``vangan_tpu.parallel.jit_microbatch_step`` (parallel.py:74-147; m = 1 is
+one slice, the whole batch at the given scales, JAX's plain step): the batch
+runs as m interleaved slices ``x[i::m]``, each one forward and one backward
+of the combined scalar at ``LossScales.for_micro(m)``, whose gradients add
+up in the parameters' float32 ``.grad`` (each slice's graph is freed before
+the next starts, so the step peaks at one slice's activations); the loss
+dicts are summed, every float buffer (BatchNorm running statistics,
+spectral-norm vectors) starts each slice where the step found it and ends at
+the mean of the slices' results, and one all-reduce and one optimizer update
+follow. The slices draw their noise, dropout and penalty weights in turn
+from the step's generator (JAX folds the slice's index into the step key).
 """
 
 from __future__ import annotations
@@ -175,23 +188,47 @@ def test_step(nets: Dict[str, nn.Module], cfg, scales: LossScales, real_I: torch
 
 def compute_grads(nets: Dict[str, nn.Module], cfg, scales: LossScales, real_I: torch.Tensor,
                   real_S: torch.Tensor, noise_std: float, generator: torch.Generator,
-                  mark: Callable[[str], None] = _no_mark, gp_scale: float = 0.0
+                  mark: Callable[[str], None] = _no_mark, gp_scale: float = 0.0,
+                  micro: int = 1
                   ) -> Tuple[Dict[str, List[torch.Tensor]], Dict[str, torch.Tensor]]:
-    """The four restricted gradients of one training forward (one list per
+    """The four restricted gradients of a training forward (one list per
     network, in ``parameters()`` order; zeros where a parameter got none) and
-    the loss dict, from one ``backward()`` of the combined scalar."""
+    the loss dict, from one ``backward()`` of the combined scalar per slice
+    ``x[i::micro]`` at ``scales.for_micro(micro)``, summed, each slice
+    starting from the float buffers as they were, which end at the mean of
+    the slices' results (see the module note; vangan_tpu
+    parallel.py:112-129). ``micro`` 1 is one slice: the whole batch at
+    ``scales``, the buffers as its forward left them."""
     for net in nets.values():
         net.zero_grad(set_to_none=True)
-    total, result = compute_losses(nets, cfg, scales, real_I, real_S, train=True,
-                                   noise_std=noise_std, generator=generator, mark=mark,
-                                   gp_scale=gp_scale)
-    total.backward()
-    mark("backward")
+    scales = scales.for_micro(micro)
+    buffers = [b for net in nets.values() for b in net.buffers() if b.is_floating_point()]
+    start = [b.clone() for b in buffers]
+    result, moved = None, None
+    for i in range(micro):
+        if i:
+            with torch.no_grad():
+                for b, b0 in zip(buffers, start):
+                    b.copy_(b0)
+        # views: each network casts its input to the compute dtype, a copy
+        total, res = compute_losses(nets, cfg, scales, real_I[i::micro], real_S[i::micro],
+                                    train=True, noise_std=noise_std, generator=generator,
+                                    mark=mark, gp_scale=gp_scale)
+        total.backward()
+        del total  # no slice's graph is held through the next slice
+        mark("backward")
+        res = {k: v.detach() for k, v in res.items()}
+        result = res if result is None else {k: result[k] + res[k] for k in result}
+        moved = ([b.clone() for b in buffers] if moved is None else
+                 [m.add_(b) for m, b in zip(moved, buffers)])
+    with torch.no_grad():
+        for b, m in zip(buffers, moved):
+            b.copy_(m / micro)
     grads = {name: [torch.zeros_like(p) if p.grad is None else p.grad
                     for p in nets[name].parameters()] for name in NETWORKS}
     for net in nets.values():
         net.zero_grad(set_to_none=True)
-    return grads, {k: v.detach() for k, v in result.items()}
+    return grads, result
 
 
 def train_step(nets: Dict[str, nn.Module], cfg, scales: LossScales, state: TrainState,
@@ -208,11 +245,14 @@ def train_step(nets: Dict[str, nn.Module], cfg, scales: LossScales, state: Train
     run (step.py:355-358). With ``group`` the batch is the rank's shard and
     ``scales`` the rank's: each network's gradients, and the loss dict, are
     averaged over the ranks before the update (the clip acts on the global
-    gradient, as JAX's), then every rank applies the same update. Returns
-    the loss dict (0-d tensors on the device)."""
+    gradient, as JAX's), then every rank applies the same update. With
+    ``cfg.micro_batches`` > 1 the gradients and losses are accumulated over
+    the slices of the (rank's) batch first (see the module note): one
+    all-reduce and one update a step. Returns the loss dict (0-d tensors on
+    the device)."""
     gp_scale = cfg.gp_weight if cfg.wasserstein and state.step > 0 else 0.0
     grads, result = compute_grads(nets, cfg, scales, real_I, real_S, noise_std, generator,
-                                  mark, gp_scale)
+                                  mark, gp_scale, cfg.micro_batches)
     updated = [name for name in NETWORKS if update_gen or not name.startswith("gen")]
     grads = {name: all_reduce_grads(group, grads[name]) for name in updated}
     result = all_reduce_mean(group, result)

@@ -139,7 +139,10 @@ class VanGan:
         σ ``noise_std``, the generators updated only with ``update_gen``:
         the losses as a dict of 0-d tensors on the device. A rank of data
         parallelism takes the global batch, or its own share of it as the
-        feed gives it, and returns the losses averaged over the ranks."""
+        feed gives it, and returns the losses averaged over the ranks. With
+        ``cfg.micro_batches`` > 1 the step accumulates the gradients of that
+        many slices of the (rank's) batch, at ``self.scales.for_micro``, before
+        its one update (``training.step``)."""
         return step.train_step(self.nets, self.cfg, self.scales, self.state,
                                self._on_device(real_I), self._on_device(real_S),
                                float(noise_std), bool(update_gen), self.generator,
