@@ -18,9 +18,10 @@ Phases, each of which raises on failure:
    with CUDA event times (median of 5) of the kernel, the plain version and
    the library call; each row names the bf16 plan (``conv_plan``: the
    route, tensor-core or thin CUDA-core body, and the Co tile, split and
-   workspace) of K1, K2 (its Ci tile, parities in launch order, fold planes
-   and launches) and K3, and the achieved TFLOP/s (FLOPs / kernel ms) of the
-   kernel and the library call; the bf16 K3 must give bit-identical dW in two
+   workspace; above 64 taps the tap chunks and the brick) of K1, K2 (its Ci
+   tile, parities in launch order, fold planes and launches) and K3, and
+   the achieved TFLOP/s (FLOPs / kernel ms) of the kernel and the library
+   call; the bf16 K3 must give bit-identical dW in two
    runs, on either route (split-K slices summed in a fixed order); a shape that
    takes the thin body is also run and timed on the
    tensor-core body, the evidence for that choice;
@@ -130,9 +131,11 @@ Phases, each of which raises on failure:
    its weight gradient, once for its input gradient where the input needs
    one, with a fold for a reflect pad, each norm once each way), outputs by
    phase 5's rules, gradients by phase 8's, ms of both paths; and phase 2's
-   checks and times at the ResNet's 4 kernel conv shapes (its 343-tap stem
-   and head on the CUDA-core bodies; the ResNet is one generator whatever the
-   role, as in the JAX factory, so it runs once);
+   checks and times at the ResNet's 4 kernel conv shapes at the step's batch
+   of 3 (its 343-tap head, 32 -> 1, takes K1 and K3 on the tensor cores in
+   tap chunks, its stem, 1 -> 32, and K2 of both the CUDA-core bodies; the
+   ResNet is one generator whatever the role, as in the JAX factory, so it
+   runs once);
 12. data in and evaluation out, at the config's sizes: seeded raw TIFFs
    (two imaging volumes of RAW_IMG_SIZE 512 x 512 x 140 as uint16, two
    segmentation volumes of 512 x 512 x 128 as uint8 0/255 tubes) through
@@ -237,12 +240,30 @@ Phases, each of which raises on failure:
    ``addnoise`` and decoder dropout), forward and backward, kernel against
    plain. Its numbers on the ``micro3``, ``micro4_of_12``,
    ``config4_micro3`` and ``generator_family`` lines;
+17. the ResNet CycleGAN: config 2 with ``gen_i2s = gen_s2i = "resnet"``
+   (the factory's ResNet, 32 filters, 3 downsampling blocks, 6 residual
+   blocks at 256 channels, 3 upsampling blocks; config 2's PatchGANs, noise
+   sigma 0.1, dropout on, 3 x 128^3, bf16) through
+   ``VanGan.distributed_train_step``: phase 8's checks (the launches of
+   ``RESNET_TRAIN_LAUNCHES``, derived from the path; of them, K1 and K3 of
+   the 4 head calls on the tap chunks, ``RESNET_TAP_CHUNKS``, and none in
+   phases 8 and 10; f32 kernel against plain on one sample at 128^3, the
+   bf16 rules on one sample and on the batch; ms a step of both paths in
+   turns, peak memory), and where the time of its 343-tap convs goes: each
+   kernel's launches in the step times its ms at phase 11's shape, beside
+   the step's ms. Its numbers on the ``resnet_train_step`` and
+   ``resnet_step`` lines;
 
 Then one JSON line of the seven kernels (launches counted in one train step
 of phase 8, the path that runs them all, and of phase 10 as
 ``config4_launches``; phase 13's step 1 as ``wgan_launches``; phase 14's
 2-D train step as ``twod_launches``; phase 15's per rank as
-``dp_launches``; phase 16's step of 3 slices as ``micro_launches``; phase 12's as
+``dp_launches``; phase 16's step of 3 slices as ``micro_launches``; phase 17's
+as ``resnet_launches``, with the head's K1 and K3 on the tap chunks beside the
+conv kernels (``resnet_tap_chunk_launches``), and each conv kernel's
+``taps_343``: at the stem's and the head's shapes (phase 11, batch 3) its
+route, ms, plain ms, library ms and bound, with its launches in phase 17's
+step; phase 12's as
 ``raw_predict_launches`` for K1 and K4 and ``metric_launches`` for K6; for
 K4 and K7 the kernel launches beside the calls; ms, plain ms, library ms and the bound summed over the convs / norms
 of one gen_IS and one disc_I call at batch 3 (phases 2-3), one 3 x 128^3
@@ -349,6 +370,37 @@ C4 = {"gen_i2s": "vnet", "gen_s2i": "vnet"}
 C4_F32_CROP = 96
 # phase 11: the ResNet generator's kernel convs (stem_conv, down0, up2, head)
 RESNET_CONVS = 4
+# phase 17: the ResNet CycleGAN, config 2 with ResNet generators, derived from
+# the path as phase 8's. A ResNet call has 4 kernel convs (stem_conv 1 -> 32
+# and head 32 -> 1, 7^3 reflect-padded; down0 32 -> 64, 3^3 stride 2
+# reflect; up2 64 -> 32, 4^3 'same' zeros) and 19 InstanceNorms (stem, 3
+# down, 6 x 2 residual, 3 up); one train step:
+# - K1: the 4 generator calls' 4, and conv0 of the 6 discriminator calls;
+# - K2: down0, up2 and head of each generator call (its stem reads data or a
+#   detached fake), and the 2 generator-branch conv0s; a fold launch for
+#   those with a reflect pad: down0 and head, and conv0;
+# - K3: the 4 generator calls' 4, and conv0 of the 4 discriminator calls with
+#   live parameters;
+# - K4 and K5 once per norm; K6 and K7 as in phase 8.
+# Of K1 and K3, the head's (4 calls each) run on the tap chunks.
+RESNET = {"gen_i2s": "resnet", "gen_s2i": "resnet"}
+RESNET_IN_CALLS = 19
+RESNET_TRAIN_LAUNCHES = {
+    "conv3d_fwd": 4 * RESNET_CONVS + 6 * DISC_CONV_CALLS,
+    "conv3d_dgrad": 4 * 3 + 2 * 1,
+    "conv3d_dgrad_fold": 4 * 2 + 2 * 1,
+    "conv3d_wgrad": 4 * RESNET_CONVS + 4 * DISC_CONV_CALLS,
+    "instnorm_fwd": 4 * RESNET_IN_CALLS + 6 * DISC_IN_CALLS,
+    "instnorm_bwd": 4 * RESNET_IN_CALLS + 6 * DISC_IN_CALLS,
+    "soft_skel_fwd": 2 * (SKEL_ITERS + 1),
+    "soft_skel_bwd": SKEL_ITERS + 1,
+}
+RESNET_TRAIN_KERNEL_LAUNCHES = {"instnorm_fwd": RESNET_TRAIN_LAUNCHES["instnorm_fwd"],
+                                "soft_skel_bwd": RESNET_TRAIN_LAUNCHES["soft_skel_bwd"]}
+RESNET_TAP_CHUNKS = {"conv3d_fwd": 4, "conv3d_wgrad": 4}
+NO_TAP_CHUNKS = {"conv3d_fwd": 0, "conv3d_wgrad": 0}
+# each 343-tap conv's launches in one step: (K1, K2, K3)
+RESNET_343_LAUNCHES = {"stem_conv": (4, 0, 4), "head": (4, 4, 4)}
 # phase 12: data in, evaluation out
 RAW_SHAPE = (512, 512, 140)  # RAW_IMG_SIZE (x, y, z), read as uint16 pages
 RAW_VOLUMES = 2              # a domain: 1 validation and 1 test volume by the 72/18/10 split
@@ -523,7 +575,7 @@ def plans(ci, co, k, stride, pads, pad_mode, dims, out_dims):
     from vangan_torch.ops import conv3d as C
 
     keys = ("route", "co_tile", "co_tiles", "tap_warps", "tap_groups", "split",
-            "workspace_bytes", "pad_share", "shared_halo")
+            "workspace_bytes", "pad_share", "shared_halo", "tap_chunk", "tap_chunks", "brick")
     brief = lambda p: {k_: getattr(p, k_) for k_ in keys}  # noqa: E731
     bf16 = torch.bfloat16
     dg = C.conv_plan("dgrad", ci, co, k, stride, out_dims, bf16, STEP_BATCH, in_dims=dims,
@@ -1103,10 +1155,17 @@ def kernel_counters(ops):
             "soft_skel_bwd": skel_ops.bwd_kernel_launches}
 
 
+def tap_chunk_counters(ops):
+    """K1's and K3's launches on the tap chunks (route 2)."""
+    return {"conv3d_fwd": ops[0].tap_chunk_launches,
+            "conv3d_wgrad": ops[0].wgrad_tap_chunk_launches}
+
+
 def reset_counters(ops):
     conv_ops, in_ops, skel_ops = ops
     conv_ops.launches = conv_ops.dgrad_launches = conv_ops.dgrad_fold_launches = 0
-    conv_ops.wgrad_launches = 0
+    conv_ops.wgrad_launches = conv_ops.tap_chunk_launches = 0
+    conv_ops.wgrad_tap_chunk_launches = 0
     in_ops.launches = in_ops.bwd_launches = in_ops.fwd_kernel_launches = 0
     skel_ops.launches = skel_ops.bwd_launches = skel_ops.bwd_kernel_launches = 0
 
@@ -1293,14 +1352,15 @@ def train_steps_in_turns(gan, real_I, real_S):
 
 def check_train_step(ops, want=TRAIN_LAUNCHES, want_kernels=TRAIN_KERNEL_LAUNCHES,
                      tag="train_step", f32_crop=None, sample=(N, N, N), spread_draws=1,
-                     **cfg_kw):
+                     want_tap_chunks=NO_TAP_CHUNKS, **cfg_kw):
     """The train step of the config with ``cfg_kw`` (phase 8: config 2) on a
     batch of 3 ``sample``s (SUBVOL_PATCH_SIZE their size; (H, W) in 2-D).
     Every parameter tensor must move in the step, and every running
     statistic (BatchNorm buffer) must stay finite and move. With
     ``f32_crop`` the f32 checks also run on the whole batch, cropped to
     ``f32_crop``^3 (where the f32 plain path fits), so that they hold the
-    kernels' sums over the samples."""
+    kernels' sums over the samples. Of K1's and K3's launches,
+    ``want_tap_chunks`` run on the tap chunks."""
     import copy
 
     from vangan_torch.config import VanGanConfig
@@ -1330,9 +1390,12 @@ def check_train_step(ops, want=TRAIN_LAUNCHES, want_kernels=TRAIN_KERNEL_LAUNCHE
     out = gan.distributed_train_step(real_I, real_S, NOISE, True)
     torch.cuda.synchronize()
     launches, kernel_launches = counters(ops), kernel_counters(ops)
+    tap_chunks = tap_chunk_counters(ops)
     require(launches == want, f"{tag}: one step launched {launches}, expected {want}")
     require(kernel_launches == want_kernels, f"{tag}: one step launched "
             f"{kernel_launches} kernels, expected {want_kernels}")
+    require(tap_chunks == want_tap_chunks, f"{tag}: one step launched {tap_chunks} on the "
+            f"tap chunks, expected {want_tap_chunks}")
     step_losses = {k: float(v) for k, v in out.items()}
     require(len(step_losses) == 10 and all(math.isfinite(v) for v in step_losses.values()),
             f"{tag}: losses not all finite: {step_losses}")
@@ -1379,7 +1442,8 @@ def check_train_step(ops, want=TRAIN_LAUNCHES, want_kernels=TRAIN_KERNEL_LAUNCHE
         reset(path == "kernel", torch.bfloat16)
         gan.distributed_train_step(real_I, real_S, NOISE, True)
     res = {"batch": list(shape), "noise_std": NOISE, "launches": launches,
-           "kernel_launches": kernel_launches, "losses": step_losses, "moved": moved_report,
+           "kernel_launches": kernel_launches, "tap_chunk_launches": tap_chunks,
+           "losses": step_losses, "moved": moved_report,
            **train_steps_in_turns(gan, real_I, real_S)}
     print(tag, json.dumps(res))
     return res
@@ -1857,9 +1921,9 @@ def check_config4(ops, tol):
 def check_other_generators(ops, tol):
     """Phase 11: the ResU-Net with deconv and with the attention gate, and
     the ResNet generator, each alone at full width; and K1-K3
-    at the ResNet's kernel conv shapes (its 7^3 stem and head take the
-    CUDA-core bodies: 343 taps), timed against their plain versions and
-    cuDNN as in phase 2."""
+    at the ResNet's kernel conv shapes (its 7^3 head takes K1 and K3 on the
+    tensor cores in tap chunks, its stem the CUDA-core bodies: 343 taps),
+    timed against their plain versions and cuDNN as in phase 2."""
     from vangan_torch.config import VanGanConfig
     from vangan_torch.models.factory import build_generator
     from vangan_torch.models.resunet import ResUNet3D
@@ -1879,6 +1943,38 @@ def check_other_generators(ops, tol):
     resnet = build_generator("resnet", VanGanConfig(), generator=g).to(DEVICE).eval()
     out["resnet_convs"] = check_convs("resnet", path_shapes(resnet), RESNET_CONVS, tol)
     return out
+
+
+def check_resnet_step(ops, resnet_rows):
+    """Phase 17: the ResNet CycleGAN's train step at full width (phase 8's
+    checks, ``RESNET_TRAIN_LAUNCHES``, the head's K1 and K3 on the tap
+    chunks), and where its 343-tap convs' time goes: each kernel's launches
+    in one step (``RESNET_343_LAUNCHES``) times its bf16 ms at batch 3 from
+    phase 11's rows (``resnet_rows``), against the step's kernel ms."""
+    t0 = time.perf_counter()
+    train = check_train_step(ops, RESNET_TRAIN_LAUNCHES, RESNET_TRAIN_KERNEL_LAUNCHES,
+                             "resnet_train_step", want_tap_chunks=RESNET_TAP_CHUNKS, **RESNET)
+    torch.cuda.empty_cache()
+    rows = {r["convs"][0]: r for r in resnet_rows}
+    convs, total = {}, 0.0
+    for name, counts in RESNET_343_LAUNCHES.items():
+        r, parts = rows[name], {}
+        for op, n in zip(("fwd", "dgrad", "wgrad"), counts):
+            parts[op] = {"launches": n, "route": r["plan"][op]["route"],
+                         "tap_chunks": r["plan"][op]["tap_chunks"],
+                         "ms_each": r[f"{op}_bf16_ms"], "ms": n * r[f"{op}_bf16_ms"],
+                         "library_ms_each": r[f"{op}_bf16_library_ms"],
+                         "bound_ms_each": r["bound"][op][0]}
+            total += n * r[f"{op}_bf16_ms"]
+        convs[name] = parts
+    step_ms = train["kernel_ms_per_step"]
+    res = {"kernel_ms_per_step": step_ms, "plain_ms_per_step": train["plain_ms_per_step"],
+           "kernel_peak_gib": train["kernel_peak_gib"], "plain_peak_gib": train["plain_peak_gib"],
+           "launches": train["launches"], "tap_chunk_launches": train["tap_chunk_launches"],
+           "convs_343": convs, "convs_343_ms": total, "convs_343_share": total / step_ms,
+           "phase_s": time.perf_counter() - t0}
+    print("resnet_step", json.dumps(res))
+    return res
 
 
 def write_raw_tiff(path, vol_xyz):
@@ -2069,7 +2165,9 @@ def check_double_backward(disc_shapes, tol):
     conv0 input gradient's (d/dgy on K1, d/dw on K3) and the critic norms'
     (d/dx, d/dgamma, d/dgy: torch ops on K4's statistics and K5's sums), in
     f32 (1e-4 x max |ref|; d/dw, a weight gradient, 1e-3) and bf16 (2e-2),
-    with CUDA event times of the double backward alone (median of 5)."""
+    with CUDA event times of the double backward alone (median of 5); for a
+    norm also its bound in bf16: x, g and the cotangent of dx read, d/dx and
+    d/dg written once (its few f32 operations an element are far below)."""
     from vangan_torch.models.layers import ConvND
     from vangan_torch.ops.conv3d import conv3d, conv3d_plain, norm_padding
     from vangan_torch.ops.instnorm import instance_norm_act, instance_norm_act_plain
@@ -2109,6 +2207,7 @@ def check_double_backward(disc_shapes, tol):
                 gy, r = rnd(shape, dtype).requires_grad_(), rnd(shape)
                 p, q = rnd(c), rnd(c)
                 wrt, names = (x, gamma, gy), ("x", "gamma", "gy")
+                row["bound_bf16"] = bound(0, 5 * 2 * math.prod(shape), BF16_FLOP_PER_S)
 
                 def first(plain):
                     fn = instance_norm_act_plain if plain else instance_norm_act
@@ -2239,11 +2338,12 @@ def check_wgan(ops, tol, disc_shapes):
         step.gradient_penalty = real_gp
 
     res["double_backward"] = check_double_backward(disc_shapes, tol)
-    db = {"kernel": 0.0, "plain": 0.0}
+    db = {"kernel": 0.0, "plain": 0.0, "bound": 0.0}
     for row in res["double_backward"]:
         if row["name"] != "conv0":  # the norms' double backward, 2 critics a step
             db["kernel"] += 2 * row["bf16_ms"]
             db["plain"] += 2 * row["bf16_plain_ms"]
+            db["bound"] += 2 * row["bound_bf16"][0]
     res["in_double_backward_ms_per_step"] = db
 
     # ncritic: train() over NCRITIC_STEPS steps moves the generators only at
@@ -3231,7 +3331,7 @@ def main() -> int:
     check_train_cli((conv_ops, in_ops, skel_ops), train, test)
     torch.cuda.empty_cache()
     c4 = check_config4((conv_ops, in_ops, skel_ops), tol)
-    check_other_generators((conv_ops, in_ops, skel_ops), tol)
+    other_gens = check_other_generators((conv_ops, in_ops, skel_ops), tol)
     torch.cuda.empty_cache()
     data_eval = check_data_eval((conv_ops, in_ops, skel_ops), card)
     torch.cuda.empty_cache()
@@ -3242,6 +3342,8 @@ def main() -> int:
     dp = check_dp(card)
     torch.cuda.empty_cache()
     micro = check_micro((conv_ops, in_ops, skel_ops), tol, train, card)
+    torch.cuda.empty_cache()
+    resnet = check_resnet_step((conv_ops, in_ops, skel_ops), other_gens["resnet_convs"])
 
     require("jax" not in sys.modules and "vangan_tpu" not in sys.modules,
             "the port imported JAX or the JAX package")
@@ -3254,9 +3356,23 @@ def main() -> int:
             by[kind] += count * ms
         return {"bound_ms": sum(by.values()), "bound_by": max(by, key=by.get)}
 
+    resnet_rows = {r["convs"][0]: r for r in other_gens["resnet_convs"]}
+
     def conv_entry(name, op, source, replaces):
-        """Sums over one gen_IS and one disc_I call at batch 3, bf16."""
+        """Sums over one gen_IS and one disc_I call at batch 3, bf16; and the
+        ResNet's 343-tap convs at batch 3 (phase 11), with their launches in
+        phase 17's step."""
         total = lambda key: sum(len(r["convs"]) * r[key] for r in conv_rows)  # noqa: E731
+        k = ("fwd", "dgrad", "wgrad").index(op)
+        taps_343 = {conv: {"launches": counts[k], "route": resnet_rows[conv]["plan"][op]["route"],
+                           "tap_chunks": resnet_rows[conv]["plan"][op]["tap_chunks"],
+                           "max_abs_err": resnet_rows[conv][f"{op}_bf16_abs_err"],
+                           "ms": resnet_rows[conv][f"{op}_bf16_ms"],
+                           "plain_ms": resnet_rows[conv][f"{op}_bf16_plain_ms"],
+                           "bound_ms": resnet_rows[conv]["bound"][op][0],
+                           "bound_by": resnet_rows[conv]["bound"][op][1],
+                           "library_ms": resnet_rows[conv][f"{op}_bf16_library_ms"]}
+                    for conv, counts in RESNET_343_LAUNCHES.items()}
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
                 "launches": train["launches"][name],
                 "config4_launches": c4["train"]["launches"][name],
@@ -3264,10 +3380,11 @@ def main() -> int:
                 "twod_launches": twod["train"]["launches"][name],
                 "dp_launches": dp["launches"][name],
                 "micro_launches": micro["micro3_of_3"]["launches"][name],
+                "resnet_launches": resnet["launches"][name],
                 "max_abs_err": max(r[f"{op}_bf16_abs_err"] for r in conv_rows),
                 "ms": total(f"{op}_bf16_ms"), "plain_ms": total(f"{op}_bf16_plain_ms"),
                 **summed_bound([(len(r["convs"]), r["bound"][op]) for r in conv_rows]),
-                "library_ms": total(f"{op}_bf16_library_ms")}
+                "library_ms": total(f"{op}_bf16_library_ms"), "taps_343": taps_343}
 
     def in_entry(name, op, replaces):
         total = lambda key: sum(len(r["uses"]) * r[key] for r in in_rows)  # noqa: E731
@@ -3281,6 +3398,7 @@ def main() -> int:
                  "twod_launches": twod["train"]["launches"][name],
                  "dp_launches": dp["launches"][name],
                  "micro_launches": micro["micro3_of_3"]["launches"][name],
+                 "resnet_launches": resnet["launches"][name],
                  "max_abs_err": max(errs_),
                  "ms": total(f"{op}_bf16_ms"), "plain_ms": total(f"{op}_bf16_plain_ms"),
                  **summed_bound([(len(r["uses"]), r["bound"][op]) for r in in_rows]),
@@ -3297,15 +3415,17 @@ def main() -> int:
     kernels = [
         dict(conv_entry("conv3d_fwd", "fwd", "vangan_torch/ops/csrc/conv3d_fwd.cu",
                         "vangan_tpu/ops/pallas/conv3d.py:577"),
-             raw_predict_launches=raw_predict["conv3d_fwd"]),
+             raw_predict_launches=raw_predict["conv3d_fwd"],
+             resnet_tap_chunk_launches=resnet["tap_chunk_launches"]["conv3d_fwd"]),
         dict(conv_entry("conv3d_dgrad", "dgrad", "vangan_torch/ops/csrc/conv3d_dgrad.cu",
                         "vangan_tpu/ops/pallas/conv3d.py:904"),
              fold_launches=train["launches"]["conv3d_dgrad_fold"],
              config4_fold_launches=c4["train"]["launches"]["conv3d_dgrad_fold"],
              wgan_fold_launches=wgan["launches"][1]["conv3d_dgrad_fold"],
              twod_fold_launches=twod["train"]["launches"]["conv3d_dgrad_fold"]),
-        conv_entry("conv3d_wgrad", "wgrad", "vangan_torch/ops/csrc/conv3d_wgrad.cu",
-                   "vangan_tpu/ops/pallas/conv3d.py:817"),
+        dict(conv_entry("conv3d_wgrad", "wgrad", "vangan_torch/ops/csrc/conv3d_wgrad.cu",
+                        "vangan_tpu/ops/pallas/conv3d.py:817"),
+             resnet_tap_chunk_launches=resnet["tap_chunk_launches"]["conv3d_wgrad"]),
         dict(in_entry("instnorm_fwd", "fwd", "vangan_tpu/ops/pallas/instnorm.py:309"),
              raw_predict_launches=raw_predict["instnorm_fwd"],
              kernel_launches=train["kernel_launches"]["instnorm_fwd"],
@@ -3320,6 +3440,7 @@ def main() -> int:
          "twod_launches": twod["train"]["launches"]["soft_skel_fwd"],
          "dp_launches": dp["launches"]["soft_skel_fwd"],
          "micro_launches": micro["micro3_of_3"]["launches"]["soft_skel_fwd"],
+         "resnet_launches": resnet["launches"]["soft_skel_fwd"],
          "metric_launches": data_eval["metric_launches"],
          "max_abs_err": max(skel["tanh_noise_max_abs_err"], skel["binary_faces_max_abs_err"],
                             *data_eval["skel_max_abs_err"].values()),
@@ -3335,6 +3456,7 @@ def main() -> int:
          "twod_launches": twod["train"]["launches"]["soft_skel_bwd"],
          "dp_launches": dp["launches"]["soft_skel_bwd"],
          "micro_launches": micro["micro3_of_3"]["launches"]["soft_skel_bwd"],
+         "resnet_launches": resnet["launches"]["soft_skel_bwd"],
          "config4_launches": c4["train"]["launches"]["soft_skel_bwd"],
          "config4_kernel_launches": c4["train"]["kernel_launches"]["soft_skel_bwd"],
          "max_abs_err": skel["bwd_max_abs_err"], "ms": skel["bwd_ms"],

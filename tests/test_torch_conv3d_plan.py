@@ -10,6 +10,8 @@ The plan is pure Python, so these run on the CPU; the kernels' own results
 are checked on the card (``tests/test_torch_kernels_gpu.py``, ``chip_smoke.py``).
 """
 
+import hashlib
+import json
 import math
 
 import numpy as np
@@ -90,6 +92,9 @@ def _kernel_takes(plan):
     """What the C entry points accept for a plan (they return 1000 otherwise)."""
     if plan.route in ("f32", "thin"):
         return plan.op != "wgrad" or 1 <= plan.split <= 65535
+    if plan.tap_chunks:  # route 2: one n tile of FOLD_N columns
+        ok = plan.co_tile == C.FOLD_N and 0 < plan.smem_bytes <= C.MAX_SMEM
+        return ok and (plan.op != "wgrad" or 1 <= plan.split <= 65535)
     limit = {"fwd": C.FWD_MAX_CO_TILE, "dgrad": C.DGRAD_MAX_CI_TILE,
              "wgrad": C.WGRAD_MAX_CO_TILE}[plan.op]
     static = C.DGRAD_STATIC_SMEM if plan.op == "dgrad" else 0
@@ -203,16 +208,27 @@ def test_wrapper_workspace_shape_matches_plan(dtype):
 @pytest.mark.parametrize("ci,co,k,dims,batch", [(1, 32, 7, 128, 1), (32, 1, 7, 128, 1),
                                                 (64, 32, 4, 64, 3), (3, 5, 2, 3, 1)])
 def test_cuda_core_wgrad_split(dtype, ci, co, k, dims, batch):
-    """The CUDA-core weight gradient (float32; bfloat16 above 64 taps) fills
-    the card with blocks along the voxels, no more blocks than voxel chunks,
-    each with a slice of the workspace: the ResNet generator's 343-tap convs,
-    a 64-tap one in f32 and a tiny one."""
+    """The CUDA-core weight gradient (float32; bfloat16 above 64 taps where
+    the tap chunks do not take the shape) fills the card with blocks along
+    the voxels, no more blocks than voxel chunks, each with a slice of the
+    workspace: the ResNet generator's 343-tap convs, a 64-tap one in f32 and
+    a tiny one. In bfloat16 the ResNet's head (32 -> 1) takes the tap chunks,
+    whose blocks split the bricks the same way, one slice each."""
     plan = C.conv_plan("wgrad", ci, co, (k,) * 3, (1, 1, 1), (dims,) * 3, dtype, batch)
     if dtype == BF16 and k ** 3 <= C.MMA_MAX_TAPS:
         assert plan.route == "mma"
         return
-    assert plan.route in ("f32", "thin") and _kernel_takes(plan)
     ncols = ci * k ** 3
+    if dtype == BF16 and ci >= C.CI_CHUNK and co * k <= C.FOLD_N:
+        assert plan.route == "mma" and plan.tap_chunks == k and _kernel_takes(plan)
+        chunks = -(-ci // C.CI_CHUNK)
+        bricks = batch * math.prod(-(-dims // b) for b in plan.brick)
+        assert plan.split <= bricks
+        assert plan.split * chunks >= min(C.WGRAD_TARGET_BLOCKS, bricks * chunks)
+        assert plan.workspace_slices == plan.split
+        assert plan.workspace_bytes == plan.split * co * ncols * 4 <= C.WORKSPACE_CAP
+        return
+    assert plan.route in ("f32", "thin") and _kernel_takes(plan)
     mt, nt = min(C.WGRAD_CORE_TILES,  # the least padded tile, first on a tie, as the source
                  key=lambda t: -(-co // t[0]) * t[0] * -(-ncols // t[1]) * t[1])
     tiles = -(-co // mt) * -(-ncols // nt)
@@ -238,3 +254,238 @@ def test_mma_weights_layout(rng, co, ci, k, co_tile):
     want[:ci, :co] = flat.permute(1, 0, 2)
     got = wt.permute(0, 4, 1, 3, 2).reshape(chunks * 16, tiles * co_tile, taps)
     assert torch.equal(got, want)
+
+
+# The ResNet generator's 343-tap convs at 3 x 128^3: (Ci, Co) of the stem and
+# the head, 7^3 reflect-padded by 3
+RESNET_343 = {"stem_conv": (1, 32), "head": (32, 1)}
+DIMS = (N,) * 3
+PADS3 = ((3, 3),) * 3
+
+
+def _resnet_plans(name, dtype):
+    ci, co = RESNET_343[name]
+    k, s = (7, 7, 7), (1, 1, 1)
+    return {"fwd": C.conv_plan("fwd", ci, co, k, s, DIMS, dtype, BATCH),
+            "dgrad": C.conv_plan("dgrad", ci, co, k, s, DIMS, dtype, BATCH, in_dims=DIMS,
+                                 pads=PADS3, pad_mode="reflect"),
+            "wgrad": C.conv_plan("wgrad", ci, co, k, s, DIMS, dtype, BATCH)}
+
+
+def test_resnet_head_takes_the_tap_chunks():
+    """The head (32 -> 1): K1 and K3 on the tensor cores in 7 tap chunks of
+    (7, 1, 7) taps (each within MMA_MAX_TAPS), the kz taps on N, columns of
+    16 z positions giving 10 outputs each; at most half the issued MMA work
+    padding (measured 0.46: 7 of 8 N columns, 10 of 16 rows, 128 of 130 z),
+    shared memory for two blocks an SM, the workspace within its cap."""
+    plans = _resnet_plans("head", BF16)
+    for op in ("fwd", "wgrad"):
+        p = plans[op]
+        assert (p.route, p.body, p.tap_chunk, p.tap_chunks) == ("mma", 2, (7, 1, 7), 7), p
+        assert math.prod(p.tap_chunk) <= C.MMA_MAX_TAPS < 343
+        assert p.brick == (4, 8, 10) and (p.co_tile, p.co_tiles) == (C.FOLD_N, 1)
+        assert p.pad_share <= 0.5, p
+        assert 2 * p.smem_bytes <= C.MAX_SMEM and _kernel_takes(p)
+    assert plans["fwd"].smem_bytes == 10 * 14 * 16 * 32 + 2 * 49 * 8 * 32
+    w = plans["wgrad"]
+    assert w.workspace_slices == w.split and w.workspace_bytes <= C.WORKSPACE_CAP
+    assert w.workspace_bytes == w.split * 32 * 343 * 4
+    assert w.split * 2 >= C.WGRAD_TARGET_BLOCKS  # two 16-channel chunks
+
+
+def test_resnet_stem_and_input_gradients_keep_the_cuda_core_body():
+    """The stem (1 -> 32): K1 stays on the CUDA-core body (Ci = 1 <=
+    THIN_MAX_CI), and so does K3 (Ci = 1 < 16, and Co * kz = 224 > 8); K2
+    at 343 taps keeps its plan, the CUDA-core body, for stem and head."""
+    stem, head = _resnet_plans("stem_conv", BF16), _resnet_plans("head", BF16)
+    for p in (stem["fwd"], stem["wgrad"], stem["dgrad"], head["dgrad"]):
+        assert p.route == "thin" and p.body == 0 and p.tap_chunks == 0 and _kernel_takes(p), p
+
+
+@pytest.mark.parametrize("name", sorted(RESNET_343))
+def test_resnet_343_taps_in_float32_take_the_f32_route(name):
+    for op, p in _resnet_plans(name, torch.float32).items():
+        assert p.route == "f32" and p.tap_chunks == 0 and _kernel_takes(p), (op, p)
+
+
+@pytest.mark.parametrize("op,ci,co,k,stride", [
+    ("fwd", 32, 2, (7, 7, 7), (1, 1, 1)),    # Co * kz = 14 > 8
+    ("fwd", 32, 1, (7, 7, 7), (2, 2, 2)),    # strided
+    ("wgrad", 8, 1, (7, 7, 7), (1, 1, 1)),   # Ci < 16
+    ("wgrad", 32, 1, (5, 5, 5), (1, 2, 1)),  # strided
+])
+def test_tap_chunks_refuse_what_they_do_not_take(op, ci, co, k, stride):
+    out = tuple(-(-20 // s) for s in stride)
+    assert C.conv_plan(op, ci, co, k, stride, out, BF16, 2).route == "thin"
+
+
+def test_tap_chunks_take_other_shapes_above_64_taps():
+    """5^3 and 8^3 kernels at Co = 1, and Co = 3 with kz = 2 (6 columns)."""
+    for ci, co, k in ((48, 1, (5, 5, 5)), (16, 1, (8, 8, 8)), (16, 3, (7, 7, 2))):
+        for op in ("fwd", "wgrad"):
+            p = C.conv_plan(op, ci, co, k, (1, 1, 1), (20, 18, 22), BF16, 2)
+            assert p.tap_chunks == k[1] and p.brick[2] == C.FOLD_ROWS - k[2] + 1, (op, k)
+            assert _kernel_takes(p), p
+
+
+# A frozen copy of the plans from before the tap chunks existed: every
+# kernel conv of config 2 (gen_IS, disc_I) and config 4 (the two V-Nets) at
+# batch 3, 128^3, chip_smoke.py phase 2's and phase 10's shapes: (Ci, Co,
+# k, stride, padding, pad_mode, input edge), then a digest of each plan
+# (bfloat16 fwd, dgrad, wgrad, then float32) over the fields they had. No
+# plan of 64 taps or fewer changes.
+P1 = ((1, 1),) * 3
+FROZEN_FIELDS = ("op", "route", "brick", "ci_chunk", "co_tile", "co_tiles", "tap_warps",
+                 "tap_groups", "split", "workspace_bytes", "smem_bytes", "pad_share",
+                 "parities", "fold", "fold_bytes", "launches", "shared_halo")
+FROZEN_PLANS = {
+    "disc_I.conv0": ((1, 64, 4, 2, P1, "reflect", 128),
+        ("a0ebca161a111da6", "95ad2e48caef8f14", "e9f40c66f945e691",
+         "071e28bcfcb05637", "f92f50c17776317e", "760f9c0dbaa46867")),
+    "gen_IS.dec0.block1.conv": ((48, 16, 3, 1, P1, "reflect", 128),
+        ("d841274b0ef6763d", "c74ed93a2e4ecf65", "4bcbc780c033d1b9",
+         "071e28bcfcb05637", "bd36f738aecd0d09", "ef93b1e8b555b4c3")),
+    "gen_IS.dec0.block2.conv": ((16, 16, 3, 1, P1, "reflect", 128),
+        ("d841274b0ef6763d", "f7c9b0d6fe40366d", "826297a2e4154120",
+         "071e28bcfcb05637", "a3c558cddad38ffa", "0706d10b1a603417")),
+    "gen_IS.dec0.shortcut": ((48, 16, 1, 1, "same", "zeros", 128),
+        ("9afcfec61866c331", "47a9d9398b07b28b", "8c1c7a501c1fb167",
+         "071e28bcfcb05637", "f1b7be769b17ab8d", "ab7ed9b37b3ccaa1")),
+    "gen_IS.dec1.block1.conv": ((96, 32, 3, 1, P1, "reflect", 64),
+        ("b1873ce61e03046e", "fe5571665b39967d", "03a495d1eb8edb0d",
+         "071e28bcfcb05637", "5c229dbea2f32bdc", "a5fa1482d0eadebf")),
+    "gen_IS.dec1.block2.conv": ((32, 32, 3, 1, P1, "reflect", 64),
+        ("b1873ce61e03046e", "3d2180ecf8989eab", "558ec41789a7236a",
+         "071e28bcfcb05637", "6f91ea53a7104b6b", "3d2d865aff5177ef")),
+    "gen_IS.dec1.shortcut": ((96, 32, 1, 1, "same", "zeros", 64),
+        ("352a27d603b4cffb", "b45df68cc7e83489", "81ca527be2fc1e17",
+         "071e28bcfcb05637", "43078ef0f3cb0f91", "917e8cb098b46370")),
+    "gen_IS.dec2.block2.conv": ((64, 64, 3, 1, P1, "reflect", 32),
+        ("e6af62e8e6a82f40", "a6c3971350215dc9", "abf9d0ef38c46110",
+         "071e28bcfcb05637", "0b15ed60eecf5cea", "ba039d5c1a69f779")),
+    "gen_IS.enc1.block1.conv": ((16, 32, 3, 2, P1, "reflect", 128),
+        ("1bb7325a3c287739", "e44dbf72b1a1d111", "da3ddbf2b9a4d6d4",
+         "071e28bcfcb05637", "3f9b7447130cdef2", "7e31418d042df95f")),
+    "gen_IS.enc1.block2.conv": ((32, 32, 3, 1, P1, "reflect", 64),
+        ("b1873ce61e03046e", "3d2180ecf8989eab", "558ec41789a7236a",
+         "071e28bcfcb05637", "6f91ea53a7104b6b", "3d2d865aff5177ef")),
+    "gen_IS.enc1.shortcut": ((16, 32, 1, 2, "same", "zeros", 128),
+        ("352a27d603b4cffb", "92ec12f489ca1ea4", "27156728f7ed6e70",
+         "071e28bcfcb05637", "766422762739ef7c", "07ecedc1ce32db53")),
+    "gen_IS.enc2.block1.conv": ((32, 64, 3, 2, P1, "reflect", 64),
+        ("7d567f43819f973d", "6b88f6a5713ecae4", "22464c27c775a4e9",
+         "071e28bcfcb05637", "d1dfefe498527cae", "450b79312f5e9ddd")),
+    "gen_IS.enc2.block2.conv": ((64, 64, 3, 1, P1, "reflect", 32),
+        ("e6af62e8e6a82f40", "a6c3971350215dc9", "abf9d0ef38c46110",
+         "071e28bcfcb05637", "0b15ed60eecf5cea", "ba039d5c1a69f779")),
+    "gen_IS.enc2.shortcut": ((32, 64, 1, 2, "same", "zeros", 64),
+        ("3af33b3f1f23e378", "d863dc9108ff4c82", "8528dbcd7928f520",
+         "071e28bcfcb05637", "824df946eeda2b9a", "1692c39c3d5bda98")),
+    "gen_IS.head": ((16, 1, 1, 1, "same", "zeros", 128),
+        ("0ecf997d5c4f862d", "31a559575ab46ffb", "c22d2ca67b2ae962",
+         "071e28bcfcb05637", "f1b7be769b17ab8d", "a4accac5c8e5f57b")),
+    "gen_IS.stem.conv1": ((1, 16, 3, 1, P1, "reflect", 128),
+        ("a0ebca161a111da6", "edd80207c74d5e05", "09490e4770df04b9",
+         "071e28bcfcb05637", "a8700f8b4a8c7bb0", "431f6183f191423c")),
+    "gen_IS.stem.conv_block.conv": ((16, 16, 3, 1, P1, "reflect", 128),
+        ("d841274b0ef6763d", "f7c9b0d6fe40366d", "826297a2e4154120",
+         "071e28bcfcb05637", "a3c558cddad38ffa", "0706d10b1a603417")),
+    "gen_IS.stem.shortcut": ((1, 16, 1, 1, "same", "zeros", 128),
+        ("a0ebca161a111da6", "733984a6971b4f2e", "1a66a56a1adbef14",
+         "071e28bcfcb05637", "f1b7be769b17ab8d", "a4accac5c8e5f57b")),
+    "vnet_i2s.down0.conv0": ((1, 32, 3, 1, P1, "reflect", 128),
+        ("a0ebca161a111da6", "edd80207c74d5e05", "c428da15c307c7ab",
+         "071e28bcfcb05637", "a8700f8b4a8c7bb0", "126217bbda14a343")),
+    "vnet_i2s.down0.conv1": ((32, 32, 3, 1, P1, "reflect", 128),
+        ("b1873ce61e03046e", "4d4542afb1323ef5", "558ec41789a7236a",
+         "071e28bcfcb05637", "9e091f2bb76f74c9", "3d2d865aff5177ef")),
+    "vnet_i2s.down1.conv0": ((32, 64, 3, 1, P1, "reflect", 64),
+        ("e6af62e8e6a82f40", "3d2180ecf8989eab", "02d62ac6d5136a81",
+         "071e28bcfcb05637", "6f91ea53a7104b6b", "450b79312f5e9ddd")),
+    "vnet_i2s.down1.conv1": ((64, 64, 3, 1, P1, "reflect", 64),
+        ("e6af62e8e6a82f40", "14a153ea3d39c527", "abf9d0ef38c46110",
+         "071e28bcfcb05637", "3b7d56e1e7967be7", "ba039d5c1a69f779")),
+    "vnet_i2s.head": ((32, 1, 1, 1, "same", "zeros", 128),
+        ("0ecf997d5c4f862d", "31a559575ab46ffb", "af13196c518439ad",
+         "071e28bcfcb05637", "f1b7be769b17ab8d", "d2c563c913283bbd")),
+    "vnet_i2s.up2.conv1": ((64, 64, 3, 1, P1, "reflect", 64),
+        ("e6af62e8e6a82f40", "14a153ea3d39c527", "abf9d0ef38c46110",
+         "071e28bcfcb05637", "3b7d56e1e7967be7", "ba039d5c1a69f779")),
+    "vnet_i2s.up3.conv0": ((64, 32, 3, 1, P1, "reflect", 128),
+        ("b1873ce61e03046e", "dbec5b52b1f767f0", "4eab63e22d44056d",
+         "071e28bcfcb05637", "890100d3fc49e964", "450b79312f5e9ddd")),
+    "vnet_i2s.up3.conv1": ((32, 32, 3, 1, P1, "reflect", 128),
+        ("b1873ce61e03046e", "4d4542afb1323ef5", "558ec41789a7236a",
+         "071e28bcfcb05637", "9e091f2bb76f74c9", "3d2d865aff5177ef")),
+    "vnet_i2s.upconv3": ((64, 32, 3, 1, "same", "zeros", 128),
+        ("b1873ce61e03046e", "06accbae590f06d3", "4eab63e22d44056d",
+         "071e28bcfcb05637", "8bd4653b92a17e8b", "450b79312f5e9ddd")),
+    "vnet_s2i.down0.conv0": ((1, 16, 3, 1, P1, "reflect", 128),
+        ("a0ebca161a111da6", "edd80207c74d5e05", "09490e4770df04b9",
+         "071e28bcfcb05637", "a8700f8b4a8c7bb0", "431f6183f191423c")),
+    "vnet_s2i.down0.conv1": ((16, 16, 3, 1, P1, "reflect", 128),
+        ("d841274b0ef6763d", "f7c9b0d6fe40366d", "826297a2e4154120",
+         "071e28bcfcb05637", "a3c558cddad38ffa", "0706d10b1a603417")),
+    "vnet_s2i.down1.conv0": ((16, 32, 3, 1, P1, "reflect", 64),
+        ("b1873ce61e03046e", "789adb75fb04cb29", "cb53eddf321a83c5",
+         "071e28bcfcb05637", "97246c4ecd66f34e", "7e31418d042df95f")),
+    "vnet_s2i.down1.conv1": ((32, 32, 3, 1, P1, "reflect", 64),
+        ("b1873ce61e03046e", "3d2180ecf8989eab", "558ec41789a7236a",
+         "071e28bcfcb05637", "6f91ea53a7104b6b", "3d2d865aff5177ef")),
+    "vnet_s2i.down2.conv0": ((32, 64, 3, 1, P1, "reflect", 32),
+        ("e6af62e8e6a82f40", "77f8e497aef0fba7", "02d62ac6d5136a81",
+         "071e28bcfcb05637", "2e09516569d4a6b0", "450b79312f5e9ddd")),
+    "vnet_s2i.down2.conv1": ((64, 64, 3, 1, P1, "reflect", 32),
+        ("e6af62e8e6a82f40", "a6c3971350215dc9", "abf9d0ef38c46110",
+         "071e28bcfcb05637", "0b15ed60eecf5cea", "ba039d5c1a69f779")),
+    "vnet_s2i.head": ((16, 1, 1, 1, "same", "zeros", 128),
+        ("0ecf997d5c4f862d", "31a559575ab46ffb", "c22d2ca67b2ae962",
+         "071e28bcfcb05637", "f1b7be769b17ab8d", "a4accac5c8e5f57b")),
+    "vnet_s2i.up1.conv1": ((64, 64, 3, 1, P1, "reflect", 32),
+        ("e6af62e8e6a82f40", "a6c3971350215dc9", "abf9d0ef38c46110",
+         "071e28bcfcb05637", "0b15ed60eecf5cea", "ba039d5c1a69f779")),
+    "vnet_s2i.up2.conv0": ((64, 32, 3, 1, P1, "reflect", 64),
+        ("b1873ce61e03046e", "14a153ea3d39c527", "4eab63e22d44056d",
+         "071e28bcfcb05637", "3b7d56e1e7967be7", "450b79312f5e9ddd")),
+    "vnet_s2i.up2.conv1": ((32, 32, 3, 1, P1, "reflect", 64),
+        ("b1873ce61e03046e", "3d2180ecf8989eab", "558ec41789a7236a",
+         "071e28bcfcb05637", "6f91ea53a7104b6b", "3d2d865aff5177ef")),
+    "vnet_s2i.up3.conv0": ((32, 16, 3, 1, P1, "reflect", 128),
+        ("d841274b0ef6763d", "4d4542afb1323ef5", "fb3b4f70c325ee31",
+         "071e28bcfcb05637", "9e091f2bb76f74c9", "7e31418d042df95f")),
+    "vnet_s2i.up3.conv1": ((16, 16, 3, 1, P1, "reflect", 128),
+        ("d841274b0ef6763d", "f7c9b0d6fe40366d", "826297a2e4154120",
+         "071e28bcfcb05637", "a3c558cddad38ffa", "0706d10b1a603417")),
+}
+
+
+def _digest(plan):
+    fields = {f: getattr(plan, f) for f in FROZEN_FIELDS}
+    return hashlib.sha256(json.dumps(fields, sort_keys=True).encode()).hexdigest()[:16]
+
+
+def test_frozen_plans_cover_configs_2_and_4():
+    """Config 2's 17 + 1 kernel convs (the table above) and config 4's 9 +
+    12 (the V-Nets)."""
+    prefix = lambda n: "disc_I." + n[5:] if n.startswith("disc.") else "gen_IS." + n  # noqa: E731
+    config2 = {prefix(n): v for n, v in PATH_CONVS.items()}
+    for name, (ci, co, k, s, padding, pad_mode, n) in config2.items():
+        assert FROZEN_PLANS[name][0] == (ci, co, k, s, padding, pad_mode, n), name
+    rest = sorted(set(FROZEN_PLANS) - set(config2))
+    assert [n.split(".")[0] for n in rest] == ["vnet_i2s"] * 9 + ["vnet_s2i"] * 12
+
+
+@pytest.mark.parametrize("name", sorted(FROZEN_PLANS))
+def test_plans_of_configs_2_and_4_equal_the_frozen_copy(name):
+    (ci, co, k, s, padding, pad_mode, n), want = FROZEN_PLANS[name]
+    k, s, dims = (k,) * 3, (s,) * 3, (n,) * 3
+    pads = C.norm_padding(padding, k, s, dims)
+    out = tuple((d + lo + hi - kk) // ss + 1 for d, (lo, hi), kk, ss in zip(dims, pads, k, s))
+    got = []
+    for dtype in (BF16, torch.float32):
+        for op in ("fwd", "dgrad", "wgrad"):
+            kw = dict(in_dims=dims, pads=pads, pad_mode=pad_mode) if op == "dgrad" else {}
+            plan = C.conv_plan(op, ci, co, k, s, out, dtype, BATCH, **kw)
+            assert plan.tap_chunks == 0 and plan.tap_chunk == (), plan
+            got.append(_digest(plan))
+    assert tuple(got) == want

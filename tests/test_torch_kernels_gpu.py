@@ -65,9 +65,10 @@ def _rel_err(got, want):
     # the discriminator's conv0 (1 -> 64 at 128^3 on the path), cut in size
     ((4, 4, 4), 2, ((1, 1),) * 3, "reflect", 1, 64, False, (18, 16, 20)),
     # the other generators' shapes, cut in size: the ResNet's 7^3 reflect
-    # stem and head (343 taps: the CUDA-core bodies), its 4^3 TF SAME
-    # upsample conv (pads (1, 2)), the i2s V-Net's 3^3 zero 'same' upconv
-    # and its 3^3 reflect conv, both 64 -> 32
+    # stem and head (343 taps: the CUDA-core bodies, but the 8 -> 1 forward
+    # in bfloat16, which takes the tap chunks), its 4^3 TF SAME upsample
+    # conv (pads (1, 2)), the i2s V-Net's 3^3 zero 'same' upconv and its
+    # 3^3 reflect conv, both 64 -> 32
     ((7, 7, 7), 1, ((3, 3),) * 3, "reflect", 1, 8, False, (11, 9, 10)),
     ((7, 7, 7), 1, ((3, 3),) * 3, "reflect", 8, 1, True, (9, 10, 11)),
     ((4, 4, 4), 1, "same", "zeros", 64, 32, False, (9, 8, 10)),
@@ -225,9 +226,10 @@ CONV_CASES = [
     ((4, 4, 4), 2, ((1, 1),) * 3, "reflect", 1, 64, False, (18, 16, 20)),
     ((3, 3, 3), 1, ((1, 1),) * 3, "reflect", 96, 32, False, (6, 5, 7)),
     # the other generators' shapes, cut in size: the ResNet's 7^3 reflect
-    # stem and head (343 taps: the CUDA-core bodies), its 4^3 TF SAME
-    # upsample conv (pads (1, 2)), the i2s V-Net's 3^3 zero 'same' upconv
-    # and its 3^3 reflect conv, both 64 -> 32
+    # stem and head (343 taps: the CUDA-core bodies, but the 8 -> 1 forward
+    # in bfloat16, which takes the tap chunks), its 4^3 TF SAME upsample
+    # conv (pads (1, 2)), the i2s V-Net's 3^3 zero 'same' upconv and its
+    # 3^3 reflect conv, both 64 -> 32
     ((7, 7, 7), 1, ((3, 3),) * 3, "reflect", 1, 8, False, (11, 9, 10)),
     ((7, 7, 7), 1, ((3, 3),) * 3, "reflect", 8, 1, True, (9, 10, 11)),
     ((4, 4, 4), 1, "same", "zeros", 64, 32, False, (9, 8, 10)),
@@ -327,7 +329,8 @@ def test_conv3d_bf16_routes_match_plain(cuda, k, stride, padding, pad_mode, batc
 @pytest.mark.parametrize("dtype,k,ci,co,dims,batch", [
     (torch.float32, (3, 3, 3), 16, 24, (13, 7, 9), 2),
     (torch.float32, (4, 4, 4), 32, 64, (17, 16, 18), 3),
-    # the ResNet generator's 343-tap stem and head: the CUDA-core body in bf16
+    # 343-tap convs that the tap chunks do not take (Ci < 16): the
+    # CUDA-core body in bf16
     (torch.bfloat16, (7, 7, 7), 1, 8, (20, 18, 22), 2),
     (torch.bfloat16, (7, 7, 7), 8, 1, (20, 18, 22), 2)])
 def test_conv3d_wgrad_cuda_core_is_bit_identical(cuda, dtype, k, ci, co, dims, batch):
@@ -555,7 +558,8 @@ def test_instnorm_backward_at_deep_planes(cuda, dtype, act, shape):
 
 # the kernel convs that the other generators add to the path, at their full
 # size, batch 1: (ci, co, k, stride, padding, pad_mode, n); the ResNet's 7^3
-# stem and head take the CUDA-core bodies (343 taps)
+# head takes the tap chunks in bfloat16 (K1, K3), its stem the CUDA-core
+# bodies (343 taps)
 OTHER_PATH_CONVS = {
     "vnet_i2s.down0.conv1": (32, 32, 3, 1, ((1, 1),) * 3, "reflect", 128),
     "vnet_i2s.upconv3": (64, 32, 3, 1, "same", "zeros", 128),
@@ -1076,3 +1080,109 @@ def test_2d_generator_and_cldice_on_the_card(cuda):
     assert (skel_ops.launches, skel_ops.bwd_launches) == skel0
     plain = soft_dice_cldice_grouped(truth.cpu(), pred.detach().cpu(), 1, iters=5)
     assert abs(float(loss) - float(plain)) <= 1e-5 * abs(float(plain))
+
+
+# K1 and K3 above 64 taps: (ci, co, k, pad_mode, dims, batch). In bfloat16
+# the convs to one channel take the tensor cores in tap chunks (route 2:
+# the ResNet's head, 32 -> 1, and 16 and 48 channels, one chunk and a
+# padded third), the 1 -> 32 stem the CUDA-core bodies; float32 always the
+# f32 route. Ragged bricks on every axis (20, 18, 22 and 9, 10, 11 against
+# columns of 4 x 8 and 10 or 12 z outputs).
+TAP_CHUNK_CASES = [
+    (32, 1, 7, "reflect", (20, 18, 22), 2),
+    (32, 1, 7, "zeros", (9, 10, 11), 1),
+    (16, 1, 7, "reflect", (9, 10, 11), 2),
+    (48, 1, 7, "zeros", (20, 18, 22), 1),
+    (48, 1, 5, "reflect", (9, 10, 11), 2),
+    (16, 1, 5, "zeros", (20, 18, 22), 1),
+    (32, 1, 5, "reflect", (20, 18, 22), 2),
+    (1, 32, 7, "reflect", (20, 18, 22), 2),
+    (1, 32, 5, "zeros", (9, 10, 11), 1),
+]
+
+
+def _tap_chunk_inputs(cuda, dtype, ci, co, k, dims, batch, seed=11):
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn(batch, ci, *dims, generator=g).to(cuda, dtype)
+    w = (torch.randn(co, ci, k, k, k, generator=g) * (2.0 / (ci * k ** 3)) ** 0.5).to(cuda)
+    b = (torch.randn(co, generator=g) * 0.1).to(cuda)
+    gy = torch.randn(batch, co, *dims, generator=g).to(cuda, dtype)
+    return x, w, b, gy, ((k // 2, k // 2),) * 3
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("ci,co,k,pad_mode,dims,batch", TAP_CHUNK_CASES)
+def test_conv3d_above_64_taps_match_plain(cuda, dtype, ci, co, k, pad_mode, dims, batch):
+    """K1 and K3 on the route conv_plan gives these shapes, against the
+    float32 plain versions: y within 1e-4 (float32) / 2e-2 (bfloat16) of
+    max |y|, dW within 1e-3 / 2e-2; K3 bit-identical in two runs (its
+    split-K slices summed in a fixed order) on every route."""
+    x, w, b, gy, pads = _tap_chunk_inputs(cuda, dtype, ci, co, k, dims, batch)
+    s, ks = (1, 1, 1), (k,) * 3
+    plans = [conv_ops.conv_plan(op, ci, co, ks, s, dims, dtype, batch) for op in ("fwd", "wgrad")]
+    chunks = dtype == torch.bfloat16 and co == 1
+    assert [p.tap_chunks for p in plans] == [k * chunks] * 2, plans
+    before = (conv_ops.launches, conv_ops.wgrad_launches)
+    with torch.inference_mode():
+        y = conv3d(x, w, b, 1, pads, pad_mode)
+        dw = conv_ops.conv3d_wgrad(x, gy, w.shape, s, pads, pad_mode)
+        again = conv_ops.conv3d_wgrad(x, gy, w.shape, s, pads, pad_mode)
+        want = conv3d_plain(x.float(), w, b, s, pads, pad_mode)
+        dwant = conv_ops.conv3d_wgrad_plain(x.float(), gy.float(), w.shape, s, pads, pad_mode)
+    torch.cuda.synchronize()
+    assert (conv_ops.launches, conv_ops.wgrad_launches) == (before[0] + 1, before[1] + 2)
+    assert y.dtype == dtype and _rel_err(y, want) <= TOL[dtype]
+    assert torch.equal(dw, again)
+    assert _rel_err(dw, dwant) <= (1e-3 if dtype == torch.float32 else 2e-2)
+
+
+@pytest.mark.parametrize("ci,co,k,pad_mode,dims,batch", TAP_CHUNK_CASES[:4])
+def test_conv3d_above_64_taps_through_autograd(cuda, ci, co, k, pad_mode, dims, batch):
+    """The head's shapes through the autograd Function in bfloat16: K1 and K3
+    on the tap chunks, K2 (and its fold for a reflect pad) on its CUDA-core
+    body, each launched once, against the plain versions (2e-2)."""
+    x, w, b, gy, pads = _tap_chunk_inputs(cuda, torch.bfloat16, ci, co, k, dims, batch, 12)
+    x.requires_grad_()
+    w.requires_grad_()
+    s = (1, 1, 1)
+    before = (conv_ops.launches, conv_ops.dgrad_launches, conv_ops.dgrad_fold_launches,
+              conv_ops.wgrad_launches)
+    conv3d(x, w, b, 1, pads, pad_mode).backward(gy)
+    torch.cuda.synchronize()
+    fold = int(pad_mode == "reflect")
+    assert (conv_ops.launches, conv_ops.dgrad_launches, conv_ops.dgrad_fold_launches,
+            conv_ops.wgrad_launches) == (before[0] + 1, before[1] + 1, before[2] + fold,
+                                         before[3] + 1)
+    dx = conv_ops.conv3d_dgrad_plain(gy.float(), w.detach(), x.shape, s, pads, pad_mode)
+    dw = conv_ops.conv3d_wgrad_plain(x.detach().float(), gy.float(), w.shape, s, pads, pad_mode)
+    assert _rel_err(x.grad, dx) <= 2e-2 and _rel_err(w.grad, dw) <= 2e-2
+
+
+def test_tap_chunks_refuse_what_they_do_not_take(cuda):
+    """The head's tap-chunk plans forced on shapes route 2 does not take (Co *
+    kz above 8, a stride other than 1, float32) raise and launch nothing:
+    no fallback to another body."""
+    bf16 = torch.bfloat16
+    x, w, _, gy, pads = _tap_chunk_inputs(cuda, bf16, 32, 1, 7, (9, 10, 11), 1)
+    fwd = conv_ops.conv_plan("fwd", 32, 1, (7, 7, 7), (1, 1, 1), (9, 10, 11), bf16, 1)
+    wgrad = conv_ops.conv_plan("wgrad", 32, 1, (7, 7, 7), (1, 1, 1), (9, 10, 11), bf16, 1)
+    assert fwd.tap_chunks == wgrad.tap_chunks == 7
+    lo = [3, 3, 3]
+    before = (conv_ops.launches, conv_ops.wgrad_launches)
+    with torch.inference_mode():
+        with pytest.raises(ValueError):  # Co * kz = 14
+            conv_ops._launch_fwd(x, w.repeat(2, 1, 1, 1, 1), None, (1, 1, 1), lo, True,
+                                 [9, 10, 11], "conv3d", plan=fwd)
+        with pytest.raises(ValueError):  # stride 2
+            conv_ops._launch_fwd(x, w, None, (2, 2, 2), lo, True, [5, 5, 6], "conv3d", plan=fwd)
+        with pytest.raises(ValueError):  # float32
+            conv_ops._launch_fwd(x.float(), w, None, (1, 1, 1), lo, True, [9, 10, 11],
+                                 "conv3d", plan=fwd)
+        with pytest.raises(ValueError):  # stride 2
+            conv_ops._conv3d_wgrad_cuda(x, gy[:, :, :5, :5, :6].contiguous(), w.shape,
+                                        (2, 2, 2), pads, "reflect", plan=wgrad)
+        with pytest.raises(ValueError):  # float32
+            conv_ops._conv3d_wgrad_cuda(x.float(), gy.float(), w.shape, (1, 1, 1), pads,
+                                        "reflect", plan=wgrad)
+    torch.cuda.synchronize()
+    assert (conv_ops.launches, conv_ops.wgrad_launches) == before

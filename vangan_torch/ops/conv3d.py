@@ -18,6 +18,20 @@ also fixes the tiles (the Co tile, the weight gradient's split over voxels and
 its workspace), and the wrapper passes it to the C entry point, which refuses
 what it cannot do: a route never falls back.
 
+A kernel with more than ``MMA_MAX_TAPS`` (64) taps, the ResNet generator's
+7^3 stem and head, runs K1 and K3 on the tensor cores in tap chunks where
+the fold takes it (unit stride, Co * kz <= 8; for K3 also Ci >= 16): the kz
+taps go on the GEMM's N (column co * kz + dz), the block stages a halo of
+columns of 16 z positions once per 16-channel chunk and walks the kernel one
+y slice (kx, 1, kz) at a time (``ConvPlan.tap_chunk``, ``tap_chunks``); the
+forward sums the shifted columns of its product in the epilogue, the weight
+gradient reads g shifted by dz (``csrc/conv3d_fwd.cu``, ``conv3d_wgrad.cu``,
+route 2). That is the head, 32 -> 1, in both. The stem (1 -> 32) keeps the
+CUDA-core bodies: its forward has Ci = 1 (``THIN_MAX_CI``) and its weight
+gradient Ci = 1 < 16, and its Co * kz = 224 is no fold; on an H100 at 3 x
+128^3 they take 22.3 and 18.7 ms, cuDNN 62.6 and 20.0. The input gradient
+(K2) keeps its plans: above 64 taps it is ``"thin"``.
+
 Where a gradient is needed the op is a ``torch.autograd.Function`` whose
 backward computes only what ``ctx.needs_input_grad`` asks for (the
 generators' stem convs read data or detached inputs and need no dx):
@@ -75,6 +89,8 @@ launches = 0             # conv3d forward
 dgrad_launches = 0       # conv3d_dgrad (one per conv)
 dgrad_fold_launches = 0  # its reflect-pad fold (one per reflect conv)
 wgrad_launches = 0       # conv3d_wgrad
+tap_chunk_launches = 0        # of the forward's, those on the tap chunks (route 2)
+wgrad_tap_chunk_launches = 0  # of the weight gradient's, those on the tap chunks
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 KMAX = 8  # largest kernel extent per axis the kernels take
@@ -86,7 +102,11 @@ BRICK = (4, 8, 8)       # output voxels per tensor-core block (x, y, z)
 CI_CHUNK = 16           # input channels per MMA k-step
 MMA_WARPS = 8
 THIN_MAX_CI = 3         # forward: a bf16 conv with Ci <= 3 takes the CUDA-core body
-MMA_MAX_TAPS = 64
+MMA_MAX_TAPS = 64       # the largest tap chunk a tensor-core block walks at once
+FOLD_COLUMNS = (4, 8)   # route 2 (tap chunks): a block's columns in x and y
+FOLD_ROWS = 16          # z positions of a column: one MMA row tile / k-step
+FOLD_N = 8              # its N: the Co * kz columns (co * kz + dz), one n tile
+FOLD_G_ROW = 24         # its weight gradient's staged g per column and channel
 FWD_MAX_CO_TILE = 64
 DGRAD_MAX_CI_TILE = 64
 DGRAD_MULTI_MAX_CI_TILE = 32  # a strided conv's parity loop spills registers above it
@@ -132,6 +152,14 @@ class ConvPlan:
     block stages g's halo once for all its parities. ``smem_bytes`` is the
     dynamic shared memory of a tensor-core launch (the input gradient's also
     holds ``DGRAD_STATIC_SMEM`` of static).
+
+    A forward or weight gradient with more than ``MMA_MAX_TAPS`` taps on the
+    tensor-core route runs in tap chunks: ``tap_chunks`` y slices of
+    ``tap_chunk`` = (kx, 1, kz) taps over one staged halo, the kz taps on the
+    GEMM's N (``co_tile`` ``FOLD_N``); its ``brick`` is the outputs of
+    ``FOLD_COLUMNS`` columns of ``FOLD_ROWS`` z positions, ``FOLD_ROWS - kz +
+    1`` each. Its weight gradient writes one workspace slice per block along
+    the voxels (``split``), as the CUDA-core body.
     """
     op: str
     route: str
@@ -150,12 +178,22 @@ class ConvPlan:
     fold_bytes: int = 0
     launches: int = 1
     shared_halo: bool = False
+    tap_chunk: Tuple[int, ...] = ()
+    tap_chunks: int = 0
 
     @property
     def workspace_slices(self) -> int:
         if self.op != "wgrad":
             return 0
-        return self.split * (MMA_WARPS // self.tap_warps) if self.route == "mma" else self.split
+        if self.route == "mma" and not self.tap_chunks:
+            return self.split * (MMA_WARPS // self.tap_warps)
+        return self.split
+
+    @property
+    def body(self) -> int:
+        """The C entry's route: 0 CUDA cores, 1 tensor cores, 2 tensor cores
+        in tap chunks."""
+        return 2 if self.tap_chunks else ROUTES[self.route]
 
 
 def _halo_voxels(k, stride) -> int:
@@ -183,13 +221,13 @@ def conv_plan(op: str, ci: int, co: int, k: Sequence[int], stride: Sequence[int]
     are the conv's channels and ``out_dims`` the output's (Xo, Yo, Zo).
     float32 always takes the CUDA-core route. bfloat16 takes the tensor-core
     route unless the shape has more than 64 taps (for K2: a parity
-    sub-kernel), its tiles do not fit in shared memory, or the GEMM's
-    16-channel k-step would be mostly padding (the forward's Ci, the input
-    gradient's Co <= ``thin_max_ci``): those take the CUDA-core body
-    (``"thin"``). The N tile is at most 64 for the forward and a
-    unit-stride input gradient, 32 for a strided input gradient (its parity
-    loop spills registers above it) and the weight gradient. What no body
-    takes raises ValueError.
+    sub-kernel) outside the tap chunks (``_fold_plan``), its tiles do not fit
+    in shared memory, or the GEMM's 16-channel k-step would be mostly padding
+    (the forward's Ci, the input gradient's Co <= ``thin_max_ci``): those
+    take the CUDA-core body (``"thin"``). The N tile is at most 64 for the
+    forward and a unit-stride input gradient, 32 for a strided input
+    gradient (its parity loop spills registers above it) and the weight
+    gradient. What no body takes raises ValueError.
     """
     return _conv_plan(op, int(ci), int(co), tuple(k), tuple(stride), tuple(out_dims), dtype,
                       int(batch), thin_max_ci,
@@ -213,8 +251,10 @@ def _conv_plan(op, ci, co, k, stride, out_dims, dtype, batch, thin_max_ci, in_di
     if dtype == torch.float32:
         return _core_plan(op, "f32", ci, co, taps, out_dims, batch)
     thin = _core_plan(op, "thin", ci, co, taps, out_dims, batch)
-    if taps > MMA_MAX_TAPS or (op == "fwd" and ci <= thin_max_ci):
+    if op == "fwd" and ci <= thin_max_ci:
         return thin
+    if taps > MMA_MAX_TAPS:
+        return _fold_plan(op, ci, co, k, stride, out_dims, batch) or thin
     chunks = -(-ci // CI_CHUNK)
     bricks = batch * math.prod(-(-n // b) for n, b in zip(out_dims, BRICK))
     halo = _halo_voxels(k, stride) * 32
@@ -244,6 +284,36 @@ def _conv_plan(op, ci, co, k, stride, out_dims, dtype, batch, thin_max_ci, in_di
         return thin
     return ConvPlan(op, "mma", tap_warps=tap_warps, tap_groups=tap_groups, split=split,
                     workspace_bytes=split * per_split, **common)
+
+
+def _fold_plan(op, ci, co, k, stride, out_dims, batch) -> Optional[ConvPlan]:
+    """The tensor-core route in tap chunks for a kernel of more than
+    ``MMA_MAX_TAPS`` taps (route 2 of the forward and the weight gradient),
+    or None where it does not take the shape: a stride other than 1, more
+    than ``FOLD_N`` columns Co * kz, or, for the weight gradient, Ci < 16
+    (its M is a 16-channel chunk). Its issued work counts every column of 16
+    z positions, ``FOLD_N`` N columns and the chunks' padding channels."""
+    kx, ky, kz = k
+    if stride != (1, 1, 1) or co * kz > FOLD_N or (op == "wgrad" and ci < CI_CHUNK):
+        return None
+    brick = (*FOLD_COLUMNS, FOLD_ROWS - kz + 1)
+    chunks = -(-ci // CI_CHUNK)
+    bricks = batch * math.prod(-(-n // b) for n, b in zip(out_dims, brick))
+    halo = (FOLD_COLUMNS[0] + kx - 1) * (FOLD_COLUMNS[1] + ky - 1) * FOLD_ROWS * 32
+    useful = batch * math.prod(out_dims) * co * ci * kx * ky * kz
+    issued = bricks * math.prod(FOLD_COLUMNS) * FOLD_ROWS * chunks * CI_CHUNK * kx * ky * FOLD_N
+    common = dict(brick=brick, co_tile=FOLD_N, co_tiles=1, tap_chunk=(kx, 1, kz),
+                  tap_chunks=ky, pad_share=1.0 - useful / issued)
+    if op == "fwd":
+        smem = halo + 2 * kx * ky * FOLD_N * 32  # the halo, two chunks' weights
+        return ConvPlan(op, "mma", smem_bytes=smem, **common) if smem <= MAX_SMEM else None
+    smem = halo + co * math.prod(FOLD_COLUMNS) * FOLD_G_ROW * 2  # the halo, g's columns
+    per_split = co * ci * kx * ky * kz * 4
+    split = min(-(-WGRAD_TARGET_BLOCKS // chunks), bricks, 65535, WORKSPACE_CAP // per_split)
+    if split < 1 or smem > MAX_SMEM:
+        return None
+    return ConvPlan(op, "mma", split=split, workspace_bytes=split * per_split, smem_bytes=smem,
+                    **common)
 
 
 def _core_plan(op, route, ci, co, taps, out_dims, batch) -> ConvPlan:
@@ -401,6 +471,20 @@ def mma_weights(w: torch.Tensor, co_tile: int) -> torch.Tensor:
     [Ci chunk][Co tile][tap][co_tile][16] bfloat16, zero-padded in Ci and Co,
     so each block stages a chunk with 16-byte copies."""
     return _mma_layout(w.to(torch.bfloat16), co_tile)
+
+
+def fold_weights(w: torch.Tensor, dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    """The forward's weights in tap chunks (Co * kz <= ``FOLD_N``): (Co, Ci,
+    kx, ky, kz) rearranged as [Ci chunk][dx][dy][n][16] with n = co * kz +
+    dz, zero-padded in Ci and n (bfloat16 for the kernel): a chunk's (dx, dy)
+    pairs, each the B tile of one MMA k-step."""
+    co, ci, kx, ky, kz = w.shape
+    if co * kz > FOLD_N:
+        raise ValueError(f"fold_weights: Co * kz = {co * kz} > {FOLD_N}")
+    chunks = -(-ci // CI_CHUNK)
+    wf = w.to(dtype).permute(1, 2, 3, 0, 4).reshape(ci, kx, ky, co * kz)
+    wf = F.pad(wf, (0, FOLD_N - co * kz, 0, 0, 0, 0, 0, chunks * CI_CHUNK - ci))
+    return wf.reshape(chunks, CI_CHUNK, kx, ky, FOLD_N).permute(0, 2, 3, 4, 1).contiguous()
 
 
 def norm_stride(stride: Union[int, Sequence[int]]) -> Tuple[int, int, int]:
@@ -564,15 +648,18 @@ class _Conv3dWgrad(torch.autograd.Function):
 
 
 def _forward(x, w, bias, stride, pads, pad_mode):
-    global launches
+    global launches, tap_chunk_launches
     if x.device.type == "cpu":
         return conv3d_plain(x, w, bias, stride, pads, pad_mode)
     _check_cuda(x, w.shape, "conv3d")
     dims = [(n + lo + hi - kk) // s + 1
             for n, (lo, hi), kk, s in zip(x.shape[2:], pads, w.shape[2:], stride)]
+    plan = conv_plan("fwd", x.shape[1], w.shape[0], w.shape[2:], stride, dims, x.dtype,
+                     x.shape[0])
     y = _launch_fwd(x, w, bias, stride, [lo for lo, _ in pads], pad_mode == "reflect", dims,
-                    "conv3d")
+                    "conv3d", plan)
     launches += 1
+    tap_chunk_launches += bool(plan.tap_chunks)
     return y
 
 
@@ -600,7 +687,12 @@ def _launch_fwd(x, w, bias, stride, lo_pads, reflect, out_dims, name, plan=None)
     if plan is None:
         plan = conv_plan("fwd", ci, co, w.shape[2:], stride, out_dims, x.dtype, b)
     w = w.detach().to(x.device)
-    w = mma_weights(w, plan.co_tile) if plan.route == "mma" else w.to(x.dtype).contiguous()
+    if plan.tap_chunks:
+        w = fold_weights(w)
+    elif plan.route == "mma":
+        w = mma_weights(w, plan.co_tile)
+    else:
+        w = w.to(x.dtype).contiguous()
     if bias is not None:
         bias = bias.detach().to(device=x.device, dtype=x.dtype).contiguous()
     y = torch.empty((b, co, *out_dims), dtype=x.dtype, device=x.device)
@@ -608,7 +700,7 @@ def _launch_fwd(x, w, bias, stride, lo_pads, reflect, out_dims, name, plan=None)
         status = build.library().vg_conv3d_fwd(
             x.data_ptr(), w.data_ptr(), None if bias is None else bias.data_ptr(), y.data_ptr(),
             _DTYPES[x.dtype], b, ci, co, X, Y, Z, *out_dims, kx, ky, kz, *stride, *lo_pads,
-            int(reflect), ROUTES[plan.route], plan.co_tile,
+            int(reflect), plan.body, plan.co_tile,
             torch.cuda.current_stream(x.device).cuda_stream)
     build.check(status, name)
     return y
@@ -637,7 +729,7 @@ def _conv3d_dgrad_cuda(g, w, x_shape, stride, pads, pad_mode):
             g.data_ptr(), w.data_ptr(), dx.data_ptr(), None if buf is None else buf.data_ptr(),
             _DTYPES[g.dtype], b, ci, co, *x_shape[2:], *g.shape[2:], *k, *stride,
             *[lo for lo, _ in pads], *[hi for _, hi in pads], int(pad_mode == "reflect"), order,
-            fold, ROUTES[plan.route], plan.co_tile, int(plan.shared_halo), plan.smem_bytes,
+            fold, plan.body, plan.co_tile, int(plan.shared_halo), plan.smem_bytes,
             plan.fold_bytes, torch.cuda.current_stream(g.device).cuda_stream)
     build.check(status, "conv3d_dgrad")
     dgrad_launches += 1
@@ -645,8 +737,10 @@ def _conv3d_dgrad_cuda(g, w, x_shape, stride, pads, pad_mode):
     return dx
 
 
-def _conv3d_wgrad_cuda(x, g, w_shape, stride, pads, pad_mode):
-    global wgrad_launches
+def _conv3d_wgrad_cuda(x, g, w_shape, stride, pads, pad_mode, plan=None):
+    """One launch of K3 (and its sum launch); ``plan`` defaults to
+    ``conv_plan``'s."""
+    global wgrad_launches, wgrad_tap_chunk_launches
     _check_cuda(x, w_shape, "conv3d_wgrad")
     co, ci, kx, ky, kz = w_shape
     if ci != x.shape[1] or g.dim() != 5 or co != g.shape[1]:
@@ -654,7 +748,9 @@ def _conv3d_wgrad_cuda(x, g, w_shape, stride, pads, pad_mode):
                          f"w {tuple(w_shape)}")
     x = x.contiguous()
     g = g.to(x.dtype).contiguous()
-    plan = conv_plan("wgrad", ci, co, (kx, ky, kz), stride, g.shape[2:], x.dtype, x.shape[0])
+    if plan is None:
+        plan = conv_plan("wgrad", ci, co, (kx, ky, kz), stride, g.shape[2:], x.dtype,
+                         x.shape[0])
     # every element of dW is written, by the sum over the workspace's slices
     dw = torch.empty(tuple(w_shape), dtype=torch.float32, device=x.device)
     ws = torch.empty(wgrad_workspace_shape(plan, w_shape), dtype=torch.float32, device=x.device)
@@ -662,9 +758,10 @@ def _conv3d_wgrad_cuda(x, g, w_shape, stride, pads, pad_mode):
         status = build.library().vg_conv3d_wgrad(
             x.data_ptr(), g.data_ptr(), dw.data_ptr(), ws.data_ptr(), _DTYPES[x.dtype],
             x.shape[0], ci, co, *x.shape[2:], *g.shape[2:], kx, ky, kz, *stride,
-            *[lo for lo, _ in pads], int(pad_mode == "reflect"), ROUTES[plan.route],
+            *[lo for lo, _ in pads], int(pad_mode == "reflect"), plan.body,
             plan.co_tile, plan.tap_warps, plan.split, ws.numel() * 4,
             torch.cuda.current_stream(x.device).cuda_stream)
     build.check(status, "conv3d_wgrad")
     wgrad_launches += 1
+    wgrad_tap_chunk_launches += bool(plan.tap_chunks)
     return dw

@@ -1,7 +1,8 @@
 // Device helpers shared by the conv3d kernels (conv3d_fwd.cu, conv3d_wgrad.cu):
-// the padding index map, the tensor-core route's tile constants, its swizzled
-// shared-memory layout and halo staging, and inline-PTX wrappers for
-// ldmatrix, mma.sync (bf16 -> f32) and cp.async.
+// the padding index map, the tensor-core route's tile constants (and those of
+// its body in tap chunks), its swizzled shared-memory layout and halo
+// staging, and inline-PTX wrappers for ldmatrix, mma.sync (bf16 -> f32) and
+// cp.async.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -60,6 +61,32 @@ __host__ __device__ inline Halo make_halo(int kx, int ky, int kz, int sx, int sy
   return h;
 }
 
+// The tensor-core body in tap chunks, for more than 64 taps at stride 1
+// (ops/conv3d.py conv_plan, fields tap_chunk / tap_chunks). A block owns
+// FOLD_BX x FOLD_BY columns of FOLD_ROWS consecutive z positions, and the
+// kernel's kz taps go on the GEMM's N (column co * kz + dz, FOLD_N wide): a
+// column's 16 z positions are one MMA row tile (forward) or k-step (weight
+// gradient), and each (dx, dy) pair of taps is one shifted view of the halo,
+// (FOLD_BX + kx - 1) x (FOLD_BY + ky - 1) x FOLD_ROWS voxels, staged once per
+// 16-channel chunk by stage_halo. A column gives FOLD_ROWS - kz + 1 output z
+// positions.
+constexpr int FOLD_BX = 4, FOLD_BY = 8;
+constexpr int FOLD_ROWS = 16;
+constexpr int FOLD_N = 8;
+// g values the weight gradient stages per column and output channel: output
+// z positions -(KMAX - 1) .. FOLD_ROWS of the column
+constexpr int FOLD_G_ROW = FOLD_ROWS + KMAX;
+
+__host__ __device__ inline Halo make_fold_halo(int kx, int ky) {
+  Halo h;
+  h.ex = h.ey = h.ez = 1;
+  h.qx = h.qy = h.qz = 1;
+  h.hx = FOLD_BX + kx - 1;
+  h.hy = FOLD_BY + ky - 1;
+  h.hz = FOLD_ROWS;
+  return h;
+}
+
 // 16-byte unit that holds half `half` (8 bf16) of row `row` of a [row][16]
 // bf16 tile. The halves swap on every other group of four rows, so the eight
 // rows of one ldmatrix 8x8 read (consecutive voxels or channels) fall in
@@ -105,6 +132,10 @@ __device__ __forceinline__ void cp_async_commit() {
 }
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+// Wait for all but the most recently committed group.
+__device__ __forceinline__ void cp_async_wait_all_but_last() {
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
 }
 
 // Stage the halo of one brick for channels [c0, c0 + 16) into `halo`

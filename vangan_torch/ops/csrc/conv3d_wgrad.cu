@@ -34,8 +34,32 @@
 // halo views are not, and the tensor-core rate is not what bounds these
 // shapes, the staging of g and the halo is.
 //
-// route 0, CUDA cores (float32, and bfloat16 shapes the tensor-core route
-// does not take: more than 64 taps): a GEMM with M = Co, N = Ci * taps (the
+// route 2, tensor cores in tap chunks (bfloat16, more than 64 taps at unit
+// stride with Ci >= 16 and Co * kz <= 8: the ResNet generator's 7^3 head, 32
+// -> 1). At Co = 1 an N = Co tile would be 7/8 padding, and a Ci x taps
+// row tile per tap gathers x again for each of the 343 taps. For each (dx,
+// dy) pair of taps, with v running over the brick's voxels extended by kz -
+// 1 along z,
+//
+//   dW[co, ci, dx, dy, dz] = sum over v of x_pad[ci, v + (dx, dy, 0)] * g[co, v - dz e_z]
+//
+// is a GEMM with M = the 16 channels of a chunk, N = the kz shifts of g
+// (column co * kz + dz; 7 of 8 useful at Co = 1) and K = the voxels: a
+// block owns a 16-channel chunk and walks its share of the (sample, brick)
+// pairs, bricks of 4 x 8 columns of 16 z positions (16 - kz + 1 outputs
+// each). Per brick it stages the x halo of its channels (conv3d_common.cuh,
+// as the forward's route 2) and g's z halo of each column once, and builds
+// each shifted B fragment from the latter in registers; warp dy owns the
+// tap chunk (kx, 1, kz) of its dy, loads the halo row (hx, by + dy) of each
+// hx < 4 + kx - 1 once per brick row by (ldmatrix.trans), and feeds it to
+// the MMAs of every (bx, dx) with bx + dx = hx. The same split-K contract:
+// block slice s of the workspace (split, Co, Ci * taps) gets every element
+// of its chunk, and the sum launch adds the slices in slice order, so dW is
+// bit-identical from run to run.
+//
+// route 0, CUDA cores (float32, and bfloat16 shapes the tensor-core routes
+// do not take: more than 64 taps outside route 2, the ResNet's 7^3 stem with
+// Ci = 1 among them): a GEMM with M = Co, N = Ci * taps (the
 // "columns") and K = the voxels. A block owns an MT x NTILE tile of dW and
 // walks its share of the voxels in chunks of NT: per chunk it stages g
 // (MT x NT) and the gathered x columns (NT x NTILE) in shared memory, and
@@ -381,6 +405,126 @@ cudaError_t launch_mma(const void* x, const void* g, float* dw, float* ws, int B
                     s);
 }
 
+// Route 2: bf16 GEMM in tap chunks, the kz shifts of g on N (see the note at
+// the top). Grid: x = the split over (sample, brick) pairs, y = the Ci
+// chunk; 32 * ky threads, warp dy owning the taps (dx, dy, dz).
+__global__ void __launch_bounds__(vg::MMA_THREADS, 2)
+conv3d_wgrad_fold_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ g,
+                         float* __restrict__ ws, int B, int Ci, int Co, int X, int Y, int Z,
+                         int Xo, int Yo, int Zo, int kx, int ky, int kz, int px, int py, int pz,
+                         int reflect) {
+  using namespace vg;
+  constexpr int COLS = FOLD_BX * FOLD_BY;
+  extern __shared__ uint4 smem[];
+  const Halo h = make_fold_halo(kx, ky);
+  const int bz = FOLD_ROWS - kz + 1;  // output z positions of a column
+  uint4* halo = smem;
+  // g_s[co][column][j]: g at output z position oz0 + j - (KMAX - 1) of the
+  // column, 0 outside the column's outputs and the volume
+  unsigned short* g_s = reinterpret_cast<unsigned short*>(smem + 2 * h.hx * h.hy * h.hz);
+
+  const int c0 = blockIdx.y * CI_CHUNK;
+  const int tid = threadIdx.x, dy = tid >> 5, lane = tid & 31;
+  const int mi = lane >> 3, r = lane & 7;
+  // ldmatrix.trans rows of this lane: A (z position, channel half)
+  const int a_z = r + 8 * (mi >> 1), a_half = mi & 1;
+  // B (16 z positions x FOLD_N): this lane's column n = (co, dz), rows 2q,
+  // 2q + 1 (b0) and 2q + 8, 2q + 9 (b1), read from g_s at z - dz
+  const int gn = lane >> 2, tq = lane & 3;
+  const bool n_live = gn < Co * kz;
+  const int g_off = n_live ? (gn / kz) * COLS * FOLD_G_ROW + (KMAX - 1) - gn % kz : 0;
+
+  float acc[KMAX][4];
+#pragma unroll
+  for (int dx = 0; dx < KMAX; ++dx)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[dx][e] = 0.f;
+
+  const uint32_t halo_u = smem_u32(halo);
+  const long long plane = (long long)X * Y * Z, nout = (long long)Xo * Yo * Zo;
+  const int nbz = (Zo + bz - 1) / bz, nby = (Yo + FOLD_BY - 1) / FOLD_BY;
+  const int nbx = (Xo + FOLD_BX - 1) / FOLD_BX;
+  const long long n_bricks = (long long)nbx * nby * nbz;
+  const unsigned short* gs = reinterpret_cast<const unsigned short*>(g);
+
+  for (long long q = blockIdx.x; q < B * n_bricks; q += gridDim.x) {
+    const int bb = (int)(q / n_bricks);
+    int bq = (int)(q % n_bricks);
+    const int oz0 = (bq % nbz) * bz;
+    bq /= nbz;
+    const int oy0 = (bq % nby) * FOLD_BY, ox0 = (bq / nby) * FOLD_BX;
+    __syncthreads();  // the previous brick is consumed
+    stage_halo(halo, x + (long long)bb * Ci * plane, c0, Ci, X, Y, Z, h, ox0 - px, oy0 - py,
+               oz0 - pz, reflect);
+    for (int i = tid; i < Co * COLS * FOLD_G_ROW; i += blockDim.x) {
+      const int j = i % FOLD_G_ROW, t = i / FOLD_G_ROW, col = t % COLS, co = t / COLS;
+      const int oz = j - (KMAX - 1), ox = ox0 + col / FOLD_BY, oy = oy0 + col % FOLD_BY;
+      const bool in = oz >= 0 && oz < bz && oz0 + oz < Zo && ox < Xo && oy < Yo;
+      g_s[i] = in ? __ldg(gs + ((long long)bb * Co + co) * nout +
+                          ((long long)ox * Yo + oy) * Zo + oz0 + oz)
+                  : (unsigned short)0;
+    }
+    __syncthreads();
+    for (int by = 0; by < FOLD_BY; ++by) {
+      uint32_t a[FOLD_BX + KMAX - 1][4];
+#pragma unroll
+      for (int hx = 0; hx < FOLD_BX + KMAX - 1; ++hx)
+        if (hx < FOLD_BX + kx - 1)
+          ldsm_x4_trans(halo_u + swz((hx * h.hy + by + dy) * h.hz + a_z, a_half) * 16, a[hx]);
+      uint32_t bf[FOLD_BX][2];
+#pragma unroll
+      for (int bx = 0; bx < FOLD_BX; ++bx) {
+        const unsigned short* gc = g_s + g_off + (bx * FOLD_BY + by) * FOLD_G_ROW + 2 * tq;
+        bf[bx][0] = n_live ? (uint32_t)gc[0] | ((uint32_t)gc[1] << 16) : 0u;
+        bf[bx][1] = n_live ? (uint32_t)gc[8] | ((uint32_t)gc[9] << 16) : 0u;
+      }
+#pragma unroll
+      for (int dx = 0; dx < KMAX; ++dx) {
+        if (dx >= kx) break;
+#pragma unroll
+        for (int bx = 0; bx < FOLD_BX; ++bx) mma_bf16(acc[dx], a[bx + dx], bf[bx][0], bf[bx][1]);
+      }
+    }
+  }
+
+  // C[m = channel of the chunk][n = (co, dz)]: rows gr, gr + 8, columns 2q, 2q + 1
+  const int taps = kx * ky * kz;
+  float* out = ws + (long long)blockIdx.x * Co * Ci * taps;
+  const int gr = lane >> 2;
+#pragma unroll
+  for (int dx = 0; dx < KMAX; ++dx) {
+    if (dx >= kx) break;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int ci = c0 + gr + 8 * (e >> 1), n = 2 * tq + (e & 1);
+      if (ci < Ci && n < Co * kz)
+        out[(((long long)(n / kz) * Ci + ci) * kx + dx) * ky * kz + dy * kz + n % kz] =
+            acc[dx][e];
+    }
+  }
+}
+
+size_t fold_smem(int kx, int ky, int Co) {
+  const vg::Halo h = vg::make_fold_halo(kx, ky);
+  return (size_t)h.hx * h.hy * h.hz * 32 +
+         (size_t)Co * vg::FOLD_BX * vg::FOLD_BY * vg::FOLD_G_ROW * 2;
+}
+
+cudaError_t launch_fold(const void* x, const void* g, float* dw, float* ws, int B, int Ci,
+                        int Co, int X, int Y, int Z, int Xo, int Yo, int Zo, int kx, int ky,
+                        int kz, int px, int py, int pz, int reflect, int split, cudaStream_t s) {
+  using namespace vg;
+  const size_t smem = fold_smem(kx, ky, Co);
+  cudaError_t e = allow_smem(conv3d_wgrad_fold_kernel, smem);
+  if (e != cudaSuccess) return e;
+  conv3d_wgrad_fold_kernel<<<dim3(split, (Ci + CI_CHUNK - 1) / CI_CHUNK), 32 * ky, smem, s>>>(
+      static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(g), ws, B, Ci,
+      Co, X, Y, Z, Xo, Yo, Zo, kx, ky, kz, px, py, pz, reflect);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  return sum_slices(ws, dw, split, (long long)Co * Ci * kx * ky * kz, s);
+}
+
 }  // namespace
 
 // C entry point, bound with ctypes. x (B,Ci,X,Y,Z) and g (B,Co,Xo,Yo,Zo)
@@ -390,7 +534,9 @@ cudaError_t launch_mma(const void* x, const void* g, float* dw, float* ws, int B
 // route 0 (CUDA cores): ws_bytes >= split * Co * Ci * taps * 4; co_tile and
 // tap_warps are ignored. route 1 (tensor cores, bfloat16 only): co_tile a
 // multiple of 8 up to 32, tap_warps 1, 2, 4 or 8, ws_bytes >= split *
-// (8 / tap_warps) * Co * Ci * taps * 4. Every element of dw is written.
+// (8 / tap_warps) * Co * Ci * taps * 4. route 2 (tensor cores in tap chunks,
+// bfloat16 only): unit stride, Co * kz <= 8, co_tile 8, tap_warps ignored,
+// ws_bytes >= split * Co * Ci * taps * 4. Every element of dw is written.
 // Returns cudaGetLastError() after the launches; 1000 for an argument the
 // kernel does not take.
 extern "C" int vg_conv3d_wgrad(const void* x, const void* g, float* dw, float* ws, int dtype,
@@ -415,6 +561,17 @@ extern "C" int vg_conv3d_wgrad(const void* x, const void* g, float* dw, float* w
       return (int)dispatch<__nv_bfloat16>(x, g, dw, ws, B, Ci, Co, X, Y, Z, Xo, Yo, Zo, kx, ky,
                                           kz, sx, sy, sz, px, py, pz, reflect, split, s);
     return 1000;
+  }
+  if (route == 2) {
+    if (dtype != 1 || co_tile != vg::FOLD_N || sx != 1 || sy != 1 || sz != 1) return 1000;
+    if (Co * kz > vg::FOLD_N || (Ci + 15) / 16 > 65535 || fold_smem(kx, ky, Co) > MAX_SMEM)
+      return 1000;
+    if ((long long)split * Co * Ci * kx * ky * kz * 4 > ws_bytes) return 1000;
+    const int bz = vg::FOLD_ROWS - kz + 1;
+    if ((long long)B * ((Xo + 3) / 4) * ((Yo + 7) / 8) * ((Zo + bz - 1) / bz) >= (1LL << 31))
+      return 1000;
+    return (int)launch_fold(x, g, dw, ws, B, Ci, Co, X, Y, Z, Xo, Yo, Zo, kx, ky, kz, px, py, pz,
+                            reflect, split, s);
   }
   if (route != 1 || dtype != 1) return 1000;
   if (co_tile < 8 || co_tile > MMA_MAX_CO_TILE || co_tile % 8 != 0) return 1000;
