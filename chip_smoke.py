@@ -17,12 +17,14 @@ Phases, each of which raises on failure:
    sums run over up to 2 M voxels in another order) and bfloat16 (2e-2),
    with CUDA event times (median of 5) of the kernel, the plain version and
    the library call; each row names the bf16 plan (``conv_plan``: the
-   route, tensor-core or thin CUDA-core body, and the Co tile, split and
-   workspace; above 64 taps the tap chunks and the brick) of K1, K2 (its Ci
+   route, tensor-core or thin CUDA-core body, the C entry's route number
+   (``body``), and the Co tile, split and workspace; above 64 taps the tap
+   chunks or the (dx, dy) pairs on K, and the brick) of K1, K2 (its Ci
    tile, parities in launch order, fold planes and launches) and K3, and
    the achieved TFLOP/s (FLOPs / kernel ms) of the kernel and the library
    call; the bf16 K3 must give bit-identical dW in two
-   runs, on either route (split-K slices summed in a fixed order); a shape that
+   runs, on either route (split-K slices summed in a fixed order), and the
+   bf16 K2 bit-identical dx (no atomics); a shape that
    takes the thin body is also run and timed on the
    tensor-core body, the evidence for that choice;
 3. the InstanceNorm kernels against their plain versions at every (C, size)
@@ -132,10 +134,12 @@ Phases, each of which raises on failure:
    one, with a fold for a reflect pad, each norm once each way), outputs by
    phase 5's rules, gradients by phase 8's, ms of both paths; and phase 2's
    checks and times at the ResNet's 4 kernel conv shapes at the step's batch
-   of 3 (its 343-tap head, 32 -> 1, takes K1 and K3 on the tensor cores in
-   tap chunks, its stem, 1 -> 32, and K2 of both the CUDA-core bodies; the
-   ResNet is one generator whatever the role, as in the JAX factory, so it
-   runs once);
+   of 3, each 343-tap row (K1, K2, K3 of the stem and the head) against its
+   plain version and cuDNN, with its plan's route (its 343-tap head, 32 ->
+   1, takes K1 and K3 on the tensor cores in tap chunks, route 2, and K2 on
+   route 3, the (dx, dy) pairs on K; its stem, 1 -> 32, K1 on route 3, K2 in
+   tap chunks and K3 on the CUDA-core body; the ResNet is one generator
+   whatever the role, as in the JAX factory, so it runs once);
 12. data in and evaluation out, at the config's sizes: seeded raw TIFFs
    (two imaging volumes of RAW_IMG_SIZE 512 x 512 x 140 as uint16, two
    segmentation volumes of 512 x 512 x 128 as uint8 0/255 tubes) through
@@ -246,8 +250,12 @@ Phases, each of which raises on failure:
    sigma 0.1, dropout on, 3 x 128^3, bf16) through
    ``VanGan.distributed_train_step``: phase 8's checks (the launches of
    ``RESNET_TRAIN_LAUNCHES``, derived from the path; of them, K1 and K3 of
-   the 4 head calls on the tap chunks, ``RESNET_TAP_CHUNKS``, and none in
-   phases 8 and 10; f32 kernel against plain on one sample at 128^3, the
+   the 4 head calls on the tap chunks, the 4 stem calls' K1 on route 3 and
+   the 4 head calls' K2 on route 3, ``RESNET_TAP_CHUNKS``, and none in
+   phases 8 and 10; the plans of the 343-tap convs on the bodies that
+   count: the stem's K1 and the head's K2 on route 3, the head's K1 and K3
+   on the tap chunks, the stem's K3 on the CUDA-core body; f32 kernel
+   against plain on one sample at 128^3, the
    bf16 rules on one sample and on the batch; ms a step of both paths in
    turns, peak memory), and where the time of its 343-tap convs goes: each
    kernel's launches in the step times its ms at phase 11's shape, beside
@@ -260,10 +268,12 @@ of phase 8, the path that runs them all, and of phase 10 as
 2-D train step as ``twod_launches``; phase 15's per rank as
 ``dp_launches``; phase 16's step of 3 slices as ``micro_launches``; phase 17's
 as ``resnet_launches``, with the head's K1 and K3 on the tap chunks beside the
-conv kernels (``resnet_tap_chunk_launches``), and each conv kernel's
+conv kernels (``resnet_tap_chunk_launches``), the stem's K1 on route 3
+(``resnet_pair_launches``) and the head's K2 on route 3
+(``resnet_tap_launches``: K2 on either forward body), and each conv kernel's
 ``taps_343``: at the stem's and the head's shapes (phase 11, batch 3) its
-route, ms, plain ms, library ms and bound, with its launches in phase 17's
-step; phase 12's as
+route and body, ms, plain ms, library ms and bound, with its launches in
+phase 17's step; phase 12's as
 ``raw_predict_launches`` for K1 and K4 and ``metric_launches`` for K6; for
 K4 and K7 the kernel launches beside the calls; ms, plain ms, library ms and the bound summed over the convs / norms
 of one gen_IS and one disc_I call at batch 3 (phases 2-3), one 3 x 128^3
@@ -397,8 +407,14 @@ RESNET_TRAIN_LAUNCHES = {
 }
 RESNET_TRAIN_KERNEL_LAUNCHES = {"instnorm_fwd": RESNET_TRAIN_LAUNCHES["instnorm_fwd"],
                                 "soft_skel_bwd": RESNET_TRAIN_LAUNCHES["soft_skel_bwd"]}
-RESNET_TAP_CHUNKS = {"conv3d_fwd": 4, "conv3d_wgrad": 4}
-NO_TAP_CHUNKS = {"conv3d_fwd": 0, "conv3d_wgrad": 0}
+# of K1, K2 and K3, the launches on the bodies above 64 taps: K1 and K3 on
+# the tap chunks (the head's), K1 on route 3 (the stem's), K2 on route 2 or
+# 3 (the head's, route 3; the stem's K2 never runs)
+RESNET_TAP_CHUNKS = {"conv3d_fwd": 4, "conv3d_wgrad": 4, "conv3d_fwd_pairs": 4,
+                     "conv3d_dgrad_taps": 4}
+NO_TAP_CHUNKS = dict.fromkeys(RESNET_TAP_CHUNKS, 0)
+# the C entry's route (ConvPlan.body) of each 343-tap conv's (K1, K2, K3)
+RESNET_343_BODIES = {"stem_conv": (3, 2, 0), "head": (2, 3, 2)}
 # each 343-tap conv's launches in one step: (K1, K2, K3)
 RESNET_343_LAUNCHES = {"stem_conv": (4, 0, 4), "head": (4, 4, 4)}
 # phase 12: data in, evaluation out
@@ -574,8 +590,9 @@ def plans(ci, co, k, stride, pads, pad_mode, dims, out_dims):
     """The bf16 plans (route and tiles) of K1, K2 and K3 of a conv."""
     from vangan_torch.ops import conv3d as C
 
-    keys = ("route", "co_tile", "co_tiles", "tap_warps", "tap_groups", "split",
-            "workspace_bytes", "pad_share", "shared_halo", "tap_chunk", "tap_chunks", "brick")
+    keys = ("route", "body", "co_tile", "co_tiles", "tap_warps", "tap_groups", "split",
+            "workspace_bytes", "pad_share", "shared_halo", "tap_chunk", "tap_chunks", "k_pairs",
+            "brick")
     brief = lambda p: {k_: getattr(p, k_) for k_ in keys}  # noqa: E731
     bf16 = torch.bfloat16
     dg = C.conv_plan("dgrad", ci, co, k, stride, out_dims, bf16, STEP_BATCH, in_dims=dims,
@@ -678,6 +695,12 @@ def check_convs(net, shapes, expected, tol):
                         require(same, f"conv wgrad {names}: dW differs between two runs on "
                                 "the same inputs")
                         row["wgrad_bf16_bit_identical"] = same
+                    if op == "dgrad" and dtype == torch.bfloat16:
+                        # every dx value is written once, no atomics
+                        same = torch.equal(got, kern())
+                        require(same, f"conv dgrad {names}: dx differs between two runs on "
+                                "the same inputs")
+                        row["dgrad_bf16_bit_identical"] = same
                     row[f"{op}_{tag}_ms"] = cuda_ms(kern)
                     row[f"{op}_{tag}_plain_ms"] = cuda_ms(plain)
                     row[f"{op}_{tag}_library_ms"] = cuda_ms(lib)
@@ -1156,16 +1179,20 @@ def kernel_counters(ops):
 
 
 def tap_chunk_counters(ops):
-    """K1's and K3's launches on the tap chunks (route 2)."""
+    """The conv kernels' launches on the bodies above 64 taps: K1's and K3's
+    on the tap chunks (route 2), K1's on route 3, K2's on routes 2 and 3."""
     return {"conv3d_fwd": ops[0].tap_chunk_launches,
-            "conv3d_wgrad": ops[0].wgrad_tap_chunk_launches}
+            "conv3d_wgrad": ops[0].wgrad_tap_chunk_launches,
+            "conv3d_fwd_pairs": ops[0].pair_launches,
+            "conv3d_dgrad_taps": ops[0].dgrad_tap_launches}
 
 
 def reset_counters(ops):
     conv_ops, in_ops, skel_ops = ops
     conv_ops.launches = conv_ops.dgrad_launches = conv_ops.dgrad_fold_launches = 0
     conv_ops.wgrad_launches = conv_ops.tap_chunk_launches = 0
-    conv_ops.wgrad_tap_chunk_launches = 0
+    conv_ops.wgrad_tap_chunk_launches = conv_ops.pair_launches = 0
+    conv_ops.dgrad_tap_launches = 0
     in_ops.launches = in_ops.bwd_launches = in_ops.fwd_kernel_launches = 0
     skel_ops.launches = skel_ops.bwd_launches = skel_ops.bwd_kernel_launches = 0
 
@@ -1359,8 +1386,8 @@ def check_train_step(ops, want=TRAIN_LAUNCHES, want_kernels=TRAIN_KERNEL_LAUNCHE
     statistic (BatchNorm buffer) must stay finite and move. With
     ``f32_crop`` the f32 checks also run on the whole batch, cropped to
     ``f32_crop``^3 (where the f32 plain path fits), so that they hold the
-    kernels' sums over the samples. Of K1's and K3's launches,
-    ``want_tap_chunks`` run on the tap chunks."""
+    kernels' sums over the samples. The conv launches on the bodies above 64
+    taps (``tap_chunk_counters``) must be ``want_tap_chunks``."""
     import copy
 
     from vangan_torch.config import VanGanConfig
@@ -1921,9 +1948,10 @@ def check_config4(ops, tol):
 def check_other_generators(ops, tol):
     """Phase 11: the ResU-Net with deconv and with the attention gate, and
     the ResNet generator, each alone at full width; and K1-K3
-    at the ResNet's kernel conv shapes (its 7^3 head takes K1 and K3 on the
-    tensor cores in tap chunks, its stem the CUDA-core bodies: 343 taps),
-    timed against their plain versions and cuDNN as in phase 2."""
+    at the ResNet's kernel conv shapes (343 taps: its 7^3 head takes K1 and
+    K3 on the tap chunks and K2 on route 3, its stem K1 on route 3, K2 on
+    the tap chunks and K3 on the CUDA-core body), timed against their plain
+    versions and cuDNN as in phase 2."""
     from vangan_torch.config import VanGanConfig
     from vangan_torch.models.factory import build_generator
     from vangan_torch.models.resunet import ResUNet3D
@@ -1947,10 +1975,12 @@ def check_other_generators(ops, tol):
 
 def check_resnet_step(ops, resnet_rows):
     """Phase 17: the ResNet CycleGAN's train step at full width (phase 8's
-    checks, ``RESNET_TRAIN_LAUNCHES``, the head's K1 and K3 on the tap
-    chunks), and where its 343-tap convs' time goes: each kernel's launches
-    in one step (``RESNET_343_LAUNCHES``) times its bf16 ms at batch 3 from
-    phase 11's rows (``resnet_rows``), against the step's kernel ms."""
+    checks, ``RESNET_TRAIN_LAUNCHES``, the launches on the bodies above 64
+    taps of ``RESNET_TAP_CHUNKS``, each 343-tap plan on its body of
+    ``RESNET_343_BODIES``), and where its 343-tap convs' time goes: each
+    kernel's launches in one step (``RESNET_343_LAUNCHES``) times its bf16 ms
+    at batch 3 from phase 11's rows (``resnet_rows``), against the step's
+    kernel ms."""
     t0 = time.perf_counter()
     train = check_train_step(ops, RESNET_TRAIN_LAUNCHES, RESNET_TRAIN_KERNEL_LAUNCHES,
                              "resnet_train_step", want_tap_chunks=RESNET_TAP_CHUNKS, **RESNET)
@@ -1959,8 +1989,12 @@ def check_resnet_step(ops, resnet_rows):
     convs, total = {}, 0.0
     for name, counts in RESNET_343_LAUNCHES.items():
         r, parts = rows[name], {}
+        bodies = tuple(r["plan"][op]["body"] for op in ("fwd", "dgrad", "wgrad"))
+        require(bodies == RESNET_343_BODIES[name], f"resnet {name}: K1, K2, K3 on bodies "
+                f"{bodies}, expected {RESNET_343_BODIES[name]}")
         for op, n in zip(("fwd", "dgrad", "wgrad"), counts):
             parts[op] = {"launches": n, "route": r["plan"][op]["route"],
+                         "body": r["plan"][op]["body"],
                          "tap_chunks": r["plan"][op]["tap_chunks"],
                          "ms_each": r[f"{op}_bf16_ms"], "ms": n * r[f"{op}_bf16_ms"],
                          "library_ms_each": r[f"{op}_bf16_library_ms"],
@@ -3365,7 +3399,9 @@ def main() -> int:
         total = lambda key: sum(len(r["convs"]) * r[key] for r in conv_rows)  # noqa: E731
         k = ("fwd", "dgrad", "wgrad").index(op)
         taps_343 = {conv: {"launches": counts[k], "route": resnet_rows[conv]["plan"][op]["route"],
+                           "body": resnet_rows[conv]["plan"][op]["body"],
                            "tap_chunks": resnet_rows[conv]["plan"][op]["tap_chunks"],
+                           "k_pairs": resnet_rows[conv]["plan"][op]["k_pairs"],
                            "max_abs_err": resnet_rows[conv][f"{op}_bf16_abs_err"],
                            "ms": resnet_rows[conv][f"{op}_bf16_ms"],
                            "plain_ms": resnet_rows[conv][f"{op}_bf16_plain_ms"],
@@ -3416,13 +3452,15 @@ def main() -> int:
         dict(conv_entry("conv3d_fwd", "fwd", "vangan_torch/ops/csrc/conv3d_fwd.cu",
                         "vangan_tpu/ops/pallas/conv3d.py:577"),
              raw_predict_launches=raw_predict["conv3d_fwd"],
-             resnet_tap_chunk_launches=resnet["tap_chunk_launches"]["conv3d_fwd"]),
+             resnet_tap_chunk_launches=resnet["tap_chunk_launches"]["conv3d_fwd"],
+             resnet_pair_launches=resnet["tap_chunk_launches"]["conv3d_fwd_pairs"]),
         dict(conv_entry("conv3d_dgrad", "dgrad", "vangan_torch/ops/csrc/conv3d_dgrad.cu",
                         "vangan_tpu/ops/pallas/conv3d.py:904"),
              fold_launches=train["launches"]["conv3d_dgrad_fold"],
              config4_fold_launches=c4["train"]["launches"]["conv3d_dgrad_fold"],
              wgan_fold_launches=wgan["launches"][1]["conv3d_dgrad_fold"],
-             twod_fold_launches=twod["train"]["launches"]["conv3d_dgrad_fold"]),
+             twod_fold_launches=twod["train"]["launches"]["conv3d_dgrad_fold"],
+             resnet_tap_launches=resnet["tap_chunk_launches"]["conv3d_dgrad_taps"]),
         dict(conv_entry("conv3d_wgrad", "wgrad", "vangan_torch/ops/csrc/conv3d_wgrad.cu",
                         "vangan_tpu/ops/pallas/conv3d.py:817"),
              resnet_tap_chunk_launches=resnet["tap_chunk_launches"]["conv3d_wgrad"]),

@@ -12,7 +12,8 @@ and K3 (weight gradient) on the kernels, their plain versions and the
 library call (cuDNN: ``F.conv3d``, ``torch.nn.grad.conv3d_input`` /
 ``conv3d_weight``), CUDA-event ms (median of ``--reps`` after a warm-up),
 each beside its bound (the larger of its FLOPs at 989 TFLOP/s and its bytes
-at 3.35 TB/s: x, w and y each once in bf16; dW in f32) and its plan's route.
+at 3.35 TB/s: x, w and y each once in bf16; dW in f32) and its plan's route
+and body (the C entry's route number).
 Then the generator alone, batch 1, 128^3, in training (dropout from one
 seed), forward and backward of ``sum(out * gy)`` on both paths in turns
 (plain, kernel, kernel, plain, plain, kernel), CUDA-event ms. Prints the
@@ -95,7 +96,8 @@ def time_convs(C, reps):
                 plan = C.conv_plan(op, ci, co, ks, st, out, bf16, BATCH, **kw)
                 got, want = kern(), plain()
                 err = float((got.float() - want.float()).abs().max() / want.float().abs().max())
-                row[op] = {"route": plan.route, "tap_chunks": getattr(plan, "tap_chunks", 0),
+                row[op] = {"route": plan.route, "body": plan.body,
+                           "tap_chunks": getattr(plan, "tap_chunks", 0),
                            "rel_err": err, "ms": cuda_ms(kern, reps),
                            "plain_ms": cuda_ms(plain, reps), "library_ms": cuda_ms(lib, reps),
                            "bound_ms": bound_ms(flops, nb)}

@@ -95,6 +95,9 @@ def _kernel_takes(plan):
     if plan.tap_chunks:  # route 2: one n tile of FOLD_N columns
         ok = plan.co_tile == C.FOLD_N and 0 < plan.smem_bytes <= C.MAX_SMEM
         return ok and (plan.op != "wgrad" or 1 <= plan.split <= 65535)
+    if plan.k_pairs:  # route 3: a forward (or K2's forward of g) of one input channel
+        return (plan.op != "wgrad" and plan.co_tile % 8 == 0
+                and 8 <= plan.co_tile <= C.PAIR_MAX_CO_TILE and 0 < plan.smem_bytes <= C.MAX_SMEM)
     limit = {"fwd": C.FWD_MAX_CO_TILE, "dgrad": C.DGRAD_MAX_CI_TILE,
              "wgrad": C.WGRAD_MAX_CO_TILE}[plan.op]
     static = C.DGRAD_STATIC_SMEM if plan.op == "dgrad" else 0
@@ -293,13 +296,92 @@ def test_resnet_head_takes_the_tap_chunks():
     assert w.split * 2 >= C.WGRAD_TARGET_BLOCKS  # two 16-channel chunks
 
 
-def test_resnet_stem_and_input_gradients_keep_the_cuda_core_body():
-    """The stem (1 -> 32): K1 stays on the CUDA-core body (Ci = 1 <=
-    THIN_MAX_CI), and so does K3 (Ci = 1 < 16, and Co * kz = 224 > 8); K2
-    at 343 taps keeps its plan, the CUDA-core body, for stem and head."""
+def test_resnet_stem_forward_takes_route_3():
+    """The stem's K1 (1 -> 32): the tensor cores with the (dx, dy) pairs on K
+    (49 padded to 64: four k-steps), Co = 32 in one tile of four n tiles,
+    bricks of 4 x 8 columns of 16 z outputs (128 = 8 of them: no ragged
+    column); its issued work the 64 / 49 pairs' padding, 0.234; shared
+    memory (the staged f32 outputs, 32 x (512 + 4) floats, above the 7
+    halo copies and the weights) for two blocks an SM."""
+    p = _resnet_plans("stem_conv", BF16)["fwd"]
+    assert (p.route, p.body, p.k_pairs, p.tap_chunks) == ("mma", 3, 64, 0), p
+    assert p.brick == (4, 8, 16) and (p.co_tile, p.co_tiles) == (32, 1)
+    assert p.pad_share == pytest.approx(1 - 49 / 64)
+    assert p.smem_bytes == max(7 * 10 * 14 * 32 + 7 * 64 * 32 * 2, 32 * (512 + 4) * 4)
+    assert 2 * p.smem_bytes <= C.MAX_SMEM and _kernel_takes(p)
+
+
+def test_resnet_input_gradients_take_the_forward_bodies():
+    """K2 at 343 taps runs a forward body over the padded positions (134^3):
+    the head's (dx 32 <- g 1) route 3, a Ci tile of 32; the stem's (dx 1 <-
+    g 32) the tap chunks, route 2 (Ci * kz = 7 <= 8). The plan's contract is
+    the CUDA-core plan's: one launch and one fold launch, the same parity
+    order, fold positions and fold buffer."""
     stem, head = _resnet_plans("stem_conv", BF16), _resnet_plans("head", BF16)
-    for p in (stem["fwd"], stem["wgrad"], stem["dgrad"], head["dgrad"]):
-        assert p.route == "thin" and p.body == 0 and p.tap_chunks == 0 and _kernel_takes(p), p
+    h, s = head["dgrad"], stem["dgrad"]
+    assert (h.route, h.body, h.k_pairs, h.co_tile, h.co_tiles) == ("mma", 3, 64, 32, 1), h
+    assert h.brick == (4, 8, 16)
+    assert (s.route, s.body, s.tap_chunk, s.tap_chunks, s.co_tile) == \
+        ("mma", 2, (7, 1, 7), 7, C.FOLD_N), s
+    assert s.brick == (4, 8, 10)
+    for name, p in (("head", h), ("stem_conv", s)):
+        ci, co = RESNET_343[name]
+        thin = C.conv_plan("dgrad", ci, co, (7, 7, 7), (1, 1, 1), DIMS, BF16, BATCH,
+                           in_dims=DIMS, pads=PADS3, pad_mode="reflect", thin_max_ci=0)
+        f32 = C.conv_plan("dgrad", ci, co, (7, 7, 7), (1, 1, 1), DIMS, torch.float32, BATCH,
+                          in_dims=DIMS, pads=PADS3, pad_mode="reflect")
+        fold = (0, 1, 2, 4, 5, 6, 127, 128, 129, 131, 132, 133)
+        want = ((((0, 0, 0), (7, 7, 7), (134,) * 3),), (fold,) * 3,
+                BATCH * ci * 3 * 12 * 134 ** 2 * 4, 2)
+        for q in (p, thin, f32):
+            assert (q.parities, q.fold, q.fold_bytes, q.launches) == want, q
+        assert 0 < p.pad_share < 0.5 and 2 * p.smem_bytes <= C.MAX_SMEM and _kernel_takes(p)
+
+
+def test_resnet_stem_wgrad_keeps_the_cuda_core_body():
+    """The stem's K3 (Ci = 1 < 16, Co * kz = 224 > 8): neither tap-chunk
+    body takes it, so it stays on the CUDA-core body, split over the voxels."""
+    p = _resnet_plans("stem_conv", BF16)["wgrad"]
+    assert (p.route, p.body, p.tap_chunks, p.k_pairs) == ("thin", 0, 0, 0), p
+    assert p.split > 1 and _kernel_takes(p)
+
+
+@pytest.mark.parametrize("op,ci,co,k,stride", [
+    ("fwd", 1, 32, (7, 7, 7), (2, 2, 2)),    # route 3: strided
+    ("fwd", 1, 32, (7, 7, 7), (1, 2, 1)),    # route 3: strided on one axis
+    ("fwd", 2, 32, (7, 7, 7), (1, 1, 1)),    # two input channels, Co * kz = 224
+    ("fwd", 3, 16, (5, 5, 5), (1, 1, 1)),    # three input channels
+    ("dgrad", 2, 2, (7, 7, 7), (1, 1, 1)),   # g of two channels, dx Ci * kz = 14
+    ("dgrad", 32, 1, (7, 7, 7), (1, 1, 2)),  # strided: a parity of 7 x 7 x 4 taps
+    ("dgrad", 1, 32, (7, 7, 7), (2, 1, 1)),  # strided: a parity of 4 x 7 x 7 taps
+])
+def test_pair_routes_refuse_what_they_do_not_take(op, ci, co, k, stride):
+    """Above 64 taps route 3 takes a unit-stride forward of one input
+    channel, and K2 the forward bodies at unit stride only: the rest keeps
+    the CUDA-core body."""
+    dims = (20, 18, 22)
+    pads = tuple((kk // 2, kk // 2) for kk in k)
+    out = tuple((n + 2 * (kk // 2) - kk) // s + 1 for n, kk, s in zip(dims, k, stride))
+    kw = dict(in_dims=dims, pads=pads, pad_mode="reflect") if op == "dgrad" else {}
+    p = C.conv_plan(op, ci, co, k, stride, out, BF16, 2, **kw)
+    assert (p.route, p.body, p.k_pairs, p.tap_chunks) == ("thin", 0, 0, 0), p
+    assert _kernel_takes(p)
+
+
+def test_pair_route_takes_other_shapes_above_64_taps():
+    """Route 3 at 5^3 (25 pairs: two k-steps), 6 x 5 x 4 (30 pairs) and 8^3
+    (64 pairs, four k-steps), Co of 8 to 40 (tiles of up to 32), and K2 of g
+    with one channel at the same kernels."""
+    for co, k, tile, tiles in ((8, (5, 5, 5), 8, 1), (20, (6, 5, 4), 24, 1),
+                               (40, (8, 8, 8), 24, 2), (64, (7, 7, 7), 32, 2)):
+        dims = (20, 18, 22)
+        p = C.conv_plan("fwd", 1, co, k, (1, 1, 1), dims, BF16, 2)
+        assert (p.body, p.co_tile, p.co_tiles) == (3, tile, tiles), p
+        assert p.k_pairs == -(-k[0] * k[1] // 16) * 16 and _kernel_takes(p)
+        pads = tuple((kk // 2, kk - 1 - kk // 2) for kk in k)
+        d = C.conv_plan("dgrad", co, 1, k, (1, 1, 1), dims, BF16, 2, in_dims=dims, pads=pads,
+                        pad_mode="zeros")
+        assert (d.body, d.co_tile, d.co_tiles, d.launches) == (3, tile, tiles, 1), d
 
 
 @pytest.mark.parametrize("name", sorted(RESNET_343))

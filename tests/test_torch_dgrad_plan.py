@@ -215,9 +215,8 @@ def emulate_dgrad(g, w, x_shape, stride, pads, pad_mode, ci_tile=16):
     """The kernel's index contract in plain f32 torch, from what the kernel
     is given (the plan's ``dgrad_tables`` and ``dgrad_weights``): per parity
     in the table's order, its sub-kernel extents and positions as the kernel
-    derives them, the sub-conv of g with the arranged weights, its values
-    stored at the strided positions s*q + p (dx directly, nothing for a zero
-    pad, the fold buffer for a fold position), then the fold."""
+    derives them, the sub-conv of g with the arranged weights, then
+    ``store_and_fold``."""
     b, ci = x_shape[:2]
     co, k = w.shape[0], tuple(w.shape[2:])
     dims = tuple(x_shape[2:])
@@ -226,15 +225,8 @@ def emulate_dgrad(g, w, x_shape, stride, pads, pad_mode, ci_tile=16):
     xp = C.padded_dims(dims, pads)
     blocks = _parity_blocks(C.dgrad_weights(w, stride, ci_tile, torch.float32), w.shape, stride,
                             ci_tile)
-    order, table = C.dgrad_tables(plan, stride)
-    fold = _fold_of(table) if pad_mode == "reflect" else ((), (), ())
-    los = [lo for lo, _ in pads]
-    ns = [len(f) for f in fold]
-    slab = plan.fold_bytes // 4 // (b * ci) if plan.fold_bytes else 0
-    buf = torch.full((b, ci, slab), float("nan"))
-    dx = torch.full((b, ci, *dims), float("nan"))
-    direct = torch.zeros(dims, dtype=torch.bool)
-    seen = set()
+    order, _ = C.dgrad_tables(plan, stride)
+    pieces = []
     for pid in order:
         p = _parity(pid, stride)
         e = [len(range(pp, kk, ss)) for pp, kk, ss in zip(p, k, stride)]
@@ -246,7 +238,30 @@ def emulate_dgrad(g, w, x_shape, stride, pads, pad_mode, ci_tile=16):
         else:
             piece = torch.zeros(b, ci, *nq)  # a parity with no taps writes zeros
         assert tuple(piece.shape[2:]) == tuple(nq)
-        for q in np.ndindex(*nq):
+        pieces.append((p, piece))
+    return store_and_fold(pieces, plan, stride, x_shape, pads, pad_mode)
+
+
+def store_and_fold(pieces, plan, stride, x_shape, pads, pad_mode):
+    """The kernel's epilogue and fold launch in plain f32 torch: each
+    parity's ``piece`` (its values at the padded positions s*q + p, in the
+    order given) stored at its position (dx directly, nothing for a zero pad,
+    the fold buffer for a fold position, in the layout of the plan's fold
+    table), then the fold, x then y then z, into the targets' voxels."""
+    b, ci = x_shape[:2]
+    dims = tuple(x_shape[2:])
+    xp = C.padded_dims(dims, pads)
+    _, table = C.dgrad_tables(plan, stride)
+    fold = _fold_of(table) if pad_mode == "reflect" else ((), (), ())
+    los = [lo for lo, _ in pads]
+    ns = [len(f) for f in fold]
+    slab = plan.fold_bytes // 4 // (b * ci) if plan.fold_bytes else 0
+    buf = torch.full((b, ci, slab), float("nan"))
+    dx = torch.full((b, ci, *dims), float("nan"))
+    direct = torch.zeros(dims, dtype=torch.bool)
+    seen = set()
+    for p, piece in pieces:
+        for q in np.ndindex(*piece.shape[2:]):
             P = [s * qq + pp for s, qq, pp in zip(stride, q, p)]
             assert tuple(P) not in seen  # every padded position once
             seen.add(tuple(P))

@@ -16,6 +16,7 @@ skeleton kernel is bit-exact: min and max are exact and every other op is
 rounded once on both sides.
 """
 
+import dataclasses
 import os
 import time
 
@@ -65,8 +66,9 @@ def _rel_err(got, want):
     # the discriminator's conv0 (1 -> 64 at 128^3 on the path), cut in size
     ((4, 4, 4), 2, ((1, 1),) * 3, "reflect", 1, 64, False, (18, 16, 20)),
     # the other generators' shapes, cut in size: the ResNet's 7^3 reflect
-    # stem and head (343 taps: the CUDA-core bodies, but the 8 -> 1 forward
-    # in bfloat16, which takes the tap chunks), its 4^3 TF SAME upsample
+    # stem and head (343 taps: in bfloat16 the 1 -> 8 forward and the 8 -> 1
+    # input gradient on route 3, the 8 -> 1 forward and the 1 -> 8 input
+    # gradient in tap chunks; float32 on the CUDA cores), its 4^3 TF SAME upsample
     # conv (pads (1, 2)), the i2s V-Net's 3^3 zero 'same' upconv and its
     # 3^3 reflect conv, both 64 -> 32
     ((7, 7, 7), 1, ((3, 3),) * 3, "reflect", 1, 8, False, (11, 9, 10)),
@@ -226,8 +228,9 @@ CONV_CASES = [
     ((4, 4, 4), 2, ((1, 1),) * 3, "reflect", 1, 64, False, (18, 16, 20)),
     ((3, 3, 3), 1, ((1, 1),) * 3, "reflect", 96, 32, False, (6, 5, 7)),
     # the other generators' shapes, cut in size: the ResNet's 7^3 reflect
-    # stem and head (343 taps: the CUDA-core bodies, but the 8 -> 1 forward
-    # in bfloat16, which takes the tap chunks), its 4^3 TF SAME upsample
+    # stem and head (343 taps: in bfloat16 the 1 -> 8 forward and the 8 -> 1
+    # input gradient on route 3, the 8 -> 1 forward and the 1 -> 8 input
+    # gradient in tap chunks; float32 on the CUDA cores), its 4^3 TF SAME upsample
     # conv (pads (1, 2)), the i2s V-Net's 3^3 zero 'same' upconv and its
     # 3^3 reflect conv, both 64 -> 32
     ((7, 7, 7), 1, ((3, 3),) * 3, "reflect", 1, 8, False, (11, 9, 10)),
@@ -557,9 +560,9 @@ def test_instnorm_backward_at_deep_planes(cuda, dtype, act, shape):
 
 
 # the kernel convs that the other generators add to the path, at their full
-# size, batch 1: (ci, co, k, stride, padding, pad_mode, n); the ResNet's 7^3
-# head takes the tap chunks in bfloat16 (K1, K3), its stem the CUDA-core
-# bodies (343 taps)
+# size, batch 1: (ci, co, k, stride, padding, pad_mode, n); in bfloat16 the
+# ResNet's 7^3 head takes the tap chunks (K1, K3) and route 3 (K2), its stem
+# route 3 (K1), the tap chunks (K2) and the CUDA-core body (K3)
 OTHER_PATH_CONVS = {
     "vnet_i2s.down0.conv1": (32, 32, 3, 1, ((1, 1),) * 3, "reflect", 128),
     "vnet_i2s.upconv3": (64, 32, 3, 1, "same", "zeros", 128),
@@ -1085,8 +1088,8 @@ def test_2d_generator_and_cldice_on_the_card(cuda):
 # K1 and K3 above 64 taps: (ci, co, k, pad_mode, dims, batch). In bfloat16
 # the convs to one channel take the tensor cores in tap chunks (route 2:
 # the ResNet's head, 32 -> 1, and 16 and 48 channels, one chunk and a
-# padded third), the 1 -> 32 stem the CUDA-core bodies; float32 always the
-# f32 route. Ragged bricks on every axis (20, 18, 22 and 9, 10, 11 against
+# padded third), the 1 -> 32 stem's K1 route 3 and its K3 the CUDA-core
+# body; float32 always the f32 route. Ragged bricks on every axis (20, 18, 22 and 9, 10, 11 against
 # columns of 4 x 8 and 10 or 12 z outputs).
 TAP_CHUNK_CASES = [
     (32, 1, 7, "reflect", (20, 18, 22), 2),
@@ -1139,8 +1142,8 @@ def test_conv3d_above_64_taps_match_plain(cuda, dtype, ci, co, k, pad_mode, dims
 @pytest.mark.parametrize("ci,co,k,pad_mode,dims,batch", TAP_CHUNK_CASES[:4])
 def test_conv3d_above_64_taps_through_autograd(cuda, ci, co, k, pad_mode, dims, batch):
     """The head's shapes through the autograd Function in bfloat16: K1 and K3
-    on the tap chunks, K2 (and its fold for a reflect pad) on its CUDA-core
-    body, each launched once, against the plain versions (2e-2)."""
+    on the tap chunks, K2 (and its fold for a reflect pad) on route 3, each
+    launched once, against the plain versions (2e-2)."""
     x, w, b, gy, pads = _tap_chunk_inputs(cuda, torch.bfloat16, ci, co, k, dims, batch, 12)
     x.requires_grad_()
     w.requires_grad_()
@@ -1186,3 +1189,102 @@ def test_tap_chunks_refuse_what_they_do_not_take(cuda):
                                         "reflect", plan=wgrad)
     torch.cuda.synchronize()
     assert (conv_ops.launches, conv_ops.wgrad_launches) == before
+
+
+# K1's route 3 (one input channel, the (dx, dy) pairs on K) and K2 above 64
+# taps on K1's bodies (route 3 where g has one channel, route 2 where dx has
+# Ci * kz <= 8): (ci, co, k, pad_mode, dims, batch, (K1 body, K2 body)). The
+# ResNet's stem and head at batch 3 and 128^3 (batch 1 is OTHER_PATH_CONVS),
+# Z = 130 against columns of 16 and 10 z, a Co of 40 (two tiles of 24), 20
+# (one of 24), 8 (one n tile), and 5^3, 6^3 (36 pairs: three k-steps) and 8^3
+# kernels with 'same' pads.
+PAIR_CASES = [
+    (1, 32, 7, "reflect", (128, 128, 128), 3, (3, 2)),
+    (32, 1, 7, "reflect", (128, 128, 128), 3, (2, 3)),
+    (1, 32, 7, "zeros", (20, 18, 130), 1, (3, 2)),
+    (32, 1, 7, "reflect", (9, 10, 130), 2, (2, 3)),
+    (1, 40, 7, "zeros", (9, 10, 11), 2, (3, 2)),
+    (1, 8, 5, "reflect", (11, 9, 10), 1, (3, 2)),
+    (16, 1, 5, "zeros", (20, 18, 22), 2, (2, 3)),
+    (1, 20, 6, "reflect", (13, 7, 17), 2, (3, 2)),
+    (24, 1, 8, "zeros", (9, 10, 11), 1, (2, 3)),
+]
+
+
+def _pair_inputs(cuda, ci, co, k, dims, batch, seed=13):
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn(batch, ci, *dims, generator=g).to(cuda, torch.bfloat16)
+    w = (torch.randn(co, ci, k, k, k, generator=g) * (2.0 / (ci * k ** 3)) ** 0.5).to(cuda)
+    b = (torch.randn(co, generator=g) * 0.1).to(cuda)
+    gy = torch.randn(batch, co, *dims, generator=g).to(cuda, torch.bfloat16)
+    return x, w, b, gy, ((k // 2, k - 1 - k // 2),) * 3
+
+
+@pytest.mark.parametrize("ci,co,k,pad_mode,dims,batch,bodies", PAIR_CASES)
+def test_conv3d_343_tap_routes_match_plain(cuda, ci, co, k, pad_mode, dims, batch, bodies):
+    """K1 and K2 in bfloat16 on the bodies conv_plan gives these shapes,
+    each launched once (K2's fold once for a reflect pad), against the
+    float32 plain versions within 2e-2 of max |y| and max |dx|; dx
+    bit-identical in two runs (no atomics: every value is written once)."""
+    x, w, b, gy, pads = _pair_inputs(cuda, ci, co, k, dims, batch)
+    s, ks, bf16 = (1, 1, 1), (k,) * 3, torch.bfloat16
+    fwd = conv_ops.conv_plan("fwd", ci, co, ks, s, dims, bf16, batch)
+    dg = conv_ops.conv_plan("dgrad", ci, co, ks, s, dims, bf16, batch, in_dims=dims, pads=pads,
+                            pad_mode=pad_mode)
+    assert (fwd.body, dg.body) == bodies, (fwd, dg)
+    names = ("launches", "pair_launches", "tap_chunk_launches", "dgrad_launches",
+             "dgrad_tap_launches", "dgrad_fold_launches")
+    before = [getattr(conv_ops, n) for n in names]
+    with torch.inference_mode():
+        y = conv3d(x, w, b, 1, pads, pad_mode)
+        dx = conv_ops.conv3d_dgrad(gy, w, x.shape, s, pads, pad_mode)
+        again = conv_ops.conv3d_dgrad(gy, w, x.shape, s, pads, pad_mode)
+        want = conv3d_plain(x.float(), w, b, s, pads, pad_mode)
+        dwant = conv_ops.conv3d_dgrad_plain(gy.float(), w, x.shape, s, pads, pad_mode)
+    torch.cuda.synchronize()
+    fold = 2 * int(pad_mode == "reflect")
+    assert [getattr(conv_ops, n) - v for n, v in zip(names, before)] == \
+        [1, int(fwd.body == 3), int(fwd.body == 2), 2, 2, fold]
+    assert y.dtype == bf16 and _rel_err(y, want) <= 2e-2
+    assert dx.dtype == bf16 and dx.shape == x.shape and _rel_err(dx, dwant) <= 2e-2
+    assert torch.equal(dx, again)
+
+
+def test_pair_routes_refuse_what_they_do_not_take(cuda):
+    """Route 3's plans forced on shapes it does not take (two input
+    channels, a stride other than 1, float32, a Co tile above 32; for K2 a g
+    of two channels) and route 2's K2 plan on a dx with Ci * kz above 8 raise
+    and launch nothing: no fallback to another body."""
+    bf16, s = torch.bfloat16, (1, 1, 1)
+    x, w, _, gy, pads = _pair_inputs(cuda, 1, 32, 7, (9, 10, 11), 1)
+    fwd = conv_ops.conv_plan("fwd", 1, 32, (7, 7, 7), s, (9, 10, 11), bf16, 1)
+    assert fwd.body == 3 and fwd.co_tile == 32
+    kw = dict(in_dims=(9, 10, 11), pads=pads, pad_mode="reflect")
+    head = conv_ops.conv_plan("dgrad", 32, 1, (7, 7, 7), s, (9, 10, 11), bf16, 1, **kw)
+    stem = conv_ops.conv_plan("dgrad", 1, 32, (7, 7, 7), s, (9, 10, 11), bf16, 1, **kw)
+    assert (head.body, stem.body) == (3, 2)
+    lo = [3, 3, 3]
+    names = ("launches", "dgrad_launches", "dgrad_fold_launches")
+    before = [getattr(conv_ops, n) for n in names]
+    with torch.inference_mode():
+        with pytest.raises(ValueError):  # Ci = 2
+            conv_ops._launch_fwd(x.repeat(1, 2, 1, 1, 1), w.repeat(1, 2, 1, 1, 1), None, s, lo,
+                                 True, [9, 10, 11], "conv3d", plan=fwd)
+        with pytest.raises(ValueError):  # stride 2
+            conv_ops._launch_fwd(x, w, None, (2, 2, 2), lo, True, [5, 5, 6], "conv3d", plan=fwd)
+        with pytest.raises(ValueError):  # float32
+            conv_ops._launch_fwd(x.float(), w, None, s, lo, True, [9, 10, 11], "conv3d",
+                                 plan=fwd)
+        wide = dataclasses.replace(fwd, co_tile=40)
+        with pytest.raises(ValueError):  # a Co tile of 40
+            conv_ops._launch_fwd(x, w.repeat(2, 1, 1, 1, 1)[:40], None, s, lo, True,
+                                 [9, 10, 11], "conv3d", plan=wide)
+        g32 = torch.randn(1, 32, 9, 10, 11, device=cuda).to(bf16)
+        with pytest.raises(ValueError):  # route 3 on a g of two channels
+            conv_ops._conv3d_dgrad_cuda(g32[:, :2].contiguous(), w.new_ones(2, 32, 7, 7, 7),
+                                        (1, 32, 9, 10, 11), s, pads, "reflect", plan=head)
+        with pytest.raises(ValueError):  # route 2 on a dx of two channels: Ci * kz = 14
+            conv_ops._conv3d_dgrad_cuda(g32, w.repeat(1, 2, 1, 1, 1), (1, 2, 9, 10, 11), s, pads,
+                                        "reflect", plan=stem)
+    torch.cuda.synchronize()
+    assert [getattr(conv_ops, n) for n in names] == before

@@ -19,18 +19,27 @@ its workspace), and the wrapper passes it to the C entry point, which refuses
 what it cannot do: a route never falls back.
 
 A kernel with more than ``MMA_MAX_TAPS`` (64) taps, the ResNet generator's
-7^3 stem and head, runs K1 and K3 on the tensor cores in tap chunks where
-the fold takes it (unit stride, Co * kz <= 8; for K3 also Ci >= 16): the kz
-taps go on the GEMM's N (column co * kz + dz), the block stages a halo of
-columns of 16 z positions once per 16-channel chunk and walks the kernel one
-y slice (kx, 1, kz) at a time (``ConvPlan.tap_chunk``, ``tap_chunks``); the
-forward sums the shifted columns of its product in the epilogue, the weight
-gradient reads g shifted by dz (``csrc/conv3d_fwd.cu``, ``conv3d_wgrad.cu``,
-route 2). That is the head, 32 -> 1, in both. The stem (1 -> 32) keeps the
-CUDA-core bodies: its forward has Ci = 1 (``THIN_MAX_CI``) and its weight
-gradient Ci = 1 < 16, and its Co * kz = 224 is no fold; on an H100 at 3 x
-128^3 they take 22.3 and 18.7 ms, cuDNN 62.6 and 20.0. The input gradient
-(K2) keeps its plans: above 64 taps it is ``"thin"``.
+7^3 stem and head, runs on the tensor cores at unit stride on one of two
+bodies (``csrc/conv3d_taps.cuh``), which K1 and K2 share:
+
+- route 2, tap chunks, where the fold takes it (Co * kz <= 8; for K3 also Ci
+  >= 16): the kz taps go on the GEMM's N (column co * kz + dz), the block
+  stages a halo of columns of 16 z positions once per 16-channel chunk and
+  walks the kernel one y slice (kx, 1, kz) at a time (``ConvPlan.tap_chunk``,
+  ``tap_chunks``); the forward sums the shifted columns of its product in the
+  epilogue, the weight gradient reads g shifted by dz (``csrc/conv3d_fwd.cu``,
+  ``conv3d_wgrad.cu``). That is the head, 32 -> 1, in K1 and K3;
+- route 3, one input channel (a forward with Ci = 1): the (dx, dy) pairs go
+  on K (``ConvPlan.k_pairs``, 49 padded to 64 at 7^3), Co on N, a column of
+  16 z outputs on M, the dz loop outside, over kz copies of the halo shifted
+  along z. That is the stem's K1, 1 -> 32.
+
+K2 above 64 taps at unit stride is the forward of g, zero-padded by k - 1,
+with the flipped kernel and Ci and Co swapped, as in the TPU kernel: route 3
+where g has one channel (the head, 32 <- 1), route 2 where dx has Ci * kz <=
+8 (the stem, 1 <- 32), both inside ``csrc/conv3d_dgrad.cu``'s one launch,
+whose epilogue writes dx and the reflect fold's buffer as its other routes
+do. The stem's K3 (Ci = 1 < 16, Co * kz = 224) keeps the CUDA-core body.
 
 Where a gradient is needed the op is a ``torch.autograd.Function`` whose
 backward computes only what ``ctx.needs_input_grad`` asks for (the
@@ -72,6 +81,7 @@ in x and g, and their adjoints are the conv and the other gradient:
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 import itertools
 import math
@@ -90,7 +100,9 @@ dgrad_launches = 0       # conv3d_dgrad (one per conv)
 dgrad_fold_launches = 0  # its reflect-pad fold (one per reflect conv)
 wgrad_launches = 0       # conv3d_wgrad
 tap_chunk_launches = 0        # of the forward's, those on the tap chunks (route 2)
+pair_launches = 0             # of the forward's, those on one input channel (route 3)
 wgrad_tap_chunk_launches = 0  # of the weight gradient's, those on the tap chunks
+dgrad_tap_launches = 0        # of the input gradient's, those on routes 2 and 3
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 KMAX = 8  # largest kernel extent per axis the kernels take
@@ -107,6 +119,9 @@ FOLD_COLUMNS = (4, 8)   # route 2 (tap chunks): a block's columns in x and y
 FOLD_ROWS = 16          # z positions of a column: one MMA row tile / k-step
 FOLD_N = 8              # its N: the Co * kz columns (co * kz + dz), one n tile
 FOLD_G_ROW = 24         # its weight gradient's staged g per column and channel
+PAIR_MAX_CO_TILE = 32   # route 3 (one input channel, FOLD_COLUMNS of FOLD_ROWS z
+                        # outputs): its N tile, four n tiles of accumulators a column
+PAIR_OUT_PAD = 4        # floats between its staged output rows of two channels
 FWD_MAX_CO_TILE = 64
 DGRAD_MAX_CI_TILE = 64
 DGRAD_MULTI_MAX_CI_TILE = 32  # a strided conv's parity loop spills registers above it
@@ -159,7 +174,12 @@ class ConvPlan:
     GEMM's N (``co_tile`` ``FOLD_N``); its ``brick`` is the outputs of
     ``FOLD_COLUMNS`` columns of ``FOLD_ROWS`` z positions, ``FOLD_ROWS - kz +
     1`` each. Its weight gradient writes one workspace slice per block along
-    the voxels (``split``), as the CUDA-core body.
+    the voxels (``split``), as the CUDA-core body. A forward with one input
+    channel and more than ``MMA_MAX_TAPS`` taps puts the (dx, dy) pairs on
+    K: ``k_pairs`` of them (kx * ky padded to a multiple of 16), a ``brick``
+    of ``FOLD_COLUMNS`` columns of ``FOLD_ROWS`` z outputs, Co tiles of at
+    most ``PAIR_MAX_CO_TILE``. The input gradient above 64 taps at unit
+    stride runs either forward body on g (``body`` 2 or 3).
     """
     op: str
     route: str
@@ -180,6 +200,7 @@ class ConvPlan:
     shared_halo: bool = False
     tap_chunk: Tuple[int, ...] = ()
     tap_chunks: int = 0
+    k_pairs: int = 0
 
     @property
     def workspace_slices(self) -> int:
@@ -192,7 +213,9 @@ class ConvPlan:
     @property
     def body(self) -> int:
         """The C entry's route: 0 CUDA cores, 1 tensor cores, 2 tensor cores
-        in tap chunks."""
+        in tap chunks, 3 tensor cores for one input channel."""
+        if self.k_pairs:
+            return 3
         return 2 if self.tap_chunks else ROUTES[self.route]
 
 
@@ -221,10 +244,12 @@ def conv_plan(op: str, ci: int, co: int, k: Sequence[int], stride: Sequence[int]
     are the conv's channels and ``out_dims`` the output's (Xo, Yo, Zo).
     float32 always takes the CUDA-core route. bfloat16 takes the tensor-core
     route unless the shape has more than 64 taps (for K2: a parity
-    sub-kernel) outside the tap chunks (``_fold_plan``), its tiles do not fit
-    in shared memory, or the GEMM's 16-channel k-step would be mostly padding
-    (the forward's Ci, the input gradient's Co <= ``thin_max_ci``): those
-    take the CUDA-core body (``"thin"``). The N tile is at most 64 for the
+    sub-kernel) outside the tap chunks (``_fold_plan``) and the one-channel
+    body (``_pair_plan``: a forward with Ci = 1, or K2 whose g has one
+    channel), its tiles do not fit in shared memory, or the GEMM's
+    16-channel k-step would be mostly padding (the forward's Ci, the input
+    gradient's Co <= ``thin_max_ci``, at 64 taps or fewer): those take the
+    CUDA-core body (``"thin"``). The N tile is at most 64 for the
     forward and a unit-stride input gradient, 32 for a strided input
     gradient (its parity loop spills registers above it) and the weight
     gradient. What no body takes raises ValueError.
@@ -251,6 +276,8 @@ def _conv_plan(op, ci, co, k, stride, out_dims, dtype, batch, thin_max_ci, in_di
     if dtype == torch.float32:
         return _core_plan(op, "f32", ci, co, taps, out_dims, batch)
     thin = _core_plan(op, "thin", ci, co, taps, out_dims, batch)
+    if op == "fwd" and ci == 1 and taps > MMA_MAX_TAPS:
+        return _pair_plan(op, co, k, stride, out_dims, batch) or thin
     if op == "fwd" and ci <= thin_max_ci:
         return thin
     if taps > MMA_MAX_TAPS:
@@ -316,6 +343,31 @@ def _fold_plan(op, ci, co, k, stride, out_dims, batch) -> Optional[ConvPlan]:
                     **common)
 
 
+def _pair_plan(op, co, k, stride, out_dims, batch) -> Optional[ConvPlan]:
+    """The tensor-core body for one input channel (route 3) of a forward
+    (for ``op`` "dgrad": the forward of g that computes the input gradient),
+    or None where it does not take the shape (a stride other than 1). Its
+    issued work counts every column of ``FOLD_ROWS`` z outputs, the Co
+    tiles' padding and the ``k_pairs`` pairs of each of the kz taps."""
+    kx, ky, kz = k
+    if stride != (1, 1, 1):
+        return None
+    k_pairs = -(-kx * ky // 16) * 16
+    co_tile, co_tiles = _co_tiling(co, PAIR_MAX_CO_TILE)
+    brick = (*FOLD_COLUMNS, FOLD_ROWS)
+    bricks = batch * math.prod(-(-n // b) for n, b in zip(out_dims, brick))
+    rows = (FOLD_COLUMNS[0] + kx - 1) * (FOLD_COLUMNS[1] + ky - 1)
+    staged = kz * rows * 32 + kz * k_pairs * co_tile * 2  # the halo's copies, the weights
+    out = co_tile * (math.prod(FOLD_COLUMNS) * FOLD_ROWS + PAIR_OUT_PAD) * 4
+    smem = max(staged, out)
+    if smem > MAX_SMEM:
+        return None
+    useful = batch * math.prod(out_dims) * co * kx * ky * kz
+    issued = bricks * math.prod(brick) * co_tiles * co_tile * k_pairs * kz
+    return ConvPlan(op, "mma", brick=brick, co_tile=co_tile, co_tiles=co_tiles,
+                    smem_bytes=smem, pad_share=1.0 - useful / issued, k_pairs=k_pairs)
+
+
 def _core_plan(op, route, ci, co, taps, out_dims, batch) -> ConvPlan:
     """The CUDA-core body's plan. For the weight gradient: its blocks' split
     over the voxels, each block one slice of the workspace (``split``, Co,
@@ -338,7 +390,10 @@ def _dgrad_plan(ci, co, k, stride, g_dims, dtype, batch, thin_max_ci, in_dims, p
     """``conv_plan("dgrad", ...)``: the input gradient's one launch (plus its
     fold) for x (batch, ci, *in_dims) padded by ``pads`` and g (batch, co,
     *g_dims). The kernel takes its parity order and fold tables
-    (``dgrad_tables``) and refuses a ``smem_bytes`` other than its own."""
+    (``dgrad_tables``) and refuses a ``smem_bytes`` other than its own. Above
+    64 taps at unit stride it runs a forward body over the padded positions:
+    route 3 for g of one channel, route 2 (tap chunks) for Ci * kz <=
+    ``FOLD_N``, else the CUDA-core body."""
     if in_dims is None or pads is None:
         raise ValueError("conv_plan('dgrad') needs in_dims and pads")
     if pad_mode not in ("zeros", "reflect"):
@@ -367,6 +422,14 @@ def _dgrad_plan(ci, co, k, stride, g_dims, dtype, batch, thin_max_ci, in_dims, p
     taps_max = max(math.prod(e) for e, _ in live)
     if dtype == torch.float32:
         return ConvPlan("dgrad", "f32", **common)
+    if taps_max > MMA_MAX_TAPS and stride == (1, 1, 1):
+        # the forward of g zero-padded by k - 1 over the padded positions,
+        # the flipped kernel with Ci and Co swapped: g's Co channels in, Ci out
+        fwd = (_pair_plan("dgrad", ci, k, stride, xp, batch) if co == 1 else
+               _fold_plan("fwd", co, ci, k, stride, xp, batch))
+        if fwd is None:
+            return ConvPlan("dgrad", "thin", **common)
+        return dataclasses.replace(fwd, op="dgrad", **common)
     if taps_max > MMA_MAX_TAPS or co <= thin_max_ci:
         return ConvPlan("dgrad", "thin", **common)
     # shared memory: one parity's weights of a chunk, and g's halo: every
@@ -485,6 +548,27 @@ def fold_weights(w: torch.Tensor, dtype: torch.dtype = torch.bfloat16) -> torch.
     wf = w.to(dtype).permute(1, 2, 3, 0, 4).reshape(ci, kx, ky, co * kz)
     wf = F.pad(wf, (0, FOLD_N - co * kz, 0, 0, 0, 0, 0, chunks * CI_CHUNK - ci))
     return wf.reshape(chunks, CI_CHUNK, kx, ky, FOLD_N).permute(0, 2, 3, 4, 1).contiguous()
+
+
+def pair_weights(w: torch.Tensor, co_tile: int, dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    """The forward's weights for one input channel (route 3): (Co, 1, kx,
+    ky, kz) rearranged as [Co tile][dz][k-step][co_tile][16] with pair
+    dx * ky + dy = 16 * k-step + column, zero-padded in the pairs and Co
+    (bfloat16 for the kernel): the B tile of each (dz, k-step) MMA."""
+    co, ci, kx, ky, kz = w.shape
+    if ci != 1:
+        raise ValueError(f"pair_weights: Ci = {ci}, the body takes one input channel")
+    steps, tiles = -(-kx * ky // 16), -(-co // co_tile)
+    wp = F.pad(w.to(dtype).reshape(co, kx * ky, kz),
+               (0, 0, 0, steps * 16 - kx * ky, 0, tiles * co_tile - co))
+    return wp.reshape(tiles, co_tile, steps, 16, kz).permute(0, 4, 2, 1, 3).contiguous()
+
+
+def dgrad_forward_weights(w: torch.Tensor) -> torch.Tensor:
+    """The forward kernel whose conv of g, zero-padded by k - 1, is the
+    unit-stride input gradient: ``w`` flipped on every axis, Ci and Co
+    swapped."""
+    return w.flip((2, 3, 4)).transpose(0, 1)
 
 
 def norm_stride(stride: Union[int, Sequence[int]]) -> Tuple[int, int, int]:
@@ -648,7 +732,7 @@ class _Conv3dWgrad(torch.autograd.Function):
 
 
 def _forward(x, w, bias, stride, pads, pad_mode):
-    global launches, tap_chunk_launches
+    global launches, tap_chunk_launches, pair_launches
     if x.device.type == "cpu":
         return conv3d_plain(x, w, bias, stride, pads, pad_mode)
     _check_cuda(x, w.shape, "conv3d")
@@ -660,6 +744,7 @@ def _forward(x, w, bias, stride, pads, pad_mode):
                     "conv3d", plan)
     launches += 1
     tap_chunk_launches += bool(plan.tap_chunks)
+    pair_launches += bool(plan.k_pairs)
     return y
 
 
@@ -687,7 +772,9 @@ def _launch_fwd(x, w, bias, stride, lo_pads, reflect, out_dims, name, plan=None)
     if plan is None:
         plan = conv_plan("fwd", ci, co, w.shape[2:], stride, out_dims, x.dtype, b)
     w = w.detach().to(x.device)
-    if plan.tap_chunks:
+    if plan.k_pairs:
+        w = pair_weights(w, plan.co_tile)
+    elif plan.tap_chunks:
         w = fold_weights(w)
     elif plan.route == "mma":
         w = mma_weights(w, plan.co_tile)
@@ -706,8 +793,10 @@ def _launch_fwd(x, w, bias, stride, lo_pads, reflect, out_dims, name, plan=None)
     return y
 
 
-def _conv3d_dgrad_cuda(g, w, x_shape, stride, pads, pad_mode):
-    global dgrad_launches, dgrad_fold_launches
+def _conv3d_dgrad_cuda(g, w, x_shape, stride, pads, pad_mode, plan=None):
+    """One launch of K2 (and its fold launch); ``plan`` defaults to
+    ``conv_plan``'s."""
+    global dgrad_launches, dgrad_fold_launches, dgrad_tap_launches
     _check_cuda(g, w.shape, "conv3d_dgrad")
     b, ci = x_shape[:2]
     co, k = w.shape[0], tuple(w.shape[2:])
@@ -715,12 +804,19 @@ def _conv3d_dgrad_cuda(g, w, x_shape, stride, pads, pad_mode):
         raise ValueError(f"conv3d_dgrad: shapes g {tuple(g.shape)}, w {tuple(w.shape)}, "
                          f"x {tuple(x_shape)}")
     g = g.contiguous()
-    plan = conv_plan("dgrad", ci, co, k, stride, g.shape[2:], g.dtype, b, in_dims=x_shape[2:],
-                     pads=pads, pad_mode=pad_mode)
+    if plan is None:
+        plan = conv_plan("dgrad", ci, co, k, stride, g.shape[2:], g.dtype, b,
+                         in_dims=x_shape[2:], pads=pads, pad_mode=pad_mode)
     order, fold = dgrad_tables(plan, tuple(stride))
     w = w.detach().to(g.device)
-    w = dgrad_weights(w, stride, plan.co_tile) if plan.route == "mma" else \
-        w.to(g.dtype).contiguous()
+    if plan.body == 1:
+        w = dgrad_weights(w, stride, plan.co_tile)
+    elif plan.body == 2:
+        w = fold_weights(dgrad_forward_weights(w))
+    elif plan.body == 3:
+        w = pair_weights(dgrad_forward_weights(w), plan.co_tile)
+    else:
+        w = w.to(g.dtype).contiguous()
     dx = torch.empty(tuple(x_shape), dtype=g.dtype, device=g.device)
     buf = torch.empty(plan.fold_bytes // 4, dtype=torch.float32, device=g.device) \
         if plan.fold_bytes else None
@@ -734,6 +830,7 @@ def _conv3d_dgrad_cuda(g, w, x_shape, stride, pads, pad_mode):
     build.check(status, "conv3d_dgrad")
     dgrad_launches += 1
     dgrad_fold_launches += plan.launches - 1
+    dgrad_tap_launches += plan.body in (2, 3)
     return dx
 
 

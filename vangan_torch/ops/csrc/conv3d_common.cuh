@@ -1,4 +1,5 @@
-// Device helpers shared by the conv3d kernels (conv3d_fwd.cu, conv3d_wgrad.cu):
+// Device helpers shared by the conv3d kernels (conv3d_fwd.cu, conv3d_dgrad.cu,
+// conv3d_wgrad.cu, and the bodies above 64 taps in conv3d_taps.cuh):
 // the padding index map, the tensor-core route's tile constants (and those of
 // its body in tap chunks), its swizzled shared-memory layout and halo
 // staging, and inline-PTX wrappers for ldmatrix, mma.sync (bf16 -> f32) and
@@ -69,7 +70,8 @@ __host__ __device__ inline Halo make_halo(int kx, int ky, int kz, int sx, int sy
 // gradient), and each (dx, dy) pair of taps is one shifted view of the halo,
 // (FOLD_BX + kx - 1) x (FOLD_BY + ky - 1) x FOLD_ROWS voxels, staged once per
 // 16-channel chunk by stage_halo. A column gives FOLD_ROWS - kz + 1 output z
-// positions.
+// positions. The forward's body for one input channel (route 3) owns the
+// same columns, each of FOLD_ROWS output z positions.
 constexpr int FOLD_BX = 4, FOLD_BY = 8;
 constexpr int FOLD_ROWS = 16;
 constexpr int FOLD_N = 8;

@@ -40,14 +40,27 @@
 // over a shifted view of the halo (ldmatrix, mma.sync m16n8k16, bf16 in, f32
 // accumulate).
 //
-// route 0, CUDA cores (float32, and bfloat16 shapes the tensor-core route does
-// not take: a sub-kernel of more than 64 taps, or Co <= 3): the grid covers
+// routes 2 and 3, K1's tensor-core bodies above 64 taps (bfloat16, unit
+// stride; conv3d_taps.cuh): the TPU kernel computes a unit-stride input
+// gradient as _conv_fwd on the padded cotangent, with the flipped kernel and
+// Ci and Co swapped, and so does this launch, with the forward's bodies for
+// the ResNet generator's 7^3 convs: route 2 (tap chunks, the kz taps on N)
+// where dx has Ci * kz <= 8 (the stem, 1 <- 32: 165.7 ms on the CUDA cores at
+// 3 x 128^3 on an H100, 4.5x cuDNN), route 3 (the (dx, dy) pairs on K) where
+// g has one channel (the head, 32 <- 1). The bricks tile the padded
+// positions P of x; the epilogue sends each value where the other routes'
+// do (dx in place, the fold buffer, or nowhere), so the reflect fold and
+// the plan's contract are unchanged.
+//
+// route 0, CUDA cores (float32, and bfloat16 shapes the tensor-core routes do
+// not take: a sub-kernel of more than 64 taps outside routes 2 and 3, or Co
+// <= 3): the grid covers
 // (parity, positions, Ci tile, sample), parities with the most taps first so
 // the longest blocks start first; each thread owns one position of a parity
 // and 16 input channels; the weights of a Co tile are staged in shared memory
 // as f32 and read as broadcasts. Exact f32 FMAs (no TF32).
 
-#include "conv3d_common.cuh"
+#include "conv3d_taps.cuh"
 
 namespace {
 
@@ -328,6 +341,99 @@ conv3d_dgrad_mma_kernel(const __nv_bfloat16* __restrict__ g, const uint4* __rest
           }
       }
   }
+}
+
+// ---- routes 2 and 3: K1's bodies above 64 taps ------------------------------
+// At unit stride dxp is the forward conv of g, zero-padded by k - 1, with the
+// flipped kernel and Ci and Co swapped: its outputs are the padded positions
+// P of x, and its input channels g's. The route 2 and 3 bodies
+// (conv3d_taps.cuh) compute it brick by brick over P; this epilogue writes
+// each value where dest_of sends it: dx (rounded once), the fold buffer (f32)
+// or nowhere. Its per-axis fold slots of the brick's positions are found once
+// per block (begin), not once per value. Both bodies' bricks lie within
+// FOLD_BX x FOLD_BY columns of FOLD_ROWS positions.
+constexpr int SLOTS = vg::FOLD_BX + vg::FOLD_BY + vg::FOLD_ROWS;  // x, y, z positions
+
+struct DgradStore {
+  const Geo* G;  // shared
+  int* slot;     // shared [SLOTS]: fold_slot of the brick's x, y, z positions
+  __nv_bfloat16* dx;
+  float* buf;
+  long long bc0;  // b * Ci
+  long long plane;
+  int o[3];
+  __device__ float init(int) const { return 0.f; }
+  __device__ void begin(int x0, int y0, int z0) {
+    o[0] = x0;
+    o[1] = y0;
+    o[2] = z0;
+    for (int i = threadIdx.x; i < SLOTS; i += blockDim.x) {
+      const int d = i < vg::FOLD_BX ? 0 : i < vg::FOLD_BX + vg::FOLD_BY ? 1 : 2;
+      const int j = i - (d == 0 ? 0 : d == 1 ? vg::FOLD_BX : vg::FOLD_BX + vg::FOLD_BY);
+      slot[i] = G->fold ? fold_slot(*G, d, o[d] + j) : -1;
+    }
+  }
+  __device__ void store(int c, int px, int py, int pz, float v) const {
+    const int sp[3] = {slot[px - o[0]], slot[vg::FOLD_BX + py - o[1]],
+                       slot[vg::FOLD_BX + vg::FOLD_BY + pz - o[2]]};
+    const long long bc = bc0 + c;
+    if (sp[0] >= 0 || sp[1] >= 0 || sp[2] >= 0) {  // every pad position is a fold position
+      const int P[3] = {px, py, pz};
+      buf[bc * G->slab + buf_offset(*G, P, sp)] = v;
+      return;
+    }
+    const int i0 = px - G->lo[0], i1 = py - G->lo[1], i2 = pz - G->lo[2];
+    if (i0 < 0 || i0 >= G->n[0] || i1 < 0 || i1 >= G->n[1] || i2 < 0 || i2 >= G->n[2]) return;
+    dx[bc * plane + ((long long)i0 * G->n[1] + i1) * G->n[2] + i2] = __float2bfloat16(v);
+  }
+};
+
+// Route 2 (dx of few channels, Ci * kz <= FOLD_N: the ResNet's stem, 1 <- 32):
+// route 2 of the forward over g's Co channels. wt: fold_weights of the
+// flipped, swapped kernel. Grid: (bricks of P, 1, B).
+__global__ void __launch_bounds__(vg::MMA_THREADS, 2)
+conv3d_dgrad_tap_chunk_kernel(const __nv_bfloat16* __restrict__ g, const uint4* __restrict__ wt,
+                              __nv_bfloat16* __restrict__ dx, float* __restrict__ buf,
+                              const __grid_constant__ Args a) {
+  using namespace vg;
+  __shared__ Geo G;
+  __shared__ int slot[SLOTS];
+  load_geo(G, a.geo);  // published by the body's first barrier
+  const int Xo = a.geo.xp[0], Yo = a.geo.xp[1], Zo = a.geo.xp[2];
+  int ox0, oy0, oz0;
+  brick_origin(blockIdx.x, Yo, Zo, FOLD_BX, FOLD_BY, FOLD_ROWS - a.k[2] + 1, ox0, oy0, oz0);
+  const int b = blockIdx.z;
+  const long long plane_o = (long long)a.no[0] * a.no[1] * a.no[2];
+  DgradStore epi{&G, slot, dx, buf, (long long)b * a.Ci,
+                 (long long)a.geo.n[0] * a.geo.n[1] * a.geo.n[2]};
+  tap_chunk_body(g + (long long)b * a.Co * plane_o, wt, a.Co, a.Ci, a.no[0], a.no[1], a.no[2],
+                 Xo, Yo, Zo, a.k[0], a.k[1], a.k[2], a.k[0] - 1, a.k[1] - 1, a.k[2] - 1, 0, ox0,
+                 oy0, oz0, epi);
+}
+
+// Route 3 (g of one channel: the ResNet's head, 32 <- 1): route 3 of the
+// forward, Ci tiles of NT * 8. wt: pair_weights of the flipped, swapped
+// kernel. Grid: (bricks of P, Ci tiles, B).
+template <int NT>
+__global__ void __launch_bounds__(vg::MMA_THREADS, 2)
+conv3d_dgrad_pair_kernel(const __nv_bfloat16* __restrict__ g, const uint4* __restrict__ wt,
+                         __nv_bfloat16* __restrict__ dx, float* __restrict__ buf,
+                         const __grid_constant__ Args a) {
+  using namespace vg;
+  __shared__ Geo G;
+  __shared__ int slot[SLOTS];
+  load_geo(G, a.geo);  // published by the body's first barrier
+  const int Xo = a.geo.xp[0], Yo = a.geo.xp[1], Zo = a.geo.xp[2];
+  int ox0, oy0, oz0;
+  brick_origin(blockIdx.x, Yo, Zo, FOLD_BX, FOLD_BY, FOLD_ROWS, ox0, oy0, oz0);
+  const int ct = blockIdx.y, b = blockIdx.z;
+  const int kx = a.k[0], ky = a.k[1], kz = a.k[2];
+  DgradStore epi{&G, slot, dx, buf, (long long)b * a.Ci,
+                 (long long)a.geo.n[0] * a.geo.n[1] * a.geo.n[2]};
+  pair_body<NT>(g + (long long)b * a.no[0] * a.no[1] * a.no[2],
+                wt + (long long)ct * pair_w_units(kx, ky, kz, NT * 8), a.Ci, ct * NT * 8, a.no[0],
+                a.no[1], a.no[2], Xo, Yo, Zo, kx, ky, kz, kx - 1, ky - 1, kz - 1, 0, ox0, oy0,
+                oz0, epi);
 }
 
 // ---- route 0: CUDA cores ----------------------------------------------------
@@ -686,6 +792,38 @@ cudaError_t launch_mma(const void* g, const void* w, void* dx, float* buf, const
                     : launch_mma_body<NT, false>(g, w, dx, buf, a, blocks, smem, s);
 }
 
+cudaError_t launch_tap_chunk_body(const void* g, const void* w, void* dx, float* buf, const Args& a,
+                             size_t smem, cudaStream_t s) {
+  using namespace vg;
+  cudaError_t e = allow_smem(conv3d_dgrad_tap_chunk_kernel, smem);
+  if (e != cudaSuccess) return e;
+  const int bz = FOLD_ROWS - a.k[2] + 1;
+  const long long bricks = (long long)((a.geo.xp[0] + FOLD_BX - 1) / FOLD_BX) *
+                           ((a.geo.xp[1] + FOLD_BY - 1) / FOLD_BY) * ((a.geo.xp[2] + bz - 1) / bz);
+  if (bricks >= (1LL << 31)) return cudaErrorInvalidValue;
+  conv3d_dgrad_tap_chunk_kernel<<<dim3((unsigned)bricks, 1, a.B), MMA_THREADS, smem, s>>>(
+      static_cast<const __nv_bfloat16*>(g), static_cast<const uint4*>(w),
+      static_cast<__nv_bfloat16*>(dx), buf, a);
+  return cudaGetLastError();
+}
+
+template <int NT>
+cudaError_t launch_pair_body(const void* g, const void* w, void* dx, float* buf, const Args& a,
+                             size_t smem, cudaStream_t s) {
+  using namespace vg;
+  cudaError_t e = allow_smem(conv3d_dgrad_pair_kernel<NT>, smem);
+  if (e != cudaSuccess) return e;
+  const long long bricks = (long long)((a.geo.xp[0] + FOLD_BX - 1) / FOLD_BX) *
+                           ((a.geo.xp[1] + FOLD_BY - 1) / FOLD_BY) *
+                           ((a.geo.xp[2] + FOLD_ROWS - 1) / FOLD_ROWS);
+  if (bricks >= (1LL << 31)) return cudaErrorInvalidValue;
+  conv3d_dgrad_pair_kernel<NT><<<dim3((unsigned)bricks, (a.Ci + NT * 8 - 1) / (NT * 8), a.B),
+                                 MMA_THREADS, smem, s>>>(
+      static_cast<const __nv_bfloat16*>(g), static_cast<const uint4*>(w),
+      static_cast<__nv_bfloat16*>(dx), buf, a);
+  return cudaGetLastError();
+}
+
 template <typename T>
 cudaError_t launch_cuda_cores(const void* g, const void* w, void* dx, float* buf, const Args& a,
                               int co_tile, int taps_max, cudaStream_t s) {
@@ -709,7 +847,11 @@ cudaError_t launch_cuda_cores(const void* g, const void* w, void* dx, float* buf
 // route 1 (tensor cores, bfloat16 only): w is ops/conv3d.py::dgrad_weights(w,
 // stride, ci_tile), ci_tile a multiple of 8 up to 64; shared_halo 1 stages g's
 // halo once per block for all the parities; smem_bytes the plan's dynamic
-// shared memory, which must be this launch's. buf: for a reflect pad, an f32
+// shared memory, which must be this launch's. routes 2 and 3 (bfloat16,
+// unit stride): w is ops/conv3d.py::fold_weights (route 2: ci_tile 8, Ci * kz
+// <= 8) or pair_weights (route 3: Co = 1, ci_tile a multiple of 8 up to 32)
+// of the flipped kernel with Ci and Co swapped; smem_bytes as route 1's. buf:
+// for a reflect pad, an f32
 // scratch of buf_bytes >= B * Ci * slab * 4 (the plan's fold_bytes), else
 // ignored. Makes one launch, and one fold launch for a reflect pad. Returns
 // cudaGetLastError() after the launches; 1000 for an argument the kernel does
@@ -805,6 +947,32 @@ extern "C" int vg_conv3d_dgrad(const void* g, const void* w, void* dx, float* bu
       case 6: e = launch_mma<6>(g, w, dx, buf, a, blocks, smem, s); break;
       case 7: e = launch_mma<7>(g, w, dx, buf, a, blocks, smem, s); break;
       default: e = launch_mma<8>(g, w, dx, buf, a, blocks, smem, s); break;
+    }
+  } else if (route == 2 || route == 3) {
+    // unit stride only (one parity): the forward of g zero-padded by k - 1
+    if (dtype != 1 || a.npar != 1) return 1000;
+    a.taps_max = taps_max;
+    a.shared_halo = 0;
+    size_t smem;
+    if (route == 2) {
+      if (ci_tile != vg::FOLD_N || Ci * kz > vg::FOLD_N) return 1000;
+      smem = vg::fold_smem(kx, ky);
+    } else {
+      if (Co != 1 || ci_tile < 8 || ci_tile > vg::PAIR_MAX_CO_TILE || ci_tile % 8 != 0)
+        return 1000;
+      smem = vg::pair_smem(kx, ky, kz, ci_tile);
+    }
+    if (smem != (size_t)smem_bytes || smem + sizeof(Geo) + SLOTS * sizeof(int) > MAX_SMEM)
+      return 1000;
+    if (route == 2) {
+      e = launch_tap_chunk_body(g, w, dx, buf, a, smem, s);
+    } else {
+      switch (ci_tile / 8) {
+        case 1: e = launch_pair_body<1>(g, w, dx, buf, a, smem, s); break;
+        case 2: e = launch_pair_body<2>(g, w, dx, buf, a, smem, s); break;
+        case 3: e = launch_pair_body<3>(g, w, dx, buf, a, smem, s); break;
+        default: e = launch_pair_body<4>(g, w, dx, buf, a, smem, s); break;
+      }
     }
   } else if (route == 0) {
     if (dtype != 0 && dtype != 1) return 1000;

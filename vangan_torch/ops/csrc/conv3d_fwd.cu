@@ -4,13 +4,13 @@
 // (bodies _fwd_kernel / _fwd_kernel_b). That kernel exists because XLA pads
 // small channel counts to 128 TPU lanes; its z-select matmuls, lane padding
 // and slab DMA are TPU workarounds and are not carried over. The input
-// gradient (_conv_dgrad) runs this kernel once per stride parity
-// (ops/conv3d.py).
+// gradient (_conv_dgrad) has its own kernel, conv3d_dgrad.cu, which runs
+// routes 2 and 3's bodies (conv3d_taps.cuh) above 64 taps.
 //
 //   y[b, co, o] = sum over ci, d of x_pad[b, ci, s*o + d] * w[co, ci, d] (+ bias)
 //
 // Padding (zero or reflect, numpy semantics for any width) is an index map,
-// so no padded copy of the input is made. Two bodies; ops/conv3d.py::conv_plan
+// so no padded copy of the input is made. Four routes; ops/conv3d.py::conv_plan
 // picks one per shape and passes it in `route`:
 //
 // route 1, tensor cores (bfloat16; the main path): an implicit GEMM with
@@ -41,34 +41,41 @@
 // one output channel, so an N = Co tile of 8 would issue 8x the useful MMA
 // work, and the brick's halo is 7.7x the voxels it outputs (10 x 14 x 14 for
 // 4 x 8 x 8), which must not be re-read per tap from device memory. The
-// design: the kz taps go on N. For each (dx, dy) pair of taps,
+// design (conv3d_taps.cuh::tap_chunk_body): the kz taps go on N (column
+// co * kz + dz), M runs over columns of 16 consecutive z positions, K over
+// the 16-channel chunks of each (dx, dy) pair, and the epilogue sums the
+// shifted columns of the product (7 of the 8 N columns and 10 of 16 rows
+// useful: conv_plan's pad_share 0.46 at 128^3). A block owns 4 x 8 columns,
+// stages their halo once per chunk (70 KB at 7^3) with the chunk's weights
+// double-buffered by cp.async, and walks the kernel one y slice (kx, 1, kz)
+// at a time, each halo row fed from registers to up to kx MMAs.
 //
-//   P[v, co * kz + dz] = sum over ci of x_pad[ci, v + (dx, dy, 0)] * w[co, ci, dx, dy, dz]
-//
-// is one m16n8k16 MMA per 16 voxels v and 16-channel chunk, summed over the
-// pairs, and y[o, co] = sum over dz of P[o + dz e_z, co * kz + dz] (+ bias)
-// in the epilogue through shared memory. M runs over columns of 16
-// consecutive z positions (an output brick extended by kz - 1 along z), so
-// a column gives 16 - kz + 1 outputs and 7 of the 8 N columns are useful at
-// Co = 1 (conv_plan's pad_share 0.46 at 128^3). A block owns 4 x 8 such
-// columns; per 16-channel chunk it stages their halo (10 x 14 x 16 voxels
-// for 7^3, 70 KB) once, with the chunk's weights ([dx][dy][8][16], 12.5 KB)
-// double-buffered by cp.async (the next chunk's copy runs under this
-// chunk's MMAs), and walks the kernel in tap chunks, one y slice (kx, 1,
-// kz) at a time: warp w owns the columns (bx, w), loads the halo row (hx, w
-// + dy) of each hx < 4 + kx - 1 once per slice (ldmatrix), and feeds it to
-// the MMAs of every (bx, dx) with bx + dx = hx, so a halo fragment serves up
-// to kx MMAs, not one.
+// route 3, tensor cores for one input channel (bfloat16, Ci = 1, more than
+// 64 taps at unit stride: the ResNet generator's 7^3 stem, 1 -> 32). With
+// Ci = 1 a 16-channel k-step is 15/16 padding and the CUDA-core body issues
+// 343 FMAs per output voxel and channel (22.6 ms at 3 x 128^3 on an H100).
+// The design (conv3d_taps.cuh::pair_body): the (dx, dy) pairs go on K (49
+// padded to 64: four k-steps), Co on N (four n tiles at Co = 32), a column
+// of 16 z outputs on M, and the dz loop outside, 1.31x the useful MMA work;
+// the halo is staged kz times, each copy shifted by one z position, so that
+// ldmatrix.trans reads A's transpose from 16-byte-aligned rows (eight 32-bit
+// loads of fragment pairs per MMA were the other choice: 4x the shared-memory
+// instructions of one ldmatrix.x4); all the weights ([dz][k-step][co][16],
+// 28 KB) are staged once per block; and the epilogue stages the f32 outputs
+// in shared memory, so that consecutive threads write consecutive z of a
+// channel. What bounds it: its 403 MB bf16 output at 3 x 128^3 (0.12 ms at
+// the memory rate) and 0.18 TFLOP of issued MMAs (0.18 ms at the tensor
+// cores' dense rate).
 //
 // route 0, CUDA cores (float32, and bfloat16 shapes the tensor-core routes
-// do not take: Ci <= 3, where a 16-channel k-step would be mostly padding,
-// or more than 64 taps outside route 2 (the ResNet's 7^3 stem, 1 -> 32)):
-// each thread owns one output voxel and CO_T output
+// do not take: Ci <= 3 at 64 taps or fewer, where a 16-channel k-step would
+// be mostly padding, or more than 64 taps outside routes 2 and 3): each
+// thread owns one output voxel and CO_T output
 // channels, so one input load feeds CO_T f32 FMAs; the weights of a Ci-tile
 // are staged in shared memory and read as warp-wide broadcasts. The float32
 // route stays on exact f32 arithmetic (no TF32).
 
-#include "conv3d_common.cuh"
+#include "conv3d_taps.cuh"
 
 namespace {
 
@@ -363,109 +370,36 @@ cudaError_t launch_mma(const void* x, const void* w, const void* bias, void* y, 
 }
 
 
+// The bodies above 64 taps (conv3d_taps.cuh) write y through this epilogue.
+struct FwdStore {
+  const __nv_bfloat16* bias;
+  __nv_bfloat16* y;
+  long long bc0;  // b * Co
+  long long nout;
+  int Yo, Zo;
+  __device__ float init(int co) const { return bias != nullptr ? __bfloat162float(bias[co]) : 0.f; }
+  __device__ void begin(int, int, int) {}
+  __device__ void store(int co, int ox, int oy, int oz, float v) const {
+    y[(bc0 + co) * nout + ((long long)ox * Yo + oy) * Zo + oz] = __float2bfloat16(v);
+  }
+};
+
 // Route 2: bf16 implicit GEMM in tap chunks, the kz taps on N (see the note
-// at the top). wt: the weights as 16-byte units [Ci/16][kx][ky][FOLD_N][2],
-// column co * kz + dz, zero-padded in Ci and N; y: (B, Co, Xo, Yo, Zo).
+// at the top and conv3d_taps.cuh). wt: the weights as 16-byte units
+// [Ci/16][kx][ky][FOLD_N][2], column co * kz + dz, zero-padded in Ci and N;
+// y: (B, Co, Xo, Yo, Zo).
 __global__ void __launch_bounds__(vg::MMA_THREADS, 2)
 conv3d_fwd_fold_kernel(const __nv_bfloat16* __restrict__ x, const uint4* __restrict__ wt,
                        const __nv_bfloat16* __restrict__ bias, __nv_bfloat16* __restrict__ y,
                        int Ci, int Co, int X, int Y, int Z, int Xo, int Yo, int Zo, int kx,
                        int ky, int kz, int px, int py, int pz, int reflect) {
   using namespace vg;
-  constexpr int COLS = FOLD_BX * FOLD_BY;
-  extern __shared__ uint4 smem[];
-  const Halo h = make_fold_halo(kx, ky);
-  const int bz = FOLD_ROWS - kz + 1;  // output z positions of a column
-  const int w_units = kx * ky * FOLD_N * 2;
-  uint4* halo = smem;
-  uint4* w_s = smem + h.hx * h.hy * h.hz * 2;  // two buffers of w_units
-
-  const int nbz = (Zo + bz - 1) / bz, nby = (Yo + FOLD_BY - 1) / FOLD_BY;
-  int q = blockIdx.x;
-  const int oz0 = (q % nbz) * bz;
-  q /= nbz;
-  const int oy0 = (q % nby) * FOLD_BY, ox0 = (q / nby) * FOLD_BX;
+  int ox0, oy0, oz0;
+  brick_origin(blockIdx.x, Yo, Zo, FOLD_BX, FOLD_BY, FOLD_ROWS - kz + 1, ox0, oy0, oz0);
   const int b = blockIdx.z;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int mi = lane >> 3, r = lane & 7;
-  // ldmatrix rows of this lane: A (z position, channel half) of a column;
-  // B (n row, channel half)
-  const int a_z = r + 8 * (mi & 1), a_half = mi >> 1;
-  const int b_half = mi & 1;
-
-  float acc[FOLD_BX][4];
-#pragma unroll
-  for (int bx = 0; bx < FOLD_BX; ++bx)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[bx][e] = 0.f;
-
-  const uint32_t halo_u = smem_u32(halo), w_u = smem_u32(w_s);
-  const long long plane = (long long)X * Y * Z;
-  const __nv_bfloat16* xb = x + (long long)b * Ci * plane;
-  const int n_chunks = (Ci + CI_CHUNK - 1) / CI_CHUNK;
-  auto copy_weights = [&](int c) {
-    const uint4* src = wt + (long long)c * w_units;
-    const uint32_t dst = w_u + (c & 1) * w_units * 16;
-    for (int u = tid; u < w_units; u += MMA_THREADS)
-      cp_async16(dst + swz(u >> 1, u & 1) * 16, src + u);
-    cp_async_commit();
-  };
-  copy_weights(0);
-  for (int c = 0; c < n_chunks; ++c) {
-    __syncthreads();  // the previous chunk's halo and weights are consumed
-    const bool next = c + 1 < n_chunks;
-    if (next) copy_weights(c + 1);
-    stage_halo(halo, xb, c * CI_CHUNK, Ci, X, Y, Z, h, ox0 - px, oy0 - py, oz0 - pz, reflect);
-    if (next) cp_async_wait_all_but_last(); else cp_async_wait_all();
-    __syncthreads();
-    const uint32_t wc = w_u + (c & 1) * w_units * 16;
-    for (int dy = 0; dy < ky; ++dy) {  // one tap chunk: the y slice (kx, 1, kz)
-      uint32_t a[FOLD_BX + KMAX - 1][4];
-#pragma unroll
-      for (int hx = 0; hx < FOLD_BX + KMAX - 1; ++hx)
-        if (hx < FOLD_BX + kx - 1)
-          ldsm_x4(halo_u + swz((hx * h.hy + warp + dy) * h.hz + a_z, a_half) * 16, a[hx]);
-#pragma unroll
-      for (int dx = 0; dx < KMAX; ++dx) {
-        if (dx >= kx) break;
-        uint32_t b0, b1;
-        ldsm_x2(wc + swz((dx * ky + dy) * FOLD_N + r, b_half) * 16, b0, b1);
-#pragma unroll
-        for (int bx = 0; bx < FOLD_BX; ++bx) mma_bf16(acc[bx], a[bx + dx], b0, b1);
-      }
-    }
-  }
-
-  // epilogue: P[column][z][n] through shared memory (in the halo's place);
-  // lane holds rows (z) g, g + 8, columns 2q, 2q + 1 of each of its columns
-  __syncthreads();
-  float* p_s = reinterpret_cast<float*>(smem);
-  const int g = lane >> 2, tq = lane & 3;
-#pragma unroll
-  for (int bx = 0; bx < FOLD_BX; ++bx)
-#pragma unroll
-    for (int e = 0; e < 4; ++e)
-      p_s[((bx * FOLD_BY + warp) * FOLD_ROWS + g + 8 * (e >> 1)) * FOLD_N + 2 * tq + (e & 1)] =
-          acc[bx][e];
-  __syncthreads();
-  const long long nout = (long long)Xo * Yo * Zo;
-  for (int i = tid; i < Co * COLS * bz; i += MMA_THREADS) {
-    const int oz = i % bz, t = i / bz, col = t % COLS, co = t / COLS;
-    const int ox = ox0 + col / FOLD_BY, oy = oy0 + col % FOLD_BY;
-    if (ox >= Xo || oy >= Yo || oz0 + oz >= Zo) continue;
-    const float* p = p_s + (col * FOLD_ROWS + oz) * FOLD_N + co * kz;
-    float s = bias != nullptr ? __bfloat162float(bias[co]) : 0.f;
-    for (int dz = 0; dz < kz; ++dz) s += p[dz * FOLD_N + dz];
-    y[((long long)b * Co + co) * nout + ((long long)ox * Yo + oy) * Zo + oz0 + oz] =
-        __float2bfloat16(s);
-  }
-}
-
-// Shared memory of route 2: the halo and two chunks' weights (the epilogue's
-// P, 16 KB, reuses the halo's space: at least 5 x 9 x 16 voxels, 23 KB).
-size_t fold_smem(int kx, int ky) {
-  const vg::Halo h = vg::make_fold_halo(kx, ky);
-  return (size_t)h.hx * h.hy * h.hz * 32 + 2 * (size_t)kx * ky * vg::FOLD_N * 32;
+  FwdStore epi{bias, y, (long long)b * Co, (long long)Xo * Yo * Zo, Yo, Zo};
+  tap_chunk_body(x + (long long)b * Ci * X * Y * Z, wt, Ci, Co, X, Y, Z, Xo, Yo, Zo, kx, ky, kz,
+                 px, py, pz, reflect, ox0, oy0, oz0, epi);
 }
 
 cudaError_t launch_fold(const void* x, const void* w, const void* bias, void* y, int B, int Ci,
@@ -485,6 +419,42 @@ cudaError_t launch_fold(const void* x, const void* w, const void* bias, void* y,
   return cudaGetLastError();
 }
 
+// Route 3: bf16 implicit GEMM for one input channel, the (dx, dy) pairs on K
+// (see the note at the top and conv3d_taps.cuh). wt: the weights as 16-byte
+// units [Co tile][kz][k-step][NT * 8][2] (ops/conv3d.py::pair_weights), pair
+// dx * ky + dy, zero-padded in the pairs and Co; y: (B, Co, Xo, Yo, Zo).
+template <int NT>
+__global__ void __launch_bounds__(vg::MMA_THREADS, 2)
+conv3d_fwd_pair_kernel(const __nv_bfloat16* __restrict__ x, const uint4* __restrict__ wt,
+                       const __nv_bfloat16* __restrict__ bias, __nv_bfloat16* __restrict__ y,
+                       int Co, int X, int Y, int Z, int Xo, int Yo, int Zo, int kx, int ky,
+                       int kz, int px, int py, int pz, int reflect) {
+  using namespace vg;
+  int ox0, oy0, oz0;
+  brick_origin(blockIdx.x, Yo, Zo, FOLD_BX, FOLD_BY, FOLD_ROWS, ox0, oy0, oz0);
+  const int ct = blockIdx.y, b = blockIdx.z;
+  FwdStore epi{bias, y, (long long)b * Co, (long long)Xo * Yo * Zo, Yo, Zo};
+  pair_body<NT>(x + (long long)b * X * Y * Z, wt + (long long)ct * pair_w_units(kx, ky, kz, NT * 8),
+                Co, ct * NT * 8, X, Y, Z, Xo, Yo, Zo, kx, ky, kz, px, py, pz, reflect, ox0, oy0,
+                oz0, epi);
+}
+
+template <int NT>
+cudaError_t launch_pair(const void* x, const void* w, const void* bias, void* y, int B, int Co,
+                        int X, int Y, int Z, int Xo, int Yo, int Zo, int kx, int ky, int kz,
+                        int px, int py, int pz, int reflect, long long bricks, cudaStream_t s) {
+  using namespace vg;
+  const size_t smem = pair_smem(kx, ky, kz, NT * 8);
+  cudaError_t e = allow_smem(conv3d_fwd_pair_kernel<NT>, smem);
+  if (e != cudaSuccess) return e;
+  conv3d_fwd_pair_kernel<NT><<<dim3((unsigned)bricks, (Co + NT * 8 - 1) / (NT * 8), B),
+                               MMA_THREADS, smem, s>>>(
+      static_cast<const __nv_bfloat16*>(x), static_cast<const uint4*>(w),
+      static_cast<const __nv_bfloat16*>(bias), static_cast<__nv_bfloat16*>(y), Co, X, Y, Z, Xo,
+      Yo, Zo, kx, ky, kz, px, py, pz, reflect);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // C entry point, bound with ctypes. x (B,Ci,X,Y,Z), bias (Co,) or NULL,
@@ -495,7 +465,10 @@ cudaError_t launch_fold(const void* x, const void* w, const void* bias, void* y,
 // [taps][co_tile][16] bf16, zero-padded; co_tile a multiple of 8 up to 64.
 // route 2 (tensor cores in tap chunks, bfloat16 only): unit stride, Co * kz
 // <= 8, co_tile 8; w pre-arranged as [ceil(Ci/16)][kx][ky][8][16] bf16 (row
-// co * kz + dz), zero-padded.
+// co * kz + dz), zero-padded. route 3 (tensor cores, one input channel,
+// bfloat16 only): unit stride, Ci = 1, co_tile a multiple of 8 up to 32; w
+// pre-arranged as [ceil(Co/co_tile)][kz][ceil(kx*ky/16)][co_tile][16] bf16
+// (column dx * ky + dy), zero-padded.
 // Returns cudaGetLastError() after the launch; 1000 for an argument the
 // kernel does not take.
 extern "C" int vg_conv3d_fwd(const void* x, const void* w, const void* bias, void* y,
@@ -518,12 +491,30 @@ extern "C" int vg_conv3d_fwd(const void* x, const void* w, const void* bias, voi
   }
   if (route == 2) {
     if (dtype != 1 || co_tile != vg::FOLD_N || sx != 1 || sy != 1 || sz != 1) return 1000;
-    if (Co * kz > vg::FOLD_N || fold_smem(kx, ky) > MAX_SMEM) return 1000;
+    if (Co * kz > vg::FOLD_N || vg::fold_smem(kx, ky) > MAX_SMEM) return 1000;
     const int bz = vg::FOLD_ROWS - kz + 1;
     if ((long long)((Xo + 3) / 4) * ((Yo + 7) / 8) * ((Zo + bz - 1) / bz) >= (1LL << 31))
       return 1000;
     return (int)launch_fold(x, w, bias, y, B, Ci, Co, X, Y, Z, Xo, Yo, Zo, kx, ky, kz, px, py,
                             pz, reflect, s);
+  }
+  if (route == 3) {
+    if (dtype != 1 || Ci != 1 || sx != 1 || sy != 1 || sz != 1 || B > 65535) return 1000;
+    if (co_tile < 8 || co_tile > vg::PAIR_MAX_CO_TILE || co_tile % 8 != 0) return 1000;
+    if (vg::pair_smem(kx, ky, kz, co_tile) > MAX_SMEM) return 1000;
+    const long long bricks = (long long)((Xo + vg::FOLD_BX - 1) / vg::FOLD_BX) *
+                             ((Yo + vg::FOLD_BY - 1) / vg::FOLD_BY) *
+                             ((Zo + vg::FOLD_ROWS - 1) / vg::FOLD_ROWS);
+    if (bricks >= (1LL << 31)) return 1000;
+#define VG_PAIR(NT)                                                                        \
+  case NT:                                                                                 \
+    return (int)launch_pair<NT>(x, w, bias, y, B, Co, X, Y, Z, Xo, Yo, Zo, kx, ky, kz, px, \
+                                py, pz, reflect, bricks, s)
+    switch (co_tile / 8) {
+      VG_PAIR(1); VG_PAIR(2); VG_PAIR(3); VG_PAIR(4);
+    }
+#undef VG_PAIR
+    return 1000;
   }
   if (route != 1 || dtype != 1) return 1000;
   if (co_tile < 8 || co_tile > MMA_MAX_CO_TILE || co_tile % 8 != 0) return 1000;
