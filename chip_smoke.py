@@ -137,9 +137,9 @@ Phases, each of which raises on failure:
    of 3, each 343-tap row (K1, K2, K3 of the stem and the head) against its
    plain version and cuDNN, with its plan's route (its 343-tap head, 32 ->
    1, takes K1 and K3 on the tensor cores in tap chunks, route 2, and K2 on
-   route 3, the (dx, dy) pairs on K; its stem, 1 -> 32, K1 on route 3, K2 in
-   tap chunks and K3 on the CUDA-core body; the ResNet is one generator
-   whatever the role, as in the JAX factory, so it runs once);
+   route 3, the (dx, dy) pairs on K; its stem, 1 -> 32, K1 and K3 on route
+   3, the (dx, dy) pairs on K and M, and K2 in tap chunks; the ResNet is one
+   generator whatever the role, as in the JAX factory, so it runs once);
 12. data in and evaluation out, at the config's sizes: seeded raw TIFFs
    (two imaging volumes of RAW_IMG_SIZE 512 x 512 x 140 as uint16, two
    segmentation volumes of 512 x 512 x 128 as uint8 0/255 tubes) through
@@ -250,12 +250,12 @@ Phases, each of which raises on failure:
    sigma 0.1, dropout on, 3 x 128^3, bf16) through
    ``VanGan.distributed_train_step``: phase 8's checks (the launches of
    ``RESNET_TRAIN_LAUNCHES``, derived from the path; of them, K1 and K3 of
-   the 4 head calls on the tap chunks, the 4 stem calls' K1 on route 3 and
-   the 4 head calls' K2 on route 3, ``RESNET_TAP_CHUNKS``, and none in
-   phases 8 and 10; the plans of the 343-tap convs on the bodies that
-   count: the stem's K1 and the head's K2 on route 3, the head's K1 and K3
-   on the tap chunks, the stem's K3 on the CUDA-core body; f32 kernel
-   against plain on one sample at 128^3, the
+   the 4 head calls on the tap chunks, the 4 stem calls' K1 and K3 on route
+   3 and the 4 head calls' K2 on route 3, ``RESNET_TAP_CHUNKS``, and none
+   in phases 8 and 10; the plans of the 343-tap convs on the bodies that
+   count: the stem's K1 and K3 and the head's K2 on route 3, the head's K1
+   and K3 on the tap chunks; f32 kernel against plain on one sample at
+   128^3, the
    bf16 rules on one sample and on the batch; ms a step of both paths in
    turns, peak memory), and where the time of its 343-tap convs goes: each
    kernel's launches in the step times its ms at phase 11's shape, beside
@@ -268,7 +268,7 @@ of phase 8, the path that runs them all, and of phase 10 as
 2-D train step as ``twod_launches``; phase 15's per rank as
 ``dp_launches``; phase 16's step of 3 slices as ``micro_launches``; phase 17's
 as ``resnet_launches``, with the head's K1 and K3 on the tap chunks beside the
-conv kernels (``resnet_tap_chunk_launches``), the stem's K1 on route 3
+conv kernels (``resnet_tap_chunk_launches``), the stem's K1 and K3 on route 3
 (``resnet_pair_launches``) and the head's K2 on route 3
 (``resnet_tap_launches``: K2 on either forward body), and each conv kernel's
 ``taps_343``: at the stem's and the head's shapes (phase 11, batch 3) its
@@ -408,13 +408,13 @@ RESNET_TRAIN_LAUNCHES = {
 RESNET_TRAIN_KERNEL_LAUNCHES = {"instnorm_fwd": RESNET_TRAIN_LAUNCHES["instnorm_fwd"],
                                 "soft_skel_bwd": RESNET_TRAIN_LAUNCHES["soft_skel_bwd"]}
 # of K1, K2 and K3, the launches on the bodies above 64 taps: K1 and K3 on
-# the tap chunks (the head's), K1 on route 3 (the stem's), K2 on route 2 or
-# 3 (the head's, route 3; the stem's K2 never runs)
+# the tap chunks (the head's), K1 and K3 on route 3 (the stem's), K2 on
+# route 2 or 3 (the head's, route 3; the stem's K2 never runs)
 RESNET_TAP_CHUNKS = {"conv3d_fwd": 4, "conv3d_wgrad": 4, "conv3d_fwd_pairs": 4,
-                     "conv3d_dgrad_taps": 4}
+                     "conv3d_wgrad_pairs": 4, "conv3d_dgrad_taps": 4}
 NO_TAP_CHUNKS = dict.fromkeys(RESNET_TAP_CHUNKS, 0)
 # the C entry's route (ConvPlan.body) of each 343-tap conv's (K1, K2, K3)
-RESNET_343_BODIES = {"stem_conv": (3, 2, 0), "head": (2, 3, 2)}
+RESNET_343_BODIES = {"stem_conv": (3, 2, 3), "head": (2, 3, 2)}
 # each 343-tap conv's launches in one step: (K1, K2, K3)
 RESNET_343_LAUNCHES = {"stem_conv": (4, 0, 4), "head": (4, 4, 4)}
 # phase 12: data in, evaluation out
@@ -1180,10 +1180,12 @@ def kernel_counters(ops):
 
 def tap_chunk_counters(ops):
     """The conv kernels' launches on the bodies above 64 taps: K1's and K3's
-    on the tap chunks (route 2), K1's on route 3, K2's on routes 2 and 3."""
+    on the tap chunks (route 2), K1's and K3's on route 3, K2's on routes 2
+    and 3."""
     return {"conv3d_fwd": ops[0].tap_chunk_launches,
             "conv3d_wgrad": ops[0].wgrad_tap_chunk_launches,
             "conv3d_fwd_pairs": ops[0].pair_launches,
+            "conv3d_wgrad_pairs": ops[0].wgrad_pair_launches,
             "conv3d_dgrad_taps": ops[0].dgrad_tap_launches}
 
 
@@ -1192,7 +1194,7 @@ def reset_counters(ops):
     conv_ops.launches = conv_ops.dgrad_launches = conv_ops.dgrad_fold_launches = 0
     conv_ops.wgrad_launches = conv_ops.tap_chunk_launches = 0
     conv_ops.wgrad_tap_chunk_launches = conv_ops.pair_launches = 0
-    conv_ops.dgrad_tap_launches = 0
+    conv_ops.wgrad_pair_launches = conv_ops.dgrad_tap_launches = 0
     in_ops.launches = in_ops.bwd_launches = in_ops.fwd_kernel_launches = 0
     skel_ops.launches = skel_ops.bwd_launches = skel_ops.bwd_kernel_launches = 0
 
@@ -1949,9 +1951,9 @@ def check_other_generators(ops, tol):
     """Phase 11: the ResU-Net with deconv and with the attention gate, and
     the ResNet generator, each alone at full width; and K1-K3
     at the ResNet's kernel conv shapes (343 taps: its 7^3 head takes K1 and
-    K3 on the tap chunks and K2 on route 3, its stem K1 on route 3, K2 on
-    the tap chunks and K3 on the CUDA-core body), timed against their plain
-    versions and cuDNN as in phase 2."""
+    K3 on the tap chunks and K2 on route 3, its stem K1 and K3 on route 3
+    and K2 on the tap chunks), timed against their plain versions and cuDNN
+    as in phase 2."""
     from vangan_torch.config import VanGanConfig
     from vangan_torch.models.factory import build_generator
     from vangan_torch.models.resunet import ResUNet3D
@@ -3463,7 +3465,8 @@ def main() -> int:
              resnet_tap_launches=resnet["tap_chunk_launches"]["conv3d_dgrad_taps"]),
         dict(conv_entry("conv3d_wgrad", "wgrad", "vangan_torch/ops/csrc/conv3d_wgrad.cu",
                         "vangan_tpu/ops/pallas/conv3d.py:817"),
-             resnet_tap_chunk_launches=resnet["tap_chunk_launches"]["conv3d_wgrad"]),
+             resnet_tap_chunk_launches=resnet["tap_chunk_launches"]["conv3d_wgrad"],
+             resnet_pair_launches=resnet["tap_chunk_launches"]["conv3d_wgrad_pairs"]),
         dict(in_entry("instnorm_fwd", "fwd", "vangan_tpu/ops/pallas/instnorm.py:309"),
              raw_predict_launches=raw_predict["instnorm_fwd"],
              kernel_launches=train["kernel_launches"]["instnorm_fwd"],

@@ -1,8 +1,8 @@
 """The algebra of the conv kernels' route for one input channel (K1's route
-3, ``csrc/conv3d_taps.cuh::pair_body``) and of the input gradient above 64
-taps on K1's bodies (K2's routes 2 and 3, ``csrc/conv3d_dgrad.cu``),
-emulated in torch on the CPU, against the plain versions and JAX's XLA
-reference and its VJP.
+3, ``csrc/conv3d_taps.cuh::pair_body``, and K3's, ``csrc/conv3d_wgrad.cu``)
+and of the input gradient above 64 taps on K1's bodies (K2's routes 2 and
+3, ``csrc/conv3d_dgrad.cu``), emulated in torch on the CPU, against the
+plain versions and JAX's XLA reference and its VJP.
 
 Route 3 is emulated brick by brick as the kernel indexes it: columns of
 ``FOLD_ROWS`` z outputs, ``FOLD_COLUMNS`` of them a block (route 2's); the halo read
@@ -11,6 +11,15 @@ along z; for each dz the GEMM with K = the (dx, dy) pairs, padded to
 ``k_pairs`` with zero weights (whose A rows read pair 0's), N = a Co tile
 of the package's weight layout (``conv3d.pair_weights``), M = the 16 z
 rows of a column; the Co tiles' padding channels dropped in the epilogue.
+
+K3's route 3 is that GEMM transposed, emulated as the kernel indexes it:
+for each Co tile, block s walks the (sample, brick) pairs s, s + split, ...
+on the same bricks and halo copies; g staged as [column][co][16 z], zero
+outside the output; warp dz's GEMM with M = the ``k_pairs`` pairs (the
+padding pairs read pair 0's halo rows and are dropped), N = the Co tile and
+K = a column's 16 z positions; each block's partial tile written to its
+workspace slice (every element of its Co tile), the slices summed in slice
+order.
 
 K2 is emulated as its launch runs it at unit stride: the forward of g,
 zero-padded by k - 1, with ``conv3d.dgrad_forward_weights`` (the flipped
@@ -21,9 +30,10 @@ f32 buffer in ``pad3d_grad``'s order, from the plan's own tables
 (``test_torch_dgrad_plan.store_and_fold``).
 
 Inputs are seeded numpy, float32, scaled so that outputs and input
-gradients have standard deviation 0.5; tolerance atol 1e-5 (float32 sums of
-up to 343 x 32 products in another order; a wrong index or layout moves the
-values by their own order).
+gradients have standard deviation 0.5, and weight gradients are of order 1
+(``test_torch_conv3d_fold``'s inputs); tolerance atol 1e-5 (float32 sums of
+up to 343 x 32 products, or of the voxels, in another order; a wrong index
+or layout moves the values by their own order).
 """
 
 import jax
@@ -32,6 +42,7 @@ import numpy as np
 import pytest
 import torch
 from test_torch_conv3d_fold import _halo, _jax_conv, fold_forward
+from test_torch_conv3d_fold import _inputs as _wgrad_inputs
 from test_torch_dgrad_plan import store_and_fold
 
 from vangan_torch.ops import conv3d as C
@@ -85,6 +96,52 @@ def pair_forward(x, w, bias, pads, pad_mode):
     return y
 
 
+def pair_wgrad(x, g, w_shape, pads, pad_mode, split=None):
+    """K3's route 3 in torch: dW (Co, 1, kx, ky, kz) for x (B, 1, X, Y, Z)
+    and g (B, Co, *out), unit stride, on the plan's brick, Co tiles,
+    k_pairs and ``split`` (default: the plan's)."""
+    co, ci, kx, ky, kz = w_shape
+    b = x.shape[0]
+    out_dims = tuple(g.shape[2:])
+    plan = C.conv_plan("wgrad", ci, co, (kx, ky, kz), (1, 1, 1), out_dims, BF16, b)
+    assert plan.body == 3 and plan.brick == (*C.FOLD_COLUMNS, C.FOLD_ROWS), plan
+    assert plan.workspace_slices == plan.split
+    split = plan.split if split is None else split
+    bx, by = C.FOLD_COLUMNS
+    rows, tile, taps = C.FOLD_ROWS, plan.co_tile, kx * ky * kz
+    # the pair of each of M's rows; a padding pair reads pair 0's halo rows
+    pair = [divmod(k, ky) if k < kx * ky else (0, 0) for k in range(plan.k_pairs)]
+    work = [(s, o) for s in range(b) for o in _bricks(out_dims, plan.brick)]
+    ws = torch.full((split, co, taps), float("nan"))
+    for blk in range(split):
+        for t in range(plan.co_tiles):
+            cn = min(tile, co - t * tile)
+            acc = torch.zeros(kz, plan.k_pairs, tile)  # warp dz's M x N accumulator
+            for s, (ox0, oy0, oz0) in work[blk::split]:
+                origin = (ox0 - pads[0][0], oy0 - pads[1][0], oz0 - pads[2][0])
+                h = _halo(x[s], 1, origin, (bx + kx - 1, by + ky - 1, rows + kz - 1),
+                          pad_mode == "reflect")[0]
+                # g_s[column x, column y, co, z]: the Co tile's g, 0 outside the output
+                gs = torch.zeros(bx, by, tile, rows)
+                ex, ey, ez = (min(bb, n - o) for bb, n, o in zip(plan.brick, out_dims,
+                                                                  (ox0, oy0, oz0)))
+                gs[:ex, :ey, :cn, :ez] = g[s, t * tile:t * tile + cn, ox0:ox0 + ex,
+                                           oy0:oy0 + ey, oz0:oz0 + ez].permute(1, 2, 0, 3)
+                for dz in range(kz):
+                    copy = h[:, :, dz:dz + rows]  # copy dz: z + dz
+                    # A[k, column x, column y, z] of this dz, B[column, z, n]
+                    a = torch.stack([copy[dx:dx + bx, dy:dy + by] for dx, dy in pair])
+                    acc[dz] += torch.einsum("kxyz,xynz->kn", a, gs)
+            # epilogue: every (co, pair, dz) of the tile, padding pairs and channels dropped
+            ws[blk, t * tile:t * tile + cn] = \
+                acc[:, :kx * ky, :cn].permute(2, 1, 0).reshape(cn, taps)
+    assert not torch.isnan(ws).any()  # every element of every slice is written
+    dw = ws[0].clone()
+    for blk in range(1, split):
+        dw += ws[blk]
+    return dw.reshape(w_shape)
+
+
 def dgrad_on_forward_bodies(g, w, x_shape, pads, pad_mode):
     """K2's routes 2 and 3 in torch: dx (x_shape) from g at unit stride, on
     the body the bf16 plan names, through the epilogue and fold contract."""
@@ -136,6 +193,30 @@ def test_pair_forward_matches_plain_and_jax(co, k, dims, batch, pad_mode):
                            (1, 1, 1), pads, pad_mode)
     run, _, _ = _jax_conv(x, w, bias, pads, pad_mode)
     want = np.asarray(run()).transpose(0, 2, 1, 3, 4)
+    np.testing.assert_allclose(got.numpy(), plain.numpy(), atol=ATOL, rtol=0)
+    np.testing.assert_allclose(got.numpy(), want, atol=ATOL, rtol=0)
+
+
+WGRAD_CASES = [
+    # (co, k, dims, batch, pad_mode, split): FWD_CASES, each block one brick
+    # (the plan's split at these sizes) or several (split 3 or 2)
+    (32, (7, 7, 7), (9, 10, 21), 2, "reflect", None),
+    (32, (7, 7, 7), (6, 9, 17), 1, "zeros", 3),
+    (8, (5, 5, 5), (9, 10, 11), 2, "zeros", None),
+    (40, (5, 5, 5), (7, 9, 18), 1, "reflect", 2),
+    (20, (6, 6, 6), (8, 9, 13), 1, "reflect", 3),
+]
+
+
+@pytest.mark.parametrize("co,k,dims,batch,pad_mode,split", WGRAD_CASES)
+def test_pair_wgrad_matches_plain_and_jax(co, k, dims, batch, pad_mode, split):
+    x, w, _, g, pads = _wgrad_inputs(4, batch, 1, co, k, dims, pad_mode)
+    got = pair_wgrad(torch.from_numpy(x), torch.from_numpy(g), w.shape, pads, pad_mode, split)
+    plain = C.conv3d_wgrad_plain(torch.from_numpy(x), torch.from_numpy(g), w.shape, (1, 1, 1),
+                                 pads, pad_mode)
+    run, jx, jw = _jax_conv(x, w, None, pads, pad_mode)
+    _, vjp = jax.vjp(lambda ww: run(jx, ww), jw)
+    want = np.asarray(vjp(jnp.asarray(g.transpose(0, 2, 1, 3, 4)))[0]).transpose(4, 3, 0, 1, 2)
     np.testing.assert_allclose(got.numpy(), plain.numpy(), atol=ATOL, rtol=0)
     np.testing.assert_allclose(got.numpy(), want, atol=ATOL, rtol=0)
 

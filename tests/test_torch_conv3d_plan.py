@@ -95,9 +95,10 @@ def _kernel_takes(plan):
     if plan.tap_chunks:  # route 2: one n tile of FOLD_N columns
         ok = plan.co_tile == C.FOLD_N and 0 < plan.smem_bytes <= C.MAX_SMEM
         return ok and (plan.op != "wgrad" or 1 <= plan.split <= 65535)
-    if plan.k_pairs:  # route 3: a forward (or K2's forward of g) of one input channel
-        return (plan.op != "wgrad" and plan.co_tile % 8 == 0
-                and 8 <= plan.co_tile <= C.PAIR_MAX_CO_TILE and 0 < plan.smem_bytes <= C.MAX_SMEM)
+    if plan.k_pairs:  # route 3: one input channel (K2: the forward of g of one channel)
+        ok = (plan.co_tile % 8 == 0 and 8 <= plan.co_tile <= C.PAIR_MAX_CO_TILE
+              and 0 < plan.smem_bytes <= C.MAX_SMEM)
+        return ok and (plan.op != "wgrad" or 1 <= plan.split <= 65535)
     limit = {"fwd": C.FWD_MAX_CO_TILE, "dgrad": C.DGRAD_MAX_CI_TILE,
              "wgrad": C.WGRAD_MAX_CO_TILE}[plan.op]
     static = C.DGRAD_STATIC_SMEM if plan.op == "dgrad" else 0
@@ -212,11 +213,12 @@ def test_wrapper_workspace_shape_matches_plan(dtype):
                                                 (64, 32, 4, 64, 3), (3, 5, 2, 3, 1)])
 def test_cuda_core_wgrad_split(dtype, ci, co, k, dims, batch):
     """The CUDA-core weight gradient (float32; bfloat16 above 64 taps where
-    the tap chunks do not take the shape) fills the card with blocks along
-    the voxels, no more blocks than voxel chunks, each with a slice of the
-    workspace: the ResNet generator's 343-tap convs, a 64-tap one in f32 and
-    a tiny one. In bfloat16 the ResNet's head (32 -> 1) takes the tap chunks,
-    whose blocks split the bricks the same way, one slice each."""
+    neither tensor-core body above 64 taps takes the shape) fills the card
+    with blocks along the voxels, no more blocks than voxel chunks, each with
+    a slice of the workspace: the ResNet generator's 343-tap convs, a 64-tap
+    one in f32 and a tiny one. In bfloat16 the ResNet's head (32 -> 1) takes
+    the tap chunks and its stem (1 -> 32) route 3, whose blocks split the
+    bricks the same way (route 3's for each Co tile), one slice each."""
     plan = C.conv_plan("wgrad", ci, co, (k,) * 3, (1, 1, 1), (dims,) * 3, dtype, batch)
     if dtype == BF16 and k ** 3 <= C.MMA_MAX_TAPS:
         assert plan.route == "mma"
@@ -228,6 +230,14 @@ def test_cuda_core_wgrad_split(dtype, ci, co, k, dims, batch):
         bricks = batch * math.prod(-(-dims // b) for b in plan.brick)
         assert plan.split <= bricks
         assert plan.split * chunks >= min(C.WGRAD_TARGET_BLOCKS, bricks * chunks)
+        assert plan.workspace_slices == plan.split
+        assert plan.workspace_bytes == plan.split * co * ncols * 4 <= C.WORKSPACE_CAP
+        return
+    if dtype == BF16 and ci == 1:
+        assert plan.route == "mma" and plan.body == 3 and _kernel_takes(plan)
+        bricks = batch * math.prod(-(-dims // b) for b in plan.brick)
+        assert plan.split <= bricks
+        assert plan.split * plan.co_tiles >= min(C.WGRAD_TARGET_BLOCKS, bricks * plan.co_tiles)
         assert plan.workspace_slices == plan.split
         assert plan.workspace_bytes == plan.split * co * ncols * 4 <= C.WORKSPACE_CAP
         return
@@ -338,12 +348,48 @@ def test_resnet_input_gradients_take_the_forward_bodies():
         assert 0 < p.pad_share < 0.5 and 2 * p.smem_bytes <= C.MAX_SMEM and _kernel_takes(p)
 
 
-def test_resnet_stem_wgrad_keeps_the_cuda_core_body():
-    """The stem's K3 (Ci = 1 < 16, Co * kz = 224 > 8): neither tap-chunk
-    body takes it, so it stays on the CUDA-core body, split over the voxels."""
+def test_resnet_stem_wgrad_takes_route_3():
+    """The stem's K3 (1 -> 32): route 3's GEMM transposed, the (dx, dy)
+    pairs on M (49 padded to 64: four m tiles), Co = 32 on N in one tile,
+    a column's 16 z positions on K, on the forward's bricks (4 x 8 columns
+    of 16 z outputs, 128 = 8 of them); the same issued work, pad share
+    0.234; shared memory the 7 halo copies and g's 32 columns of the Co
+    tile, for two blocks an SM; the (sample, brick) pairs split over
+    WGRAD_TARGET_BLOCKS blocks, one workspace slice each. float32 keeps the
+    CUDA-core route."""
     p = _resnet_plans("stem_conv", BF16)["wgrad"]
-    assert (p.route, p.body, p.tap_chunks, p.k_pairs) == ("thin", 0, 0, 0), p
-    assert p.split > 1 and _kernel_takes(p)
+    assert p == C.conv_plan("wgrad", 1, 32, (7, 7, 7), (1, 1, 1), (128, 128, 128), BF16, 3)
+    assert (p.route, p.body, p.k_pairs, p.tap_chunks) == ("mma", 3, 64, 0), p
+    assert p.brick == (4, 8, 16) and (p.co_tile, p.co_tiles) == (32, 1)
+    assert p.pad_share == pytest.approx(1 - 49 / 64)
+    assert p.smem_bytes == 7 * 10 * 14 * 32 + 32 * 32 * 32
+    bricks = BATCH * 32 * 16 * 8
+    assert p.split == min(C.WGRAD_TARGET_BLOCKS, bricks) and p.workspace_slices == p.split
+    assert p.workspace_bytes == p.split * 32 * 343 * 4 <= C.WORKSPACE_CAP
+    assert 2 * p.smem_bytes <= C.MAX_SMEM and _kernel_takes(p)
+    f32 = _resnet_plans("stem_conv", torch.float32)["wgrad"]
+    assert (f32.route, f32.body, f32.k_pairs) == ("f32", 0, 0), f32
+
+
+@pytest.mark.parametrize("co,k,dims,batch", [
+    (32, (7, 7, 7), (20, 18, 22), 2),   # the stem at a ragged size: few bricks
+    (40, (5, 5, 5), (9, 10, 11), 1),    # two Co tiles of 24
+    (8, (8, 8, 8), (128, 128, 128), 3),  # one n tile, 64 pairs
+    (20, (6, 5, 4), (33, 17, 40), 1),   # 30 pairs: two m tiles
+])
+def test_pair_wgrad_plan_workspace(co, k, dims, batch):
+    """Route 3's K3: one workspace slice per block along the voxels, the
+    wrapper's workspace (split, Co, taps), its bytes, and the split capped
+    by the bricks and the card's target (over the Co tiles)."""
+    p = C.conv_plan("wgrad", 1, co, k, (1, 1, 1), dims, BF16, batch)
+    assert p.body == 3 and _kernel_takes(p), p
+    taps = math.prod(k)
+    assert p.workspace_slices == p.split
+    assert C.wgrad_workspace_shape(p, (co, 1, *k)) == (p.split, co, taps)
+    assert p.workspace_bytes == p.split * co * taps * 4
+    bricks = batch * math.prod(-(-n // b) for n, b in zip(dims, p.brick))
+    assert p.split == min(-(-C.WGRAD_TARGET_BLOCKS // p.co_tiles), bricks)
+    assert p.k_pairs == -(-k[0] * k[1] // 16) * 16
 
 
 @pytest.mark.parametrize("op,ci,co,k,stride", [
@@ -354,11 +400,14 @@ def test_resnet_stem_wgrad_keeps_the_cuda_core_body():
     ("dgrad", 2, 2, (7, 7, 7), (1, 1, 1)),   # g of two channels, dx Ci * kz = 14
     ("dgrad", 32, 1, (7, 7, 7), (1, 1, 2)),  # strided: a parity of 7 x 7 x 4 taps
     ("dgrad", 1, 32, (7, 7, 7), (2, 1, 1)),  # strided: a parity of 4 x 7 x 7 taps
+    ("wgrad", 1, 32, (7, 7, 7), (2, 2, 2)),  # route 3's K3: strided
+    ("wgrad", 1, 32, (7, 7, 7), (1, 1, 2)),  # strided on one axis
+    ("wgrad", 2, 32, (7, 7, 7), (1, 1, 1)),  # two input channels, Co * kz = 224
 ])
 def test_pair_routes_refuse_what_they_do_not_take(op, ci, co, k, stride):
-    """Above 64 taps route 3 takes a unit-stride forward of one input
-    channel, and K2 the forward bodies at unit stride only: the rest keeps
-    the CUDA-core body."""
+    """Above 64 taps route 3 takes a unit-stride forward or weight gradient
+    of one input channel, and K2 the forward bodies at unit stride only: the
+    rest keeps the CUDA-core body."""
     dims = (20, 18, 22)
     pads = tuple((kk // 2, kk // 2) for kk in k)
     out = tuple((n + 2 * (kk // 2) - kk) // s + 1 for n, kk, s in zip(dims, k, stride))
@@ -370,14 +419,19 @@ def test_pair_routes_refuse_what_they_do_not_take(op, ci, co, k, stride):
 
 def test_pair_route_takes_other_shapes_above_64_taps():
     """Route 3 at 5^3 (25 pairs: two k-steps), 6 x 5 x 4 (30 pairs) and 8^3
-    (64 pairs, four k-steps), Co of 8 to 40 (tiles of up to 32), and K2 of g
-    with one channel at the same kernels."""
+    (64 pairs, four k-steps), Co of 8 to 40 (tiles of up to 32), K3 on the
+    same tiles, bricks and issued work as K1, and K2 of g with one channel at
+    the same kernels."""
     for co, k, tile, tiles in ((8, (5, 5, 5), 8, 1), (20, (6, 5, 4), 24, 1),
                                (40, (8, 8, 8), 24, 2), (64, (7, 7, 7), 32, 2)):
         dims = (20, 18, 22)
         p = C.conv_plan("fwd", 1, co, k, (1, 1, 1), dims, BF16, 2)
         assert (p.body, p.co_tile, p.co_tiles) == (3, tile, tiles), p
         assert p.k_pairs == -(-k[0] * k[1] // 16) * 16 and _kernel_takes(p)
+        wg = C.conv_plan("wgrad", 1, co, k, (1, 1, 1), dims, BF16, 2)
+        assert (wg.body, wg.co_tile, wg.co_tiles, wg.k_pairs, wg.brick, wg.pad_share) == \
+            (3, tile, tiles, p.k_pairs, p.brick, p.pad_share), wg
+        assert _kernel_takes(wg)
         pads = tuple((kk // 2, kk - 1 - kk // 2) for kk in k)
         d = C.conv_plan("dgrad", co, 1, k, (1, 1, 1), dims, BF16, 2, in_dims=dims, pads=pads,
                         pad_mode="zeros")

@@ -332,9 +332,9 @@ def test_conv3d_bf16_routes_match_plain(cuda, k, stride, padding, pad_mode, batc
 @pytest.mark.parametrize("dtype,k,ci,co,dims,batch", [
     (torch.float32, (3, 3, 3), 16, 24, (13, 7, 9), 2),
     (torch.float32, (4, 4, 4), 32, 64, (17, 16, 18), 3),
-    # 343-tap convs that the tap chunks do not take (Ci < 16): the
-    # CUDA-core body in bf16
-    (torch.bfloat16, (7, 7, 7), 1, 8, (20, 18, 22), 2),
+    # 343-tap convs that neither the tap chunks (Ci < 16) nor route 3 (Ci >
+    # 1) take: the CUDA-core body in bf16
+    (torch.bfloat16, (7, 7, 7), 2, 8, (20, 18, 22), 2),
     (torch.bfloat16, (7, 7, 7), 8, 1, (20, 18, 22), 2)])
 def test_conv3d_wgrad_cuda_core_is_bit_identical(cuda, dtype, k, ci, co, dims, batch):
     """K3's CUDA-core body writes its split-K partial tiles to a workspace
@@ -562,7 +562,7 @@ def test_instnorm_backward_at_deep_planes(cuda, dtype, act, shape):
 # the kernel convs that the other generators add to the path, at their full
 # size, batch 1: (ci, co, k, stride, padding, pad_mode, n); in bfloat16 the
 # ResNet's 7^3 head takes the tap chunks (K1, K3) and route 3 (K2), its stem
-# route 3 (K1), the tap chunks (K2) and the CUDA-core body (K3)
+# route 3 (K1, K3) and the tap chunks (K2)
 OTHER_PATH_CONVS = {
     "vnet_i2s.down0.conv1": (32, 32, 3, 1, ((1, 1),) * 3, "reflect", 128),
     "vnet_i2s.upconv3": (64, 32, 3, 1, "same", "zeros", 128),
@@ -1088,8 +1088,8 @@ def test_2d_generator_and_cldice_on_the_card(cuda):
 # K1 and K3 above 64 taps: (ci, co, k, pad_mode, dims, batch). In bfloat16
 # the convs to one channel take the tensor cores in tap chunks (route 2:
 # the ResNet's head, 32 -> 1, and 16 and 48 channels, one chunk and a
-# padded third), the 1 -> 32 stem's K1 route 3 and its K3 the CUDA-core
-# body; float32 always the f32 route. Ragged bricks on every axis (20, 18, 22 and 9, 10, 11 against
+# padded third), the 1 -> 32 stem's K1 and K3 route 3; float32 always the
+# f32 route. Ragged bricks on every axis (20, 18, 22 and 9, 10, 11 against
 # columns of 4 x 8 and 10 or 12 z outputs).
 TAP_CHUNK_CASES = [
     (32, 1, 7, "reflect", (20, 18, 22), 2),
@@ -1286,5 +1286,75 @@ def test_pair_routes_refuse_what_they_do_not_take(cuda):
         with pytest.raises(ValueError):  # route 2 on a dx of two channels: Ci * kz = 14
             conv_ops._conv3d_dgrad_cuda(g32, w.repeat(1, 2, 1, 1, 1), (1, 2, 9, 10, 11), s, pads,
                                         "reflect", plan=stem)
+    torch.cuda.synchronize()
+    assert [getattr(conv_ops, n) for n in names] == before
+
+
+# K3's route 3 (one input channel, the (dx, dy) pairs on M): (co, k,
+# pad_mode, dims, batch). The ResNet's stem at batch 3 and 128^3 (batch 1
+# is OTHER_PATH_CONVS), ragged bricks on every axis (X, Y against columns
+# of 4 x 8, Z = 130 and 21 against 16; Z = 21 and 11 not a multiple of 8:
+# g's 16-byte loads off), Co of 40 (two tiles of 24), 20 (one of 24), 8 (one
+# n tile), and 5^3, 6^3 (asymmetric 'same' pads, 36 pairs: three m tiles)
+# and 8^3 kernels.
+PAIR_WGRAD_CASES = [
+    (32, 7, "reflect", (128, 128, 128), 3),
+    (32, 7, "zeros", (20, 18, 130), 1),
+    (32, 7, "reflect", (9, 10, 21), 2),
+    (40, 7, "zeros", (9, 10, 11), 2),
+    (8, 5, "reflect", (11, 9, 16), 1),
+    (20, 6, "reflect", (13, 7, 17), 2),
+    (24, 8, "zeros", (9, 10, 16), 1),
+]
+
+
+@pytest.mark.parametrize("co,k,pad_mode,dims,batch", PAIR_WGRAD_CASES)
+def test_conv3d_wgrad_route_3_matches_plain(cuda, co, k, pad_mode, dims, batch):
+    """K3 in bfloat16 on route 3, counted once a call, against the plain
+    version in float32 on the same bf16-rounded inputs within 1e-3 of max
+    |dW| (the products are exact in f32 on both sides; only the order of
+    the f32 sums differs); dW bit-identical in two runs (the split-K slices
+    summed in slice order, no atomics)."""
+    x, w, _, gy, pads = _pair_inputs(cuda, 1, co, k, dims, batch)
+    s, ks = (1, 1, 1), (k,) * 3
+    plan = conv_ops.conv_plan("wgrad", 1, co, ks, s, dims, torch.bfloat16, batch)
+    assert plan.body == 3 and plan.workspace_slices == plan.split, plan
+    names = ("wgrad_launches", "wgrad_pair_launches", "wgrad_tap_chunk_launches")
+    before = [getattr(conv_ops, n) for n in names]
+    with torch.inference_mode():
+        dw = conv_ops.conv3d_wgrad(x, gy, w.shape, s, pads, pad_mode)
+        again = conv_ops.conv3d_wgrad(x, gy, w.shape, s, pads, pad_mode)
+        want = conv_ops.conv3d_wgrad_plain(x.float(), gy.float(), w.shape, s, pads, pad_mode)
+    torch.cuda.synchronize()
+    assert [getattr(conv_ops, n) - v for n, v in zip(names, before)] == [2, 2, 0]
+    assert dw.dtype == torch.float32 and dw.shape == w.shape
+    assert _rel_err(dw, want) <= 1e-3
+    assert torch.equal(dw, again)
+
+
+def test_wgrad_route_3_refuses_what_it_does_not_take(cuda):
+    """Route 3's K3 plan forced on shapes it does not take (two input
+    channels, a stride other than 1, float32, a Co tile of 40) raises and
+    launches nothing: no fallback to another body."""
+    bf16, s = torch.bfloat16, (1, 1, 1)
+    x, w, _, gy, pads = _pair_inputs(cuda, 1, 32, 7, (9, 10, 11), 1)
+    plan = conv_ops.conv_plan("wgrad", 1, 32, (7, 7, 7), s, (9, 10, 11), bf16, 1)
+    assert plan.body == 3 and plan.co_tile == 32
+    names = ("wgrad_launches", "wgrad_pair_launches")
+    before = [getattr(conv_ops, n) for n in names]
+    with torch.inference_mode():
+        with pytest.raises(ValueError):  # Ci = 2
+            conv_ops._conv3d_wgrad_cuda(x.repeat(1, 2, 1, 1, 1), gy, (32, 2, 7, 7, 7), s, pads,
+                                        "reflect", plan=plan)
+        with pytest.raises(ValueError):  # stride 2
+            conv_ops._conv3d_wgrad_cuda(x, gy[:, :, :5, :5, :6].contiguous(), w.shape,
+                                        (2, 2, 2), pads, "reflect", plan=plan)
+        with pytest.raises(ValueError):  # float32
+            conv_ops._conv3d_wgrad_cuda(x.float(), gy.float(), w.shape, s, pads, "reflect",
+                                        plan=plan)
+        g40 = torch.randn(1, 40, 9, 10, 11, device=cuda).to(bf16)
+        with pytest.raises(ValueError):  # a Co tile of 40
+            conv_ops._conv3d_wgrad_cuda(x, g40, (40, 1, 7, 7, 7), s, pads, "reflect",
+                                        plan=dataclasses.replace(plan, co_tile=40))
     torch.cuda.synchronize()
     assert [getattr(conv_ops, n) for n in names] == before

@@ -20,7 +20,8 @@ what it cannot do: a route never falls back.
 
 A kernel with more than ``MMA_MAX_TAPS`` (64) taps, the ResNet generator's
 7^3 stem and head, runs on the tensor cores at unit stride on one of two
-bodies (``csrc/conv3d_taps.cuh``), which K1 and K2 share:
+bodies (``csrc/conv3d_taps.cuh``), which K1 and K2 share, and K3 on the same
+two GEMMs:
 
 - route 2, tap chunks, where the fold takes it (Co * kz <= 8; for K3 also Ci
   >= 16): the kz taps go on the GEMM's N (column co * kz + dz), the block
@@ -29,17 +30,20 @@ bodies (``csrc/conv3d_taps.cuh``), which K1 and K2 share:
   ``tap_chunks``); the forward sums the shifted columns of its product in the
   epilogue, the weight gradient reads g shifted by dz (``csrc/conv3d_fwd.cu``,
   ``conv3d_wgrad.cu``). That is the head, 32 -> 1, in K1 and K3;
-- route 3, one input channel (a forward with Ci = 1): the (dx, dy) pairs go
+- route 3, one input channel (Ci = 1): the forward puts the (dx, dy) pairs
   on K (``ConvPlan.k_pairs``, 49 padded to 64 at 7^3), Co on N, a column of
   16 z outputs on M, the dz loop outside, over kz copies of the halo shifted
-  along z. That is the stem's K1, 1 -> 32.
+  along z; the weight gradient is that GEMM transposed, the pairs on M, Co
+  on N and a column's 16 z positions on K, one warp per dz, over the same
+  halo copies (``csrc/conv3d_wgrad.cu``). That is the stem, 1 -> 32, in K1
+  and K3.
 
 K2 above 64 taps at unit stride is the forward of g, zero-padded by k - 1,
 with the flipped kernel and Ci and Co swapped, as in the TPU kernel: route 3
 where g has one channel (the head, 32 <- 1), route 2 where dx has Ci * kz <=
 8 (the stem, 1 <- 32), both inside ``csrc/conv3d_dgrad.cu``'s one launch,
 whose epilogue writes dx and the reflect fold's buffer as its other routes
-do. The stem's K3 (Ci = 1 < 16, Co * kz = 224) keeps the CUDA-core body.
+do.
 
 Where a gradient is needed the op is a ``torch.autograd.Function`` whose
 backward computes only what ``ctx.needs_input_grad`` asks for (the
@@ -58,7 +62,7 @@ generators' stem convs read data or detached inputs and need no dx):
   every parity's weights in one gather;
 - dW, ``conv3d_wgrad`` (the TPU kernel ``_conv_wgrad``):
   ``csrc/conv3d_wgrad.cu``, accumulated and returned in f32; bit-identical
-  from run to run on both routes (split-K partial tiles summed in a fixed
+  from run to run on every route (split-K partial tiles summed in a fixed
   order, no atomics);
 - dbias: a plain f32 sum of the cotangent, as in JAX.
 
@@ -102,6 +106,7 @@ wgrad_launches = 0       # conv3d_wgrad
 tap_chunk_launches = 0        # of the forward's, those on the tap chunks (route 2)
 pair_launches = 0             # of the forward's, those on one input channel (route 3)
 wgrad_tap_chunk_launches = 0  # of the weight gradient's, those on the tap chunks
+wgrad_pair_launches = 0       # of the weight gradient's, those on one input channel (route 3)
 dgrad_tap_launches = 0        # of the input gradient's, those on routes 2 and 3
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -174,12 +179,14 @@ class ConvPlan:
     GEMM's N (``co_tile`` ``FOLD_N``); its ``brick`` is the outputs of
     ``FOLD_COLUMNS`` columns of ``FOLD_ROWS`` z positions, ``FOLD_ROWS - kz +
     1`` each. Its weight gradient writes one workspace slice per block along
-    the voxels (``split``), as the CUDA-core body. A forward with one input
-    channel and more than ``MMA_MAX_TAPS`` taps puts the (dx, dy) pairs on
-    K: ``k_pairs`` of them (kx * ky padded to a multiple of 16), a ``brick``
-    of ``FOLD_COLUMNS`` columns of ``FOLD_ROWS`` z outputs, Co tiles of at
-    most ``PAIR_MAX_CO_TILE``. The input gradient above 64 taps at unit
-    stride runs either forward body on g (``body`` 2 or 3).
+    the voxels (``split``), as the CUDA-core body. A forward or weight
+    gradient with one input channel and more than ``MMA_MAX_TAPS`` taps puts
+    the (dx, dy) pairs on the GEMM's K (forward) or M (weight gradient):
+    ``k_pairs`` of them (kx * ky padded to a multiple of 16), a ``brick`` of
+    ``FOLD_COLUMNS`` columns of ``FOLD_ROWS`` z outputs, Co tiles of at most
+    ``PAIR_MAX_CO_TILE``; its weight gradient writes one workspace slice per
+    block along the voxels (``split``). The input gradient above 64 taps at
+    unit stride runs either forward body on g (``body`` 2 or 3).
     """
     op: str
     route: str
@@ -206,7 +213,7 @@ class ConvPlan:
     def workspace_slices(self) -> int:
         if self.op != "wgrad":
             return 0
-        if self.route == "mma" and not self.tap_chunks:
+        if self.route == "mma" and not (self.tap_chunks or self.k_pairs):
             return self.split * (MMA_WARPS // self.tap_warps)
         return self.split
 
@@ -245,11 +252,11 @@ def conv_plan(op: str, ci: int, co: int, k: Sequence[int], stride: Sequence[int]
     float32 always takes the CUDA-core route. bfloat16 takes the tensor-core
     route unless the shape has more than 64 taps (for K2: a parity
     sub-kernel) outside the tap chunks (``_fold_plan``) and the one-channel
-    body (``_pair_plan``: a forward with Ci = 1, or K2 whose g has one
-    channel), its tiles do not fit in shared memory, or the GEMM's
-    16-channel k-step would be mostly padding (the forward's Ci, the input
-    gradient's Co <= ``thin_max_ci``, at 64 taps or fewer): those take the
-    CUDA-core body (``"thin"``). The N tile is at most 64 for the
+    body (``_pair_plan``: a forward or weight gradient with Ci = 1, or K2
+    whose g has one channel), its tiles do not fit in shared memory, or the
+    GEMM's 16-channel k-step would be mostly padding (the forward's Ci, the
+    input gradient's Co <= ``thin_max_ci``, at 64 taps or fewer): those take
+    the CUDA-core body (``"thin"``). The N tile is at most 64 for the
     forward and a unit-stride input gradient, 32 for a strided input
     gradient (its parity loop spills registers above it) and the weight
     gradient. What no body takes raises ValueError.
@@ -276,7 +283,7 @@ def _conv_plan(op, ci, co, k, stride, out_dims, dtype, batch, thin_max_ci, in_di
     if dtype == torch.float32:
         return _core_plan(op, "f32", ci, co, taps, out_dims, batch)
     thin = _core_plan(op, "thin", ci, co, taps, out_dims, batch)
-    if op == "fwd" and ci == 1 and taps > MMA_MAX_TAPS:
+    if ci == 1 and taps > MMA_MAX_TAPS:
         return _pair_plan(op, co, k, stride, out_dims, batch) or thin
     if op == "fwd" and ci <= thin_max_ci:
         return thin
@@ -345,10 +352,15 @@ def _fold_plan(op, ci, co, k, stride, out_dims, batch) -> Optional[ConvPlan]:
 
 def _pair_plan(op, co, k, stride, out_dims, batch) -> Optional[ConvPlan]:
     """The tensor-core body for one input channel (route 3) of a forward
-    (for ``op`` "dgrad": the forward of g that computes the input gradient),
-    or None where it does not take the shape (a stride other than 1). Its
-    issued work counts every column of ``FOLD_ROWS`` z outputs, the Co
-    tiles' padding and the ``k_pairs`` pairs of each of the kz taps."""
+    (for ``op`` "dgrad": the forward of g that computes the input gradient)
+    or of a weight gradient, or None where it does not take the shape (a
+    stride other than 1). Both count as issued work every column of
+    ``FOLD_ROWS`` z outputs, the Co tiles' padding and the ``k_pairs``
+    pairs of each of the kz taps: the forward's K is the weight gradient's
+    M. The weight gradient splits the (sample, brick) pairs over ``split``
+    blocks for each Co tile, each writing one slice of the workspace (as
+    route 2), and stages the kz halo copies beside the Co tile's g columns
+    (``FOLD_COLUMNS`` of ``FOLD_ROWS`` z each)."""
     kx, ky, kz = k
     if stride != (1, 1, 1):
         return None
@@ -357,15 +369,25 @@ def _pair_plan(op, co, k, stride, out_dims, batch) -> Optional[ConvPlan]:
     brick = (*FOLD_COLUMNS, FOLD_ROWS)
     bricks = batch * math.prod(-(-n // b) for n, b in zip(out_dims, brick))
     rows = (FOLD_COLUMNS[0] + kx - 1) * (FOLD_COLUMNS[1] + ky - 1)
+    useful = batch * math.prod(out_dims) * co * kx * ky * kz
+    issued = bricks * math.prod(brick) * co_tiles * co_tile * k_pairs * kz
+    common = dict(brick=brick, co_tile=co_tile, co_tiles=co_tiles, pad_share=1.0 - useful / issued,
+                  k_pairs=k_pairs)
+    if op == "wgrad":
+        smem = kz * rows * 32 + math.prod(FOLD_COLUMNS) * co_tile * 32  # the halo's copies, g
+        per_split = co * kx * ky * kz * 4
+        split = min(-(-WGRAD_TARGET_BLOCKS // co_tiles), bricks, 65535,
+                    WORKSPACE_CAP // per_split)
+        if split < 1 or smem > MAX_SMEM:
+            return None
+        return ConvPlan(op, "mma", split=split, workspace_bytes=split * per_split,
+                        smem_bytes=smem, **common)
     staged = kz * rows * 32 + kz * k_pairs * co_tile * 2  # the halo's copies, the weights
     out = co_tile * (math.prod(FOLD_COLUMNS) * FOLD_ROWS + PAIR_OUT_PAD) * 4
     smem = max(staged, out)
     if smem > MAX_SMEM:
         return None
-    useful = batch * math.prod(out_dims) * co * kx * ky * kz
-    issued = bricks * math.prod(brick) * co_tiles * co_tile * k_pairs * kz
-    return ConvPlan(op, "mma", brick=brick, co_tile=co_tile, co_tiles=co_tiles,
-                    smem_bytes=smem, pad_share=1.0 - useful / issued, k_pairs=k_pairs)
+    return ConvPlan(op, "mma", smem_bytes=smem, **common)
 
 
 def _core_plan(op, route, ci, co, taps, out_dims, batch) -> ConvPlan:
@@ -837,7 +859,7 @@ def _conv3d_dgrad_cuda(g, w, x_shape, stride, pads, pad_mode, plan=None):
 def _conv3d_wgrad_cuda(x, g, w_shape, stride, pads, pad_mode, plan=None):
     """One launch of K3 (and its sum launch); ``plan`` defaults to
     ``conv_plan``'s."""
-    global wgrad_launches, wgrad_tap_chunk_launches
+    global wgrad_launches, wgrad_tap_chunk_launches, wgrad_pair_launches
     _check_cuda(x, w_shape, "conv3d_wgrad")
     co, ci, kx, ky, kz = w_shape
     if ci != x.shape[1] or g.dim() != 5 or co != g.shape[1]:
@@ -861,4 +883,5 @@ def _conv3d_wgrad_cuda(x, g, w_shape, stride, pads, pad_mode, plan=None):
     build.check(status, "conv3d_wgrad")
     wgrad_launches += 1
     wgrad_tap_chunk_launches += bool(plan.tap_chunks)
+    wgrad_pair_launches += bool(plan.k_pairs)
     return dw

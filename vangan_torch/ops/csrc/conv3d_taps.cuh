@@ -11,7 +11,9 @@
 // that precedes the stores, then `epi.store(co, ox, oy, oz, v)` with absolute
 // output coordinates; `epi.init(co)` is the bias (0 for the input gradient).
 // The forward's epilogue writes y; the input gradient's writes dx, or the
-// reflect fold's f32 buffer, through its destination map.
+// reflect fold's f32 buffer, through its destination map. The weight
+// gradient's route 3 (conv3d_wgrad.cu) stages route 3's halo with
+// stage_pair_halo and reads it as A untransposed.
 #pragma once
 
 #include "conv3d_common.cuh"
@@ -185,30 +187,19 @@ __host__ __device__ inline size_t pair_smem(int kx, int ky, int kz, int co_tile)
   return main > out ? main : out;
 }
 
-// xb: the sample's one input channel (X, Y, Z); wt: this Co tile's weights
-// (pair_w_units 16-byte units); its channels co0 .. co0 + NT * 8 - 1 of Co.
-template <int NT, class Epi>
-__device__ __forceinline__ void pair_body(const __nv_bfloat16* __restrict__ xb,
-                                          const uint4* __restrict__ wt, int Co, int co0, int X,
-                                          int Y, int Z, int Xo, int Yo, int Zo, int kx, int ky,
-                                          int kz, int px, int py, int pz, int reflect, int ox0,
-                                          int oy0, int oz0, Epi& epi) {
-  constexpr int CO_TILE = NT * 8;
-  extern __shared__ uint4 smem[];
+// Stage route 3's halo for the brick at output (ox0, oy0, oz0): the
+// (FOLD_BX + kx - 1) x (FOLD_BY + ky - 1) (x, y) rows, kz times ([dz][row][2]
+// 16-byte units, swizzled), copy dz holding the row's FOLD_ROWS padded z
+// positions oz0 + dz .. oz0 + dz + FOLD_ROWS - 1, read through the index map
+// (zero outside a zero pad). Each row is read once from device memory into
+// registers and written kz times. xb: the sample's one channel (X, Y, Z).
+__device__ __forceinline__ void stage_pair_halo(uint4* halo, const __nv_bfloat16* __restrict__ xb,
+                                                int X, int Y, int Z, int kx, int ky, int kz,
+                                                int px, int py, int pz, int reflect, int ox0,
+                                                int oy0, int oz0) {
   const int hy = FOLD_BY + ky - 1, rows = (FOLD_BX + kx - 1) * hy;
-  const int pairs = kx * ky, steps = pair_steps(kx, ky);
-  const int w_units = pair_w_units(kx, ky, kz, CO_TILE);
-  uint4* halo = smem;                    // [dz][row][2]
-  uint4* w_s = smem + kz * rows * 2;     // [dz][step][co][2]
-  const uint32_t halo_u = smem_u32(halo), w_u = smem_u32(w_s);
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int mi = lane >> 3, r = lane & 7;
-
-  for (int u = tid; u < w_units; u += MMA_THREADS)
-    cp_async16(w_u + swz(u >> 1, u & 1) * 16, wt + u);
-  cp_async_commit();
   const unsigned short* xs = reinterpret_cast<const unsigned short*>(xb);
-  for (int row = tid; row < rows; row += MMA_THREADS) {
+  for (int row = threadIdx.x; row < rows; row += blockDim.x) {
     const int ix = map_index(ox0 - px + row / hy, X, reflect);
     const int iy = map_index(oy0 - py + row % hy, Y, reflect);
     const bool in = ix >= 0 && iy >= 0;
@@ -232,6 +223,31 @@ __device__ __forceinline__ void pair_body(const __nv_bfloat16* __restrict__ xb,
       }
     }
   }
+}
+
+// xb: the sample's one input channel (X, Y, Z); wt: this Co tile's weights
+// (pair_w_units 16-byte units); its channels co0 .. co0 + NT * 8 - 1 of Co.
+template <int NT, class Epi>
+__device__ __forceinline__ void pair_body(const __nv_bfloat16* __restrict__ xb,
+                                          const uint4* __restrict__ wt, int Co, int co0, int X,
+                                          int Y, int Z, int Xo, int Yo, int Zo, int kx, int ky,
+                                          int kz, int px, int py, int pz, int reflect, int ox0,
+                                          int oy0, int oz0, Epi& epi) {
+  constexpr int CO_TILE = NT * 8;
+  extern __shared__ uint4 smem[];
+  const int hy = FOLD_BY + ky - 1, rows = (FOLD_BX + kx - 1) * hy;
+  const int pairs = kx * ky, steps = pair_steps(kx, ky);
+  const int w_units = pair_w_units(kx, ky, kz, CO_TILE);
+  uint4* halo = smem;                    // [dz][row][2]
+  uint4* w_s = smem + kz * rows * 2;     // [dz][step][co][2]
+  const uint32_t halo_u = smem_u32(halo), w_u = smem_u32(w_s);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int mi = lane >> 3, r = lane & 7;
+
+  for (int u = tid; u < w_units; u += MMA_THREADS)
+    cp_async16(w_u + swz(u >> 1, u & 1) * 16, wt + u);
+  cp_async_commit();
+  stage_pair_halo(halo, xb, X, Y, Z, kx, ky, kz, px, py, pz, reflect, ox0, oy0, oz0);
   cp_async_wait_all();
   __syncthreads();
 

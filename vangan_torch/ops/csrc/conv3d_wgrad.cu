@@ -57,10 +57,35 @@
 // of its chunk, and the sum launch adds the slices in slice order, so dW is
 // bit-identical from run to run.
 //
+// route 3, tensor cores for one input channel (bfloat16, Ci = 1, more than
+// 64 taps at unit stride: the ResNet generator's 7^3 stem, 1 -> 32). With
+// Ci = 1 there is no 16-channel M, and the CUDA-core body issues 343 FMAs
+// per voxel and output channel (18.6 ms at 3 x 128^3 on an H100). It is
+// route 3's forward GEMM transposed: for each dz,
+//
+//   dW[co, 0, dx, dy, dz] = sum over v of x_pad[v + (dx, dy, dz)] * g[co, v]
+//
+// is an MMA with M = the (dx, dy) pairs (49 padded to 64 at 7^3: four m
+// tiles), N = a Co tile (four n tiles at Co = 32) and K = the 16 z positions
+// of a column. A block owns route 3's brick (4 x 8 columns of 16 output z)
+// and walks its share of the (sample, brick) pairs: per brick it stages the
+// x halo exactly as the forward does (conv3d_taps.cuh stage_pair_halo: kz
+// copies, copy dz shifted by dz along z), so that A's row for a pair, 16
+// consecutive z of copy dz at halo row (bx + dx, by + dy), is one aligned
+// ldmatrix row (the forward reads the same rows with ldmatrix.trans), and g
+// as [column][co][16 z] (zero outside the output; the co rows of a column
+// contiguous and swizzled, so the eight rows of an ldmatrix read fall in
+// eight bank groups). Warp w < kz owns the tap plane dz = w and keeps the
+// 64 x Co-tile f32 accumulator (64 registers a thread at Co = 32; all kz
+// planes in one warp would need 448); per column it loads the Co tile's B
+// fragments once and feeds each to its m tiles. The same split-K contract
+// as routes 0 and 2: block slice s of the workspace (split, Co, taps) gets
+// every element of the block's Co tile, and the sum launch adds the slices
+// in slice order, so dW is bit-identical from run to run.
+//
 // route 0, CUDA cores (float32, and bfloat16 shapes the tensor-core routes
-// do not take: more than 64 taps outside route 2, the ResNet's 7^3 stem with
-// Ci = 1 among them): a GEMM with M = Co, N = Ci * taps (the
-// "columns") and K = the voxels. A block owns an MT x NTILE tile of dW and
+// do not take: more than 64 taps outside routes 2 and 3, such as Ci = 2):
+// a GEMM with M = Co, N = Ci * taps (the "columns") and K = the voxels. A block owns an MT x NTILE tile of dW and
 // walks its share of the voxels in chunks of NT: per chunk it stages g
 // (MT x NT) and the gathered x columns (NT x NTILE) in shared memory, and
 // each thread accumulates a 4 x 4 register tile in f32 (no TF32). The voxel
@@ -71,7 +96,7 @@
 // run here too. Three tile shapes (16 x 256, 32 x 128, 64 x 64); the host
 // picks the one with least padding.
 
-#include "conv3d_common.cuh"
+#include "conv3d_taps.cuh"
 
 namespace {
 
@@ -525,6 +550,161 @@ cudaError_t launch_fold(const void* x, const void* g, float* dw, float* ws, int 
   return sum_slices(ws, dw, split, (long long)Co * Ci * kx * ky * kz, s);
 }
 
+// Route 3: bf16 GEMM for one input channel, the (dx, dy) pairs on M (see
+// the note at the top). Grid: x = the split over (sample, brick) pairs, y =
+// the Co tile; MMA_THREADS threads, warp dz < kz owning the taps (dx, dy,
+// dz), the others only staging. vec: g's 16-byte units (8 z positions) are
+// aligned (Zo % 8 == 0 and g 16-byte aligned).
+template <int NTL>
+__global__ void __launch_bounds__(vg::MMA_THREADS, 2)
+conv3d_wgrad_pair_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ g,
+                         float* __restrict__ ws, int B, int Co, int X, int Y, int Z, int Xo,
+                         int Yo, int Zo, int kx, int ky, int kz, int px, int py, int pz,
+                         int reflect, int vec) {
+  using namespace vg;
+  constexpr int CO_TILE = NTL * 8;
+  extern __shared__ uint4 smem[];
+  const int hy = FOLD_BY + ky - 1, rows = (FOLD_BX + kx - 1) * hy;
+  uint4* halo = smem;                 // [dz][row][2]
+  uint4* g_s = smem + kz * rows * 2;  // [column][co][2]
+  const uint32_t halo_u = smem_u32(halo), g_u = smem_u32(g_s);
+  const int co0 = blockIdx.y * CO_TILE;
+  const int tid = threadIdx.x, dz = tid >> 5, lane = tid & 31;
+  const int mi = lane >> 3, r = lane & 7;
+  const int pairs = kx * ky, steps = pair_steps(kx, ky);
+
+  // this lane's ldmatrix row of A per m tile, one byte each (at most
+  // (KMAX - 1) * (FOLD_BY + KMAX - 1) + KMAX - 1 = 112): the halo row of
+  // pair 16 m + r + 8 (mi & 1), z half mi >> 1; a padding pair (k >= kx *
+  // ky) reads pair 0's row, and its result is dropped
+  uint32_t roff = 0;
+#pragma unroll
+  for (int m = 0; m < PAIR_MAX_STEPS; ++m) {
+    const int k = 16 * m + r + 8 * (mi & 1);
+    roff |= (uint32_t)(k < pairs ? (k / ky) * hy + k % ky : 0) << (8 * m);
+  }
+  const int a_half = mi >> 1;
+  // this lane's ldmatrix row of B in a column's [co][2] units: co row (mi >>
+  // 1) * 8 + r of each pair of n tiles, z half mi & 1 (the swizzle of a row
+  // offset by a multiple of 8 is the row's own)
+  const uint32_t b_lane = g_u + swz((mi >> 1) * 8 + r, mi & 1) * 16;
+  float acc[PAIR_MAX_STEPS][NTL][4];
+#pragma unroll
+  for (int m = 0; m < PAIR_MAX_STEPS; ++m)
+#pragma unroll
+    for (int nt = 0; nt < NTL; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[m][nt][e] = 0.f;
+
+  const long long plane = (long long)X * Y * Z, nout = (long long)Xo * Yo * Zo;
+  // 32-bit: the C entry keeps B * n_bricks < 2^31
+  const int n_bricks = ((Xo + FOLD_BX - 1) / FOLD_BX) * ((Yo + FOLD_BY - 1) / FOLD_BY) *
+                       ((Zo + FOLD_ROWS - 1) / FOLD_ROWS);
+  const unsigned short* gs = reinterpret_cast<const unsigned short*>(g);
+
+  for (int q = blockIdx.x; q < B * n_bricks; q += gridDim.x) {
+    const int bb = q / n_bricks;
+    int ox0, oy0, oz0;
+    brick_origin(q % n_bricks, Yo, Zo, FOLD_BX, FOLD_BY, FOLD_ROWS, ox0, oy0, oz0);
+    __syncthreads();  // the previous brick is consumed
+    stage_pair_halo(halo, x + bb * plane, X, Y, Z, kx, ky, kz, px, py, pz, reflect, ox0, oy0,
+                    oz0);
+    // g_s unit (column, co, half): g at output z oz0 + 8 half .. + 7 of the
+    // column, 0 outside the output; a warp stores 16 consecutive co rows
+    for (int u = tid; u < PAIR_COLS * CO_TILE * 2; u += MMA_THREADS) {
+      const int hh = u & 1, co = (u >> 1) % CO_TILE, col = (u >> 1) / CO_TILE;
+      const int ox = ox0 + col / FOLD_BY, oy = oy0 + col % FOLD_BY, oz = oz0 + 8 * hh;
+      uint4 v = make_uint4(0, 0, 0, 0);
+      if (ox < Xo && oy < Yo && oz < Zo && co0 + co < Co) {
+        const unsigned short* src =
+            gs + ((long long)bb * Co + co0 + co) * nout + ((long long)ox * Yo + oy) * Zo + oz;
+        if (vec && oz + 8 <= Zo) {
+          v = __ldg(reinterpret_cast<const uint4*>(src));
+        } else {
+          uint32_t p[4];
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const uint32_t lo = oz + 2 * j < Zo ? __ldg(src + 2 * j) : 0;
+            const uint32_t hi = oz + 2 * j + 1 < Zo ? __ldg(src + 2 * j + 1) : 0;
+            p[j] = lo | (hi << 16);
+          }
+          v = make_uint4(p[0], p[1], p[2], p[3]);
+        }
+      }
+      g_s[swz(col * CO_TILE + co, hh)] = v;
+    }
+    __syncthreads();
+    if (dz >= kz) continue;
+    const uint32_t hc = halo_u + (uint32_t)(dz * rows * 32);
+    for (int col = 0; col < PAIR_COLS; ++col) {
+      const uint32_t g_col = b_lane + (uint32_t)(col * CO_TILE * 32);
+      uint32_t bf[NTL][2];
+#pragma unroll
+      for (int p = 0; p < NTL / 2; ++p) {
+        uint32_t t4[4];
+        ldsm_x4(g_col + p * 16 * 32, t4);
+        bf[2 * p][0] = t4[0];
+        bf[2 * p][1] = t4[1];
+        bf[2 * p + 1][0] = t4[2];
+        bf[2 * p + 1][1] = t4[3];
+      }
+      // an odd last n tile: lanes 0-15 give ldmatrix.x2 rows r of z half
+      // mi & 1, which b_lane holds for them
+      if constexpr (NTL & 1) ldsm_x2(g_col + (NTL - 1) * 8 * 32, bf[NTL - 1][0], bf[NTL - 1][1]);
+      const int hrow = (col / FOLD_BY) * hy + col % FOLD_BY;
+#pragma unroll
+      for (int m = 0; m < PAIR_MAX_STEPS; ++m) {
+        if (m >= steps) break;
+        uint32_t a[4];
+        ldsm_x4(hc + swz(hrow + (int)((roff >> (8 * m)) & 255), a_half) * 16, a);
+#pragma unroll
+        for (int nt = 0; nt < NTL; ++nt) mma_bf16(acc[m][nt], a, bf[nt][0], bf[nt][1]);
+      }
+    }
+  }
+
+  // C[m = pair][n = co]: rows gr, gr + 8, columns 2q, 2q + 1 of each tile
+  if (dz >= kz) return;
+  const int taps = pairs * kz;
+  float* out = ws + (long long)blockIdx.x * Co * taps;
+  const int gr = lane >> 2, tq = lane & 3;
+#pragma unroll
+  for (int m = 0; m < PAIR_MAX_STEPS; ++m) {
+    if (m >= steps) break;
+#pragma unroll
+    for (int nt = 0; nt < NTL; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int p = 16 * m + gr + 8 * (e >> 1), co = co0 + nt * 8 + 2 * tq + (e & 1);
+        if (p < pairs && co < Co) out[(long long)co * taps + p * kz + dz] = acc[m][nt][e];
+      }
+  }
+}
+
+// Shared memory of route 3: the kz halo copies and the Co tile's g columns.
+size_t pair_wgrad_smem(int kx, int ky, int kz, int co_tile) {
+  const size_t rows = (size_t)(vg::FOLD_BX + kx - 1) * (vg::FOLD_BY + ky - 1);
+  return (kz * rows + (size_t)vg::PAIR_COLS * co_tile) * 32;
+}
+
+template <int NTL>
+cudaError_t launch_pair(const void* x, const void* g, float* dw, float* ws, int B, int Co, int X,
+                        int Y, int Z, int Xo, int Yo, int Zo, int kx, int ky, int kz, int px,
+                        int py, int pz, int reflect, int split, cudaStream_t s) {
+  using namespace vg;
+  const size_t smem = pair_wgrad_smem(kx, ky, kz, NTL * 8);
+  cudaError_t e = allow_smem(conv3d_wgrad_pair_kernel<NTL>, smem);
+  if (e != cudaSuccess) return e;
+  const int vec = Zo % 8 == 0 && reinterpret_cast<uintptr_t>(g) % 16 == 0;
+  const dim3 grid((unsigned)split, (Co + NTL * 8 - 1) / (NTL * 8));
+  conv3d_wgrad_pair_kernel<NTL><<<grid, MMA_THREADS, smem, s>>>(
+      static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(g), ws, B, Co, X,
+      Y, Z, Xo, Yo, Zo, kx, ky, kz, px, py, pz, reflect, vec);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  return sum_slices(ws, dw, split, (long long)Co * kx * ky * kz, s);
+}
+
 }  // namespace
 
 // C entry point, bound with ctypes. x (B,Ci,X,Y,Z) and g (B,Co,Xo,Yo,Zo)
@@ -536,7 +716,10 @@ cudaError_t launch_fold(const void* x, const void* g, float* dw, float* ws, int 
 // multiple of 8 up to 32, tap_warps 1, 2, 4 or 8, ws_bytes >= split *
 // (8 / tap_warps) * Co * Ci * taps * 4. route 2 (tensor cores in tap chunks,
 // bfloat16 only): unit stride, Co * kz <= 8, co_tile 8, tap_warps ignored,
-// ws_bytes >= split * Co * Ci * taps * 4. Every element of dw is written.
+// ws_bytes >= split * Co * Ci * taps * 4. route 3 (tensor cores for one
+// input channel, bfloat16 only): Ci = 1, unit stride, co_tile a multiple of
+// 8 up to 32, tap_warps ignored, ws_bytes >= split * Co * taps * 4. Every
+// element of dw is written.
 // Returns cudaGetLastError() after the launches; 1000 for an argument the
 // kernel does not take.
 extern "C" int vg_conv3d_wgrad(const void* x, const void* g, float* dw, float* ws, int dtype,
@@ -572,6 +755,24 @@ extern "C" int vg_conv3d_wgrad(const void* x, const void* g, float* dw, float* w
       return 1000;
     return (int)launch_fold(x, g, dw, ws, B, Ci, Co, X, Y, Z, Xo, Yo, Zo, kx, ky, kz, px, py, pz,
                             reflect, split, s);
+  }
+  if (route == 3) {
+    if (dtype != 1 || Ci != 1 || sx != 1 || sy != 1 || sz != 1) return 1000;
+    if (co_tile < 8 || co_tile > vg::PAIR_MAX_CO_TILE || co_tile % 8 != 0) return 1000;
+    if (pair_wgrad_smem(kx, ky, kz, co_tile) > MAX_SMEM || (Co + co_tile - 1) / co_tile > 65535)
+      return 1000;
+    if ((long long)split * Co * kx * ky * kz * 4 > ws_bytes) return 1000;
+    if ((long long)B * ((Xo + 3) / 4) * ((Yo + 7) / 8) * ((Zo + 15) / 16) >= (1LL << 31))
+      return 1000;
+#define VG_PAIR(NTL)                                                                        \
+  case NTL:                                                                                 \
+    return (int)launch_pair<NTL>(x, g, dw, ws, B, Co, X, Y, Z, Xo, Yo, Zo, kx, ky, kz, px, \
+                                 py, pz, reflect, split, s)
+    switch (co_tile / 8) {
+      VG_PAIR(1); VG_PAIR(2); VG_PAIR(3); VG_PAIR(4);
+    }
+#undef VG_PAIR
+    return 1000;
   }
   if (route != 1 || dtype != 1) return 1000;
   if (co_tile < 8 || co_tile > MMA_MAX_CO_TILE || co_tile % 8 != 0) return 1000;
