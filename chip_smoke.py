@@ -176,8 +176,8 @@ Phases, each of which raises on failure:
    |ref|, a weight gradient 1e-3; bf16 2e-2), with its ms; ``train()`` over
    6 steps with ncritic 5 must update the generators at exactly the steps
    the JAX package's bookkeeping names; ms per step of both paths with the
-   penalty off and on, in turns, peak memory, and the step's phases by CUDA
-   events at ``compute_losses``' marks (the penalty's share). Its numbers
+   penalty off and on, in turns, peak memory, and the step's phases by the
+   CUDA events of its spans (``monitor.profiling``; the penalty's share). Its numbers
    on the ``wgan_step`` and ``wgan_double_backward`` lines;
 14. the 2-D mode: config 2 with ``DIMENSIONS: 2`` at full width (ResU-Nets
    f=16 with 4 levels, PatchGANs f=64) on 128 x 128 images, whose layers run
@@ -2279,6 +2279,7 @@ def check_wgan(ops, tol, disc_shapes):
     import copy
 
     from vangan_torch.config import VanGanConfig
+    from vangan_torch.monitor import profiling
     from vangan_torch.training import step
     from vangan_torch.training.state import NETWORKS, make_train_state
     from vangan_torch.vangan import VanGan
@@ -2435,33 +2436,17 @@ def check_wgan(ops, tol, disc_shapes):
     res["ms_per_step"] = {key: float(np.median(v)) for key, v in times.items()}
     res["ms_all"], res["peak_gib"] = times, peak
 
-    # the step's phases on the kernel path, by CUDA events at the marks
-    order = ("generators", "cycle_losses", "discriminators", "adversarial_losses",
-             "gradient_penalty", "backward", "optimizer")
+    # the step's phases on the kernel path, by the CUDA events of its spans
     res["phases_ms"] = {}
     for gp in ("off", "on"):
-        events = {}
-
-        def mark(name):
-            e = torch.cuda.Event(enable_timing=True)
-            e.record()
-            events[name] = e
-
         reset(True, bf16, at_step=int(gp == "on"))
         gan.distributed_train_step(real_I, real_S, NOISE, True)
         gan.state.step = int(gp == "on")
-        start = torch.cuda.Event(enable_timing=True)
-        start.record()
-        step.train_step(gan.nets, cfg, gan.scales, gan.state, real_I, real_S, NOISE, True,
-                        gan.generator, mark=mark)
+        with profiling.recording(cuda_events=True) as spans:
+            gan.distributed_train_step(real_I, real_S, NOISE, True)
         torch.cuda.synchronize()
-        prev, phases = start, {}
-        for name in order:
-            if name in events:
-                phases[name] = prev.elapsed_time(events[name])
-                prev = events[name]
-        phases["step"] = start.elapsed_time(events["optimizer"])
-        res["phases_ms"][gp] = phases
+        res["phases_ms"][gp] = {s.name.removeprefix("step."): profiling.elapsed_ms(s)
+                                for s in spans if s.name.startswith("step")}
     on, off = res["phases_ms"]["on"], res["phases_ms"]["off"]
     res["gp_share"] = {
         "first_order_ms": on["gradient_penalty"],

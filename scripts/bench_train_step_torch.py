@@ -19,11 +19,11 @@ uniform in [-1, 1], ``real_S`` binary in {-1, 1}). It prints the card's name
 and power limit, then one JSON line per step on the kernel path and the
 plain path in turns after a warm-up step of each (plain, kernel, kernel,
 plain, plain, kernel; ms per step by CUDA events, peak device memory), one
-JSON line per path of CUDA-event ms per layer group of the step (generator
-forward, cycle losses, discriminator forward, adversarial losses, the
-gradient penalty's first-order pass with ``--wasserstein``, backward,
-optimizer; median of 3 steps, events recorded at the step's phase marks,
-summed over the slices), and
+JSON line per path of CUDA-event ms per layer group of the step (the
+forward and within it the generators, cycle losses, discriminators,
+adversarial losses and the gradient penalty's first-order pass with
+``--wasserstein``; backward; optimizer; median of 3 steps, by the CUDA
+events of the step's phase spans, summed over the slices), and
 with ``--profile`` a torch.profiler breakdown of one kernel-path step by
 kernel family, with the device ms of the transposed convs, BatchNorm and
 max-pool. The device's idle share is taken against the CUDA-event time of a
@@ -46,7 +46,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 from bench_predict_torch import family, library_op_ms  # noqa: E402
 
 from vangan_torch.config import VanGanConfig  # noqa: E402
-from vangan_torch.training import step as train_step  # noqa: E402
+from vangan_torch.monitor import profiling  # noqa: E402
 from vangan_torch.vangan import VanGan  # noqa: E402
 
 NOISE = 0.1
@@ -64,24 +64,19 @@ def timed_step(gan, real_I, real_S, kernels: bool) -> dict:
 
 
 def layer_ms(gan, real_I, real_S, kernels: bool, reps: int = 3) -> dict:
-    """CUDA-event ms between the step's phase marks (median of ``reps``)."""
+    """CUDA-event ms of each of the step's phase spans, summed over the
+    slices (median of ``reps``)."""
     gan.set_use_kernels(kernels)
     runs = []
     for _ in range(reps):
-        events = [("start", torch.cuda.Event(enable_timing=True))]
-        events[0][1].record()
-
-        def mark(name):
-            ev = torch.cuda.Event(enable_timing=True)
-            ev.record()
-            events.append((name, ev))
-
-        train_step.train_step(gan.nets, gan.cfg, gan.scales, gan.state, real_I, real_S, NOISE,
-                              True, gan.generator, mark=mark)
+        with profiling.recording(cuda_events=True) as spans:
+            gan.distributed_train_step(real_I, real_S, NOISE, True)
         torch.cuda.synchronize()
         run = {}
-        for (_, prev), (name, ev) in zip(events, events[1:]):
-            run[name] = run.get(name, 0.0) + prev.elapsed_time(ev)
+        for s in spans:
+            if s.name.startswith("step."):
+                name = s.name.removeprefix("step.")
+                run[name] = run.get(name, 0.0) + profiling.elapsed_ms(s)
         runs.append(run)
     return {"path": "kernel" if kernels else "plain",
             "layer_ms": {g: float(np.median([r[g] for r in runs])) for g in runs[0]}}

@@ -33,6 +33,7 @@ import torch
 
 from vangan_torch.data.preprocess import write_tiff
 from vangan_torch.device import resolve_device
+from vangan_torch.monitor.profiling import span
 from vangan_torch.parallel import Group, is_main
 
 
@@ -118,105 +119,119 @@ def stitch_subvolumes(
     as a (z, x, y, c) TIFF, an image as an (h, w, c) one. With ``group``
     every rank of it calls this on the same volume (``device`` is the
     rank's): rank 0 returns and saves the volume, the others return None.
+
+    The call is the span ``stitch``; its phases the spans ``stitch.pad``
+    (the host's pad), ``stitch.upload``, one ``stitch.batch`` a generator
+    call (gather, generator, accumulate), ``stitch.download`` (the division
+    and the copy to the host), ``stitch.normalize`` (the host's min-max) and
+    ``stitch.save``.
     """
-    if blend not in ("uniform", "gaussian"):
-        raise ValueError(f"blend must be 'uniform' or 'gaussian', got {blend!r}")
-    img = np.asarray(img, dtype=np.float32)
-    two_d = img.ndim == 3
-    if two_d:
-        img = img[:, :, None, :]
-        if len(subvol_size) == 4:  # (GB, kH, kW, C)
-            subvol_size = (*subvol_size[:3], 1, subvol_size[3])
-        stride = (stride[0], stride[1], 1)
-        gen2 = gen
-        gen = lambda p: gen2(p[:, :, :, 0])[:, :, :, None]  # noqa: E731
-    if img.ndim != 4:
-        raise ValueError(f"expected an (X, Y, Z, C) volume or an (H, W, C) image, got shape "
-                         f"{img.shape}")
-    device = resolve_device(device if group is None else group.device)
+    with span("stitch"):
+        if blend not in ("uniform", "gaussian"):
+            raise ValueError(f"blend must be 'uniform' or 'gaussian', got {blend!r}")
+        img = np.asarray(img, dtype=np.float32)
+        two_d = img.ndim == 3
+        if two_d:
+            img = img[:, :, None, :]
+            if len(subvol_size) == 4:  # (GB, kH, kW, C)
+                subvol_size = (*subvol_size[:3], 1, subvol_size[3])
+            stride = (stride[0], stride[1], 1)
+            gen2 = gen
+            gen = lambda p: gen2(p[:, :, :, 0])[:, :, :, None]  # noqa: E731
+        if img.ndim != 4:
+            raise ValueError(f"expected an (X, Y, Z, C) volume or an (H, W, C) image, got shape "
+                             f"{img.shape}")
+        device = resolve_device(device if group is None else group.device)
 
-    oimgshape = img.shape
-    xspacing = yspacing = zspacing = 0
-    if complete:
-        xspacing = int(padFactor * img.shape[0])
-        yspacing = int(padFactor * img.shape[1])
-        if stride[2] != 1:
-            zspacing = int(padFactor * img.shape[2])
-        img = np.pad(img, ((xspacing, xspacing), (yspacing, yspacing), (zspacing, zspacing),
-                           (0, 0)), "symmetric")
-    H, W, D, C = img.shape
-    kH, kW, kD = subvol_size[1], subvol_size[2], subvol_size[3]
-    if kH > H or kW > W or kD > D:
-        raise ValueError(f"patch {(kH, kW, kD)} is larger than the (padded) volume "
-                         f"{(H, W, D)}")
+        oimgshape = img.shape
+        xspacing = yspacing = zspacing = 0
+        if complete:
+            xspacing = int(padFactor * img.shape[0])
+            yspacing = int(padFactor * img.shape[1])
+            if stride[2] != 1:
+                zspacing = int(padFactor * img.shape[2])
+            with span("stitch.pad"):
+                img = np.pad(img, ((xspacing, xspacing), (yspacing, yspacing),
+                                   (zspacing, zspacing), (0, 0)), "symmetric")
+        H, W, D, C = img.shape
+        kH, kW, kD = subvol_size[1], subvol_size[2], subvol_size[3]
+        if kH > H or kW > W or kD > D:
+            raise ValueError(f"patch {(kH, kW, kD)} is larger than the (padded) volume "
+                             f"{(H, W, D)}")
 
-    if not complete or not border_removal or blend == "gaussian":
-        pH = pW = pD = 0
-    else:
-        pH, pW, pD = int(0.1 * kH), int(0.1 * kW), int(0.1 * kD)
-        if kD == D:
-            pD = 0
-
-    origins = stitch_origins((H, W, D), (kH, kW, kD), stride)
-    if complete and is_main(group):
-        print(f"\tImage size (X,Y,Z,C): {oimgshape}")
-        print(f"\tImage size w/ padding (X,Y,Z,C): {(H, W, D, C)}")
-        print(f"\tSampling patch size (X,Y,Z,C): {(kH, kW, kD, 1)}")
-        print(f"\tBorder artefact removal pixel width (X,Y,Z): ({pH}, {pW}, {pD})")
-        print(f"\tStride pixel length (X,Y,Z): {tuple(stride)}")
-        print(f"\tNo. of patches: {len(origins)}")
-    # The generator is deterministic at inference, so a repeated origin runs
-    # once and is added with its multiplicity (the same sum, fewer batches).
-    uniq, mult = np.unique(np.asarray(origins, np.int64), axis=0, return_counts=True)
-
-    with torch.inference_mode():
-        vol = torch.from_numpy(img).to(device)  # the one upload
-        acc = torch.zeros((2, *img.shape), dtype=torch.float32, device=device)
-        pred, count = acc[0], acc[1]
-        if blend == "gaussian":
-            weight = torch.from_numpy(gaussian_window((kH, kW, kD))).to(device)
+        if not complete or not border_removal or blend == "gaussian":
+            pH = pW = pD = 0
         else:
-            weight = torch.ones((kH - 2 * pH, kW - 2 * pW, kD - 2 * pD, C), device=device)
-        starts = range(0, len(uniq), batch_size)
-        if group is not None:
-            starts = starts[group.rank::group.world]
-        for g0 in starts:
-            batch = uniq[g0 : g0 + batch_size]
-            patches = torch.stack([vol[i : i + kH, j : j + kW, k : k + kD]
-                                   for i, j, k in batch.tolist()])
-            if process_img:
-                patches = minmax_patches(patches)
-            n_valid = len(batch)
-            if n_valid < batch_size:
-                patches = torch.cat([patches, patches[-1:].expand(
-                    batch_size - n_valid, *patches.shape[1:])])
-            out = gen(patches)[:n_valid].float()
-            out = out[:, pH : kH - pH, pW : kW - pW, pD : kD - pD]
-            for (i, j, k), o, m in zip(batch.tolist(), out, mult[g0 : g0 + batch_size]):
-                sl = (slice(i + pH, i + kH - pH), slice(j + pW, j + kW - pW),
-                      slice(k + pD, k + kD - pD))
-                w = weight * float(m)
-                pred[sl] += o * w
-                count[sl] += w
-        if group is not None:
-            group.sum_(acc)
-            if not is_main(group):
-                return None
-        crop = (slice(xspacing, xspacing + oimgshape[0]),
-                slice(yspacing, yspacing + oimgshape[1]),
-                slice(zspacing, zspacing + oimgshape[2]))
-        pred = (pred[crop] / count[crop]).cpu().numpy()  # the one download
+            pH, pW, pD = int(0.1 * kH), int(0.1 * kW), int(0.1 * kD)
+            if kD == D:
+                pD = 0
 
-    pred = 255 * min_max_norm_np(pred)
-    if not complete:
-        pred = pred.astype("uint8")
-    if two_d:
-        pred = pred[:, :, 0, :]
-    if save:
+        origins = stitch_origins((H, W, D), (kH, kW, kD), stride)
+        if complete and is_main(group):
+            print(f"\tImage size (X,Y,Z,C): {oimgshape}")
+            print(f"\tImage size w/ padding (X,Y,Z,C): {(H, W, D, C)}")
+            print(f"\tSampling patch size (X,Y,Z,C): {(kH, kW, kD, 1)}")
+            print(f"\tBorder artefact removal pixel width (X,Y,Z): ({pH}, {pW}, {pD})")
+            print(f"\tStride pixel length (X,Y,Z): {tuple(stride)}")
+            print(f"\tNo. of patches: {len(origins)}")
+        # The generator is deterministic at inference, so a repeated origin runs
+        # once and is added with its multiplicity (the same sum, fewer batches).
+        uniq, mult = np.unique(np.asarray(origins, np.int64), axis=0, return_counts=True)
+
+        with torch.inference_mode():
+            with span("stitch.upload"):
+                vol = torch.from_numpy(img).to(device)  # the one upload
+            acc = torch.zeros((2, *img.shape), dtype=torch.float32, device=device)
+            pred, count = acc[0], acc[1]
+            if blend == "gaussian":
+                weight = torch.from_numpy(gaussian_window((kH, kW, kD))).to(device)
+            else:
+                weight = torch.ones((kH - 2 * pH, kW - 2 * pW, kD - 2 * pD, C), device=device)
+            starts = range(0, len(uniq), batch_size)
+            if group is not None:
+                starts = starts[group.rank::group.world]
+            for g0 in starts:
+                with span("stitch.batch"):
+                    batch = uniq[g0 : g0 + batch_size]
+                    patches = torch.stack([vol[i : i + kH, j : j + kW, k : k + kD]
+                                           for i, j, k in batch.tolist()])
+                    if process_img:
+                        patches = minmax_patches(patches)
+                    n_valid = len(batch)
+                    if n_valid < batch_size:
+                        patches = torch.cat([patches, patches[-1:].expand(
+                            batch_size - n_valid, *patches.shape[1:])])
+                    out = gen(patches)[:n_valid].float()
+                    out = out[:, pH : kH - pH, pW : kW - pW, pD : kD - pD]
+                    for (i, j, k), o, m in zip(batch.tolist(), out,
+                                               mult[g0 : g0 + batch_size]):
+                        sl = (slice(i + pH, i + kH - pH), slice(j + pW, j + kW - pW),
+                              slice(k + pD, k + kD - pD))
+                        w = weight * float(m)
+                        pred[sl] += o * w
+                        count[sl] += w
+            if group is not None:
+                group.sum_(acc)
+                if not is_main(group):
+                    return None
+            crop = (slice(xspacing, xspacing + oimgshape[0]),
+                    slice(yspacing, yspacing + oimgshape[1]),
+                    slice(zspacing, zspacing + oimgshape[2]))
+            with span("stitch.download"):
+                pred = (pred[crop] / count[crop]).cpu().numpy()  # the one download
+
+        with span("stitch.normalize"):
+            pred = 255 * min_max_norm_np(pred)
         if not complete:
-            out_file = os.path.join(model_path, f"e{epoch + 1}_{name}.tiff")
-        else:
-            out_file = os.path.join(output_path or ".", f"{name}.tiff")
-        # (z, x, y, c); an image (h, w, c) as one page
-        write_tiff(out_file, pred[None] if two_d else np.transpose(pred, (2, 0, 1, 3)))
-    return pred
+            pred = pred.astype("uint8")
+        if two_d:
+            pred = pred[:, :, 0, :]
+        if save:
+            if not complete:
+                out_file = os.path.join(model_path, f"e{epoch + 1}_{name}.tiff")
+            else:
+                out_file = os.path.join(output_path or ".", f"{name}.tiff")
+            # (z, x, y, c); an image (h, w, c) as one page
+            with span("stitch.save"):
+                write_tiff(out_file, pred[None] if two_d else np.transpose(pred, (2, 0, 1, 3)))
+        return pred

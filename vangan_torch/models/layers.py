@@ -35,6 +35,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from vangan_torch.monitor.profiling import span
 from vangan_torch.ops.autograd import once_differentiable
 from vangan_torch.ops.conv3d import conv3d, conv3d_plain, norm_padding
 from vangan_torch.ops.instnorm import instance_norm_act, instance_norm_act_plain
@@ -138,13 +139,15 @@ class ConvND(nn.Module):
 
     def forward(self, x: torch.Tensor, weight: Optional[torch.Tensor] = None) -> torch.Tensor:
         """The conv of ``x`` with ``weight`` (default ``self.weight``; a
-        spectrally normalised one, see ``SpectralNorm``)."""
+        spectrally normalised one, see ``SpectralNorm``), in the span
+        ``conv.forward`` on either route."""
         w = self.weight if weight is None else weight
         co, ci = w.shape[:2]
-        if self.use_kernels and max(ci, co) < KERNEL_MAX_CHANNELS:
-            return conv3d(x, w, self.bias, self.strides, self.padding, self.pad_mode)
-        pads = norm_padding(self.padding, self.kernel_size, self.strides, x.shape[2:])
-        return conv3d_plain(x, w, self.bias, self.strides, pads, self.pad_mode)
+        with span("conv.forward"):
+            if self.use_kernels and max(ci, co) < KERNEL_MAX_CHANNELS:
+                return conv3d(x, w, self.bias, self.strides, self.padding, self.pad_mode)
+            pads = norm_padding(self.padding, self.kernel_size, self.strides, x.shape[2:])
+            return conv3d_plain(x, w, self.bias, self.strides, pads, self.pad_mode)
 
 
 class InstanceNorm(nn.Module):

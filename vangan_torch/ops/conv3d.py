@@ -95,6 +95,7 @@ from typing import Optional, Sequence, Tuple, Union
 import torch
 import torch.nn.functional as F
 
+from vangan_torch.monitor.profiling import span
 from vangan_torch.ops import build
 from vangan_torch.ops.pad import Pad3, fold_positions, pad3d, pad3d_grad
 
@@ -700,11 +701,19 @@ class _Conv3d(torch.autograd.Function):
             return None, None, None, None, None, None
         x, w = ctx.saved_tensors
         need_x, need_w, need_b = ctx.needs_input_grad[:3]
-        g = g.contiguous()
-        dx = _Conv3dDgrad.apply(g, w, tuple(x.shape), *ctx.conf).to(x.dtype) if need_x else None
-        dw = _Conv3dWgrad.apply(x, g, tuple(w.shape), *ctx.conf).to(w.dtype) if need_w else None
-        db = g.to(torch.promote_types(g.dtype, torch.float32)).sum(dim=(0, 2, 3, 4)) \
-            if ctx.has_bias and need_b else None
+        need_b = ctx.has_bias and need_b
+        dx = dw = db = None
+        if need_x:
+            with span("conv.dgrad"):
+                g = g.contiguous()
+                dx = _Conv3dDgrad.apply(g, w, tuple(x.shape), *ctx.conf).to(x.dtype)
+        if need_w or need_b:
+            with span("conv.wgrad"):  # the weight's gradient and the bias's
+                g = g.contiguous()
+                if need_w:
+                    dw = _Conv3dWgrad.apply(x, g, tuple(w.shape), *ctx.conf).to(w.dtype)
+                if need_b:
+                    db = g.to(torch.promote_types(g.dtype, torch.float32)).sum(dim=(0, 2, 3, 4))
         return dx, dw, db, None, None, None
 
 

@@ -32,6 +32,7 @@ from vangan_torch.device import resolve_device
 from vangan_torch.losses import LossScales
 from vangan_torch.models.factory import build_discriminator, build_generator
 from vangan_torch.models.layers import BatchNorm
+from vangan_torch.monitor.profiling import span
 from vangan_torch.parallel import Group, broadcast_state, is_main, rows
 from vangan_torch.training import step
 from vangan_torch.training.state import NETWORKS, make_train_state
@@ -142,11 +143,13 @@ class VanGan:
         feed gives it, and returns the losses averaged over the ranks. With
         ``cfg.micro_batches`` > 1 the step accumulates the gradients of that
         many slices of the (rank's) batch, at ``self.scales.for_micro``, before
-        its one update (``training.step``)."""
-        return step.train_step(self.nets, self.cfg, self.scales, self.state,
-                               self._on_device(real_I), self._on_device(real_S),
-                               float(noise_std), bool(update_gen), self.generator,
-                               group=self.group)
+        its one update (``training.step``). The whole call, uploads included,
+        is the span ``step``."""
+        with span("step"):
+            return step.train_step(self.nets, self.cfg, self.scales, self.state,
+                                   self._on_device(real_I), self._on_device(real_S),
+                                   float(noise_std), bool(update_gen), self.generator,
+                                   group=self.group)
 
     def distributed_test_step(self, real_I, real_S) -> Dict[str, torch.Tensor]:
         """The losses of one (B, X, Y, Z, 1) imaging and segmentation batch
@@ -232,21 +235,23 @@ def train(ds: Iterable[Tuple[np.ndarray, np.ndarray]], gan: VanGan, summary, epo
     ``steps``) the train step with noise σ ``noise_std`` (``training``) or
     the test step, then ``summary.scalar(key, mean, epoch=, training=)`` for
     each loss; returns the per-step values by key. Results stay on the device
-    and are fetched 32 steps at a time. On the WGAN path the generators are
-    updated every ``ncritic``-th train step, by the bookkeeping of
-    vangan.py:535-544 (the JAX package's vangan.py:224-230): the flag is
-    raised when ``icritic`` reaches ``ncritic`` and lowered after every step;
-    on the LSGAN path every train step updates them."""
+    and are fetched 32 steps at a time (the span ``train.drain``). On the
+    WGAN path the generators are updated every ``ncritic``-th train step, by
+    the bookkeeping of vangan.py:535-544 (the JAX package's
+    vangan.py:224-230): the flag is raised when ``icritic`` reaches
+    ``ncritic`` and lowered after every step; on the LSGAN path every train
+    step updates them."""
     results: Dict[str, list] = {}
     pending: list = []
 
     def drain() -> None:
         if pending:
-            keys = sorted(pending[0])  # the JAX package's order: device_get sorts dict keys
-            rows = torch.stack([torch.stack([r[k] for k in keys]) for r in pending])
-            for row in rows.cpu().tolist():  # one device-to-host copy per chunk
-                append_dict(results, dict(zip(keys, row)))
-            pending.clear()
+            with span("train.drain"):
+                keys = sorted(pending[0])  # the JAX package's order: device_get sorts keys
+                rows = torch.stack([torch.stack([r[k] for k in keys]) for r in pending])
+                for row in rows.cpu().tolist():  # one device-to-host copy per chunk
+                    append_dict(results, dict(zip(keys, row)))
+                pending.clear()
 
     cntr = 0
     iterator = iter(ds)  # a shared iterator: take no batch beyond ``steps``
