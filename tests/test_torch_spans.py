@@ -130,7 +130,7 @@ def test_a_stitch_records_its_phases_once_and_a_span_per_batch():
                    "stitch.normalize": 1, "stitch.batch": math.ceil(unique / batch)}
     assert spans[0].name == "stitch" and all(s.parent == 0 for s in spans[1:])
     assert [s.name for s in spans if s.name != "stitch.batch"][1:] == [
-        "stitch.pad", "stitch.upload", "stitch.download", "stitch.normalize"]
+        "stitch.upload", "stitch.pad", "stitch.normalize", "stitch.download"]
     assert out.shape == vol.shape
 
 

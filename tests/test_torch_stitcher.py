@@ -27,6 +27,7 @@ from vangan_torch.config import VanGanConfig
 from vangan_torch.data.preprocess import read_tiff
 from vangan_torch.inference import stitcher
 from vangan_torch.models.resunet import ResUNet3D
+from vangan_torch.ops.norms_np import min_max_norm_np
 from vangan_torch.vangan import VanGan
 from vangan_torch.weights import load_flax_params, torch_to_flax
 
@@ -61,6 +62,49 @@ def test_origins_match_jax(L, k, s):
 def test_gaussian_window_matches_jax():
     np.testing.assert_array_equal(stitcher.gaussian_window((16, 12, 8)),
                                   jax_stitcher._gaussian_window((16, 12, 8)))
+
+
+@pytest.mark.parametrize("pads", [(0, 0, 0), (2, 3, 1), (5, 6, 4), (7, 9, 11), (3, 0, 8)],
+                         ids=["none", "under", "equal", "beyond", "mixed"])
+@pytest.mark.parametrize("two_d", [False, True], ids=["3d", "2d"])
+def test_symmetric_pad_matches_numpy(rng, pads, two_d):
+    """Widths 0, under, equal to and beyond each axis of a (5, 6, 4, 2)
+    volume; the 2-D mode's (H, W, 1, C) image leaves z unpadded."""
+    shape = (5, 6, 1, 2) if two_d else (5, 6, 4, 2)
+    if two_d:
+        pads = (*pads[:2], 0)
+    vol = rng.normal(size=shape).astype(np.float32)
+    want = np.pad(vol, [(p, p) for p in pads] + [(0, 0)], "symmetric")
+    got = stitcher.symmetric_pad(torch.from_numpy(vol), pads).numpy()
+    assert got.shape == want.shape
+    np.testing.assert_array_equal(got.view(np.uint32), want.view(np.uint32))
+
+
+def test_min_max_255_matches_numpy(rng):
+    pred = (rng.normal(size=(23, 19, 17, 1)) * 40 + 7).astype(np.float32)
+    want = 255 * min_max_norm_np(pred)
+    got = stitcher.min_max_255_(torch.from_numpy(pred.copy())).numpy()
+    assert got.dtype == want.dtype == np.float32
+    np.testing.assert_array_equal(got.view(np.uint32), want.view(np.uint32))
+
+
+def test_a_constant_prediction_raises():
+    vol = np.random.default_rng(3).uniform(size=(12, 12, 12, 1)).astype(np.float32)
+    with pytest.raises(ValueError, match="max and min are equal"):
+        stitcher.stitch_subvolumes(lambda p: torch.zeros_like(p), vol, (2, 8, 8, 8, 1),
+                                   stride=(4, 4, 4), complete=True, save=False, device="cpu")
+
+
+def test_a_reversed_view_stitches_as_its_copy():
+    """A view with a negative stride (which ``torch.from_numpy`` refuses) is
+    uploaded as its contiguous copy."""
+    vol = np.random.default_rng(4).uniform(size=(12, 12, 12, 1)).astype(np.float32)[::-1]
+    kw = dict(subvol_size=(2, 8, 8, 8, 1), stride=(4, 4, 4), complete=True, save=False,
+              device="cpu")
+    # exactly rounded ops: a transcendental's vector and scalar paths may differ by an ulp
+    gen = lambda p: p * p - 0.5  # noqa: E731
+    np.testing.assert_array_equal(stitcher.stitch_subvolumes(gen, vol, **kw),
+                                  stitcher.stitch_subvolumes(gen, vol.copy(), **kw))
 
 
 @pytest.mark.parametrize("blend", ["uniform", "gaussian"])

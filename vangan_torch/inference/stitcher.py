@@ -6,7 +6,8 @@ reference's ``GanMonitor.stitch_subvolumes``, custom_callback.py:47-223):
 - patch origins follow the reference's clamped walk, duplicate final origins
   included (``stitch_origins``);
 - with ``complete=True`` the volume is padded by ``padFactor`` of each axis
-  ('symmetric', on the host, before the single upload);
+  ('symmetric', on the device, after the single upload of the unpadded
+  volume: the margin never crosses the link, as in the JAX package);
 - ``blend='uniform'`` averages patches with a 10% border trim,
   ``blend='gaussian'`` weights them by a Gaussian window;
 - the generator sees fixed-size batches, the last one padded by repeating its
@@ -16,7 +17,8 @@ reference's ``GanMonitor.stitch_subvolumes``, custom_callback.py:47-223):
 - a voxel no patch covers would be 0/0 = NaN, as in the reference; with
   stride <= patch such voxels lie only in the margin, which is cropped
   before the division; the result is ``255 * min_max_norm`` (float32 with
-  ``complete=True``, else uint8);
+  ``complete=True``, else uint8), computed on the device before the single
+  download and bit for bit numpy's;
 - given a data-parallel ``group`` (the JAX package's mesh path), rank r of k
   runs the unique-origin batches r, r + k, ... into private accumulators,
   one sum over the ranks adds them, and rank 0 divides, returns and saves
@@ -71,12 +73,31 @@ def gaussian_window(shape: Sequence[int], sigma_scale: float = 0.125) -> np.ndar
     return np.maximum(w3, 1e-3).astype(np.float32)[..., None]
 
 
-def min_max_norm_np(data: np.ndarray) -> np.ndarray:
-    """Min-max normalise to [0, 1] (utils.py:10-24); raises on a constant array."""
-    dmin, dmax = np.min(data), np.max(data)
-    if (dmax - dmin) == 0:
+def symmetric_pad(vol: torch.Tensor, pads: Sequence[int]) -> torch.Tensor:
+    """``np.pad(vol, [(p, p) for p in pads] + [(0, 0)], "symmetric")`` of an
+    (X, Y, Z, C) tensor, on its device: an ``index_select`` through each
+    padded axis's index map, numpy's own symmetric pad of ``arange`` (a few
+    hundred entries), so every width holds, those at or beyond the axis
+    length too. An unpadded axis is not gathered. (One gather by three
+    broadcast index tensors would be one pass, but on CUDA torch makes each
+    index tensor as large as the output: 9 GB of int64 at 720^3.)"""
+    for axis, p in enumerate(pads):
+        if p:
+            ix = np.pad(np.arange(vol.shape[axis]), p, "symmetric")
+            vol = vol.index_select(axis, torch.from_numpy(ix).to(vol.device))
+    return vol
+
+
+def min_max_255_(pred: torch.Tensor) -> torch.Tensor:
+    """``255 * min_max_norm_np(pred)`` (utils.py:10-24) in place on pred's
+    device, bit for bit: numpy's float32 operations in numpy's order, the
+    division a true one by a device scalar (a Python float would let torch
+    multiply by its reciprocal). A constant volume raises, as numpy's does."""
+    mn, mx = torch.aminmax(pred)
+    rng = mx - mn
+    if rng.item() == 0:
         raise ValueError("Cannot perform min-max normalization when max and min are equal.")
-    return (data - dmin) / (dmax - dmin)
+    return pred.sub_(mn).div_(rng).mul_(255)
 
 
 def minmax_patches(p: torch.Tensor) -> torch.Tensor:
@@ -120,16 +141,16 @@ def stitch_subvolumes(
     every rank of it calls this on the same volume (``device`` is the
     rank's): rank 0 returns and saves the volume, the others return None.
 
-    The call is the span ``stitch``; its phases the spans ``stitch.pad``
-    (the host's pad), ``stitch.upload``, one ``stitch.batch`` a generator
-    call (gather, generator, accumulate), ``stitch.download`` (the division
-    and the copy to the host), ``stitch.normalize`` (the host's min-max) and
-    ``stitch.save``.
+    The call is the span ``stitch``; its phases the spans ``stitch.upload``
+    (the unpadded volume to the device), ``stitch.pad`` (the symmetric pad,
+    on the device), one ``stitch.batch`` a generator call (gather, generator,
+    accumulate), ``stitch.normalize`` (the division and the min-max, on the
+    device), ``stitch.download`` (the copy to the host) and ``stitch.save``.
     """
     with span("stitch"):
         if blend not in ("uniform", "gaussian"):
             raise ValueError(f"blend must be 'uniform' or 'gaussian', got {blend!r}")
-        img = np.asarray(img, dtype=np.float32)
+        img = np.ascontiguousarray(img, dtype=np.float32)
         two_d = img.ndim == 3
         if two_d:
             img = img[:, :, None, :]
@@ -150,10 +171,9 @@ def stitch_subvolumes(
             yspacing = int(padFactor * img.shape[1])
             if stride[2] != 1:
                 zspacing = int(padFactor * img.shape[2])
-            with span("stitch.pad"):
-                img = np.pad(img, ((xspacing, xspacing), (yspacing, yspacing),
-                                   (zspacing, zspacing), (0, 0)), "symmetric")
-        H, W, D, C = img.shape
+        pads = (xspacing, yspacing, zspacing)
+        H, W, D = (n + 2 * p for n, p in zip(oimgshape, pads))
+        C = oimgshape[3]
         kH, kW, kD = subvol_size[1], subvol_size[2], subvol_size[3]
         if kH > H or kW > W or kD > D:
             raise ValueError(f"patch {(kH, kW, kD)} is larger than the (padded) volume "
@@ -181,7 +201,9 @@ def stitch_subvolumes(
         with torch.inference_mode():
             with span("stitch.upload"):
                 vol = torch.from_numpy(img).to(device)  # the one upload
-            acc = torch.zeros((2, *img.shape), dtype=torch.float32, device=device)
+            with span("stitch.pad"):  # each step frees its input before acc exists
+                vol = symmetric_pad(vol, pads)
+            acc = torch.zeros((2, H, W, D, C), dtype=torch.float32, device=device)
             pred, count = acc[0], acc[1]
             if blend == "gaussian":
                 weight = torch.from_numpy(gaussian_window((kH, kW, kD))).to(device)
@@ -217,13 +239,13 @@ def stitch_subvolumes(
             crop = (slice(xspacing, xspacing + oimgshape[0]),
                     slice(yspacing, yspacing + oimgshape[1]),
                     slice(zspacing, zspacing + oimgshape[2]))
+            with span("stitch.normalize"):
+                pred = min_max_255_(pred[crop] / count[crop])
+                if not complete:
+                    pred = pred.to(torch.uint8)
             with span("stitch.download"):
-                pred = (pred[crop] / count[crop]).cpu().numpy()  # the one download
+                pred = pred.cpu().numpy()  # the one download
 
-        with span("stitch.normalize"):
-            pred = 255 * min_max_norm_np(pred)
-        if not complete:
-            pred = pred.astype("uint8")
         if two_d:
             pred = pred[:, :, 0, :]
         if save:
