@@ -89,14 +89,8 @@ def run(h) -> dict:
         res = vg.train(feed, gan, summary, 0, steps=1, training=True, noise_std=noise)
         losses.append({key: v[0] for key, v in res.items()})
         if k == 0:
-            for name in ref_step.NETWORKS:
-                opt = gan.state.opt[name]
-                for pname, p in gan.nets[name].named_parameters():
-                    m = opt.state[p]["exp_avg"] if p in opt.state else torch.zeros_like(p)
-                    grad1[f"{name}/{pname}"] = float(m.norm()) / (1.0 - opt.defaults["betas"][0])
-    change = {f"{name}/{pname}": float((p.detach() - init[name][pname]).norm())
-              for name in ref_step.NETWORKS for pname, p in gan.nets[name].named_parameters()}
-    prog = ref_step.Readings(losses, grad1, change)
+            grad1 = first_gradients(gan)
+    prog = ref_step.Readings(losses, grad1, changes(gan, init))
     del init
     h.mark("compared steps")
 
@@ -163,6 +157,24 @@ def run(h) -> dict:
     out["window"]["reference_s"] = time.perf_counter() - t2
     out["numbers"] = check.train_numbers(prog, ref)
     return out
+
+
+def first_gradients(gan) -> Dict[str, float]:
+    """Each parameter's gradient norm as the optimizer got it, after one step
+    (Adam's first moment is then (1 - b1) g); buffers have none."""
+    out = {}
+    for name in ref_step.NETWORKS:
+        opt = gan.state.opt[name]
+        for pname, p in gan.nets[name].named_parameters():
+            m = opt.state[p]["exp_avg"] if p in opt.state else torch.zeros_like(p)
+            out[f"{name}/{pname}"] = float(m.norm()) / (1.0 - opt.defaults["betas"][0])
+    return out
+
+
+def changes(gan, init) -> Dict[str, float]:
+    """Each parameter's change from ``init`` (parameters only)."""
+    return {f"{name}/{pname}": float((p.detach() - init[name][pname]).norm())
+            for name in ref_step.NETWORKS for pname, p in gan.nets[name].named_parameters()}
 
 
 def reference_readings(h, fields: dict, pool, batch: int, n_steps: int, quant=None,

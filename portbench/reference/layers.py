@@ -1,18 +1,20 @@
 """Plain PyTorch building blocks of the reference networks.
 
 Everything here is ordinary ``torch`` arithmetic on ``(B, C, X, Y, Z)``
-float32 tensors: explicit padding, ``F.conv3d``, InstanceNorm by
-``var_mean``, nearest upsampling and spatial dropout. Nothing of the measured
-program is imported. A ``Ctx`` carries what varies between uses:
+float32 tensors: explicit padding, ``F.conv3d`` and ``F.conv_transpose3d``,
+InstanceNorm and BatchNorm by ``var_mean``, nearest upsampling and spatial
+dropout. Nothing of the measured program is imported. A ``Ctx`` carries what
+varies between uses:
 
 - ``quant``: a dtype that the control rounds to (the reference one precision
   below the configuration's) wherever the program rounds to its compute
-  dtype: every conv's input, weight and output, every InstanceNorm's output,
+  dtype: every conv's input, weight and output, every norm's output,
   each network's input, residual sum, noise sum and dropout output; with a
   per-tensor scale (the tensor's largest magnitude to the dtype's largest
   value), forward, and the same rounding of the gradient backward;
-- ``record``: a list that each conv and InstanceNorm appends its shapes to
-  (the work counts of ``portbench.work``), or None.
+- ``record``: a list that each conv, transposed conv, InstanceNorm and
+  BatchNorm appends its shapes to (the work counts of ``portbench.work``),
+  or None.
 
 Random draws come from a ``Segment`` (``portbench.reference.draws``).
 """
@@ -102,6 +104,18 @@ def conv(ctx: Ctx, x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor], 
     return y
 
 
+def conv_transpose(ctx: Ctx, x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor],
+                   stride: int) -> torch.Tensor:
+    """A transposed conv with torch's (Ci, Co, k, k, k) weight, as the
+    generators upsample with it (kernel = stride: the windows do not overlap,
+    and the output is ``stride`` times the input on each axis)."""
+    y = rounded(ctx, F.conv_transpose3d(rounded(ctx, x), rounded(ctx, w), b, stride))
+    if ctx.record is not None:
+        ctx.record.append(("conv_transpose", tuple(x.shape), tuple(w.shape), tuple(y.shape),
+                           x.requires_grad, w.requires_grad))
+    return y
+
+
 def instance_norm(ctx: Ctx, x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
                   act: str = "none", eps: float = 1e-3, slope: float = 0.2) -> torch.Tensor:
     """Per-sample, per-channel normalisation over X, Y, Z (biased variance),
@@ -116,6 +130,19 @@ def instance_norm(ctx: Ctx, x: torch.Tensor, gamma: torch.Tensor, beta: torch.Te
     elif act == "leaky_relu":
         y = torch.where(y >= 0, y, slope * y)
     return rounded(ctx, y)
+
+
+def batch_norm(ctx: Ctx, x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
+               eps: float = 1e-3) -> torch.Tensor:
+    """Keras' BatchNormalization in training: per-channel statistics over
+    B, X, Y, Z (biased variance), affine. The running statistics are the
+    program's state; the reference neither reads nor moves them."""
+    if ctx.record is not None:
+        ctx.record.append(("bn", tuple(x.shape), x.requires_grad))
+    var, mean = torch.var_mean(x, dim=(0, 2, 3, 4), unbiased=False, keepdim=True)
+    shape = (1, -1, 1, 1, 1)
+    return rounded(ctx, (x - mean) * (gamma.view(shape) * torch.rsqrt(var + eps))
+                   + beta.view(shape))
 
 
 def upsample(x: torch.Tensor) -> torch.Tensor:
@@ -142,11 +169,16 @@ def from_volume(y: torch.Tensor) -> torch.Tensor:
 
 
 class Spec:
-    """The parameters of a network: name -> (shape, init), init one of
-    ("he", fan_in) (truncated normal, variance 2 / fan_in), "ones", "zeros"."""
+    """The parameters of a network (``leaves``): name -> (shape, init), init
+    one of ("he", fan_in) (truncated normal, variance 2 / fan_in), "ones",
+    "zeros"; and its state (``state``): the program's buffers, such as
+    BatchNorm's running ``mean`` and ``var``, name -> (shape, "zeros" or
+    "ones"). The state is loaded into the program beside the parameters and
+    is never drawn, trained or compared."""
 
     def __init__(self):
         self.leaves = {}
+        self.state = {}
 
     def conv(self, name: str, ci: int, co: int, k: int, bias: bool) -> None:
         self.leaves[name + ".weight"] = ((co, ci, k, k, k), ("he", ci * k ** 3))
@@ -156,3 +188,16 @@ class Spec:
     def norm(self, name: str, c: int, gamma="ones") -> None:
         self.leaves[name + ".weight"] = ((c,), gamma)
         self.leaves[name + ".bias"] = ((c,), "zeros")
+
+    def conv_transpose(self, name: str, ci: int, co: int, k: int) -> None:
+        self.leaves[name + ".weight"] = ((ci, co, k, k, k), ("he", ci * k ** 3))
+        self.leaves[name + ".bias"] = ((co,), "zeros")
+
+    def buffer(self, name: str, shape, init: str) -> None:
+        self.state[name] = (tuple(shape), init)
+
+    def batch_norm(self, name: str, c: int) -> None:
+        """A BatchNorm's gamma and beta, and its running mean and variance."""
+        self.norm(name, c)
+        self.buffer(name + ".mean", (c,), "zeros")
+        self.buffer(name + ".var", (c,), "ones")

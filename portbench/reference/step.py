@@ -46,10 +46,19 @@ def network_kinds(fields: dict) -> Dict[str, object]:
             "disc_I": kind("patchgan"), "disc_S": kind("patchgan")}
 
 
-def specs(fields: dict) -> Dict[str, dict]:
-    """Every network's leaves: name -> (shape, init)."""
+def _specs(fields: dict) -> Dict[str, object]:
     roles = {"gen_IS": "i2s", "gen_SI": "s2i", "disc_I": "disc", "disc_S": "disc"}
-    return {n: k.spec(fields, roles[n]).leaves for n, k in network_kinds(fields).items()}
+    return {n: k.spec(fields, roles[n]) for n, k in network_kinds(fields).items()}
+
+
+def specs(fields: dict) -> Dict[str, dict]:
+    """Every network's leaves (its parameters): name -> (shape, init)."""
+    return {n: s.leaves for n, s in _specs(fields).items()}
+
+
+def state_specs(fields: dict) -> Dict[str, dict]:
+    """Every network's state (the program's buffers): name -> (shape, init)."""
+    return {n: s.state for n, s in _specs(fields).items()}
 
 
 def compute_losses(fields: dict, P: Dict[str, dict], real_I: torch.Tensor, real_S: torch.Tensor,

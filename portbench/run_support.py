@@ -10,7 +10,7 @@ from typing import Dict, Tuple
 import torch
 
 from portbench import weights
-from portbench.reference.step import NETWORKS, specs
+from portbench.reference.step import NETWORKS, specs, state_specs
 
 
 class Run:
@@ -45,9 +45,12 @@ class Run:
 
 def build_gan(h: Run, **overrides) -> Tuple[object, dict, Dict[str, Dict[str, torch.Tensor]]]:
     """(the program's ``VanGan`` of the cell's configuration with
-    ``overrides``, seeded by the run's seed, holding the seeded weights; the
-    configuration's fields; the weights it was given). Marks the set-up's
-    phases "program imports", "weights", "networks" and "VanGan"."""
+    ``overrides``, seeded by the run's seed, holding the seeded weights and
+    the networks' declared state; the configuration's fields; the weights it
+    was given, parameters only). Each network loads strictly: a parameter or
+    buffer that the reference's spec leaves out or misnames raises. Marks
+    the set-up's phases "program imports", "weights", "networks" and
+    "VanGan"."""
     from vangan_torch.config import VanGanConfig
     from vangan_torch.models.factory import build_discriminator, build_generator
     from vangan_torch.vangan import VanGan
@@ -56,6 +59,7 @@ def build_gan(h: Run, **overrides) -> Tuple[object, dict, Dict[str, Dict[str, to
     fields = {**h.fields, **overrides, "seed": h.seed}
     cfg = VanGanConfig.from_dict(fields)
     init = weights.make(specs(fields), h.seed, h.device)
+    state = weights.state(state_specs(fields), h.device)
     if h.device.type == "cuda":
         torch.cuda.synchronize()
     h.mark("weights")
@@ -65,7 +69,7 @@ def build_gan(h: Run, **overrides) -> Tuple[object, dict, Dict[str, Dict[str, to
                 "disc_I": build_discriminator(cfg), "disc_S": build_discriminator(cfg)}
     for name in NETWORKS:
         nets[name] = nets[name].to_empty(device=h.device)
-        nets[name].load_state_dict(init[name], strict=True)
+        nets[name].load_state_dict({**init[name], **state[name]}, strict=True)
     h.mark("networks")
     gan = VanGan(cfg, device=h.device, models=nets, steps_per_epoch=h.steps_per_epoch)
     h.mark("VanGan")

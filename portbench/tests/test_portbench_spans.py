@@ -1,17 +1,14 @@
 """Device time by the program's spans (``portbench/spans.py``) on synthetic
-profiler events, and ``stitch_host_share.predict`` on a stitch profiled on
-the CPU."""
+profiler events, and the idle gaps of a stitch profiled on the CPU named by
+its spans."""
 
-import os
 import time
 
 import numpy as np
 import pytest
 import torch
 
-from conftest import REPO
-
-from portbench import run, spans, trace
+from portbench import spans, trace
 
 CUDA, CPU = torch.autograd.DeviceType.CUDA, torch.autograd.DeviceType.CPU
 
@@ -98,47 +95,23 @@ def test_calls_inside_a_span_read_their_margins():
     assert spans.inside(calls, SPANS, "train.drain") == [(1, 1), (3, -2)]
 
 
-def _reader():
-    return run.load_file(os.path.join(REPO, "portbench", "metrics",
-                                      "stitch_host_share.predict.py"), "reader_stitch_host")
-
-
-def test_the_host_share_reads_the_gaps_the_stitcher_spans_name():
-    ms = 1_000_000
-    host = [Event(CPU, "portbench.stitch_volume", 0, 10 * ms),
-            Event(CPU, "stitch", 0, 10 * ms), Event(CPU, "stitch.pad", ms // 10, 3 * ms),
-            Event(CPU, "stitch.normalize", 8 * ms + ms // 10, 10 * ms - ms // 10)]
-    busy = [Event(CUDA, "k", 3 * ms, 8 * ms)]
-    labelled = trace.Summary(host + busy, 0.01, (0, 10 * ms))
-    assert _reader().read({"kind": "predict", "labelled": labelled}) == pytest.approx(50.0)
-    # the parent's program: no stitcher spans, so the metric is left out
-    parent = trace.Summary(host[:1] + busy, 0.01, (0, 10 * ms))
-    assert _reader().read({"kind": "predict", "labelled": parent}) is None
-    assert _reader().read({"kind": "train", "labelled": labelled}) is None
-
-
-def test_a_stitch_profiled_on_the_cpu_names_its_host_phases(monkeypatch):
-    """The spans are host events of a real profile; with the card's work put
-    between the upload and the download, the gaps around it carry the names
-    of the host's pad and min-max."""
+def test_a_stitch_profiled_on_the_cpu_names_its_idle_gap_by_the_span(monkeypatch):
+    """The spans are host events of a real profile: with the card's work put
+    from the stitch's start to the download's and the download slowed, the
+    labelled window's one idle gap carries the name ``stitch.download``."""
     from torch.profiler import ProfilerActivity, profile
 
     from vangan_torch.inference import stitcher
     from vangan_torch.monitor import profiling
 
     slow = 0.05
-    pad, minmax = stitcher.np.pad, stitcher.min_max_norm_np
+    numpy = torch.Tensor.numpy
 
-    def slow_pad(*args, **kwargs):
+    def slow_numpy(self, *args, **kwargs):
         time.sleep(slow)
-        return pad(*args, **kwargs)
+        return numpy(self, *args, **kwargs)
 
-    def slow_minmax(x):
-        time.sleep(slow)
-        return minmax(x)
-
-    monkeypatch.setattr(stitcher.np, "pad", slow_pad)
-    monkeypatch.setattr(stitcher, "min_max_norm_np", slow_minmax)
+    monkeypatch.setattr(torch.Tensor, "numpy", slow_numpy)
     vol = np.random.default_rng(0).uniform(size=(12, 12, 12, 1)).astype(np.float32)
     with profile(activities=[ProfilerActivity.CPU]) as prof:
         with profiling.recording() as rec:
@@ -146,13 +119,11 @@ def test_a_stitch_profiled_on_the_cpu_names_its_host_phases(monkeypatch):
                                        complete=True, padFactor=0.25, blend="gaussian",
                                        batch_size=2, save=False, device="cpu")
     by = {s.name: s for s in rec}
-    whole, up, down = by["stitch"], by["stitch.upload"], by["stitch.download"]
-    busy = Event(CUDA, "k", up.start_ns, down.end_ns)
+    whole, down = by["stitch"], by["stitch.download"]
+    assert (down.end_ns - down.start_ns) / 1e9 >= slow
+    busy = Event(CUDA, "k", whole.start_ns, down.start_ns)
     window_s = (whole.end_ns - whole.start_ns) / 1e9
     labelled = trace.Summary(list(prof.profiler.kineto_results.events()) + [busy], window_s,
                              (whole.start_ns, whole.end_ns))
-    assert {name for name, _ in labelled.idle_gaps} == {"stitch.pad", "stitch.normalize"}
-    gaps = (up.start_ns - whole.start_ns) + (whole.end_ns - down.end_ns)
-    value = _reader().read({"kind": "predict", "labelled": labelled})
-    assert value == pytest.approx(100 * gaps / 1e9 / window_s)
-    assert 0 < value < 100
+    assert [name for name, _ in labelled.idle_gaps] == ["stitch.download"]
+    assert labelled.idle_gaps[0][1] == pytest.approx((whole.end_ns - down.start_ns) / 1e9)

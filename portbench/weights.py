@@ -4,7 +4,9 @@ conv weight and he-normal gamma of all four networks together, from a
 ``torch.Generator`` on the device seeded with the run's seed, then scaled
 per leaf to variance 2 / fan_in (flax's truncated ``variance_scaling``:
 std sqrt(2 / fan_in) / 0.8796); ones and zeros as the spec says. The same
-float32 state dicts go to the program and to the reference."""
+float32 state dicts go to the program and to the reference. A network's
+state (its buffers, ``state``) is ones and zeros, made apart and with no
+draw, so the draw covers the same leaves whatever state a network holds."""
 
 from __future__ import annotations
 
@@ -32,11 +34,24 @@ def make(specs: Dict[str, dict], seed: int, device) -> Dict[str, Dict[str, torch
         at += size
     for n in specs:
         for k, (shape, init) in specs[n].items():
-            if init == "ones":
-                out[n][k] = torch.ones(shape, device=device)
-            elif init == "zeros":
-                out[n][k] = torch.zeros(shape, device=device)
+            if not isinstance(init, tuple):
+                out[n][k] = _constant(shape, init, device)
     return out
+
+
+def state(specs: Dict[str, dict], device) -> Dict[str, Dict[str, torch.Tensor]]:
+    """network -> name -> float32 tensor on ``device`` of each network's state
+    (``reference.step.state_specs``): ones or zeros, with no draw."""
+    return {n: {k: _constant(shape, init, device) for k, (shape, init) in s.items()}
+            for n, s in specs.items()}
+
+
+def _constant(shape, init: str, device) -> torch.Tensor:
+    if init == "ones":
+        return torch.ones(shape, device=device)
+    if init == "zeros":
+        return torch.zeros(shape, device=device)
+    raise ValueError(f"unknown init {init!r}")
 
 
 def _numel(shape) -> int:

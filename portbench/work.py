@@ -2,17 +2,19 @@
 shapes alone, and the table of peaks (``peaks.json``).
 
 The reference networks run once on the ``meta`` device (shapes, no data)
-with a record of every conv and InstanceNorm call: input, weight and output
-shapes, and whether the input and the weight need a gradient. From it:
+with a record of every conv, transposed conv, InstanceNorm and BatchNorm
+call: input, weight and output shapes, and whether the input and the weight
+need a gradient. From it:
 
 - conv FLOPs: 2 B Co Ci k^3 (output voxels) for the forward, and the same for
   each of the input gradient (dgrad) and weight gradient (wgrad) that the
   step needs: nothing recomputed, whatever route, library or precision runs
-  the conv;
+  the conv; a transposed conv's: 2 B Ci Co k^3 (input voxels), each input
+  voxel spread over k^3 output voxels of Co channels;
 - conv bytes, each operand once in the compute dtype: forward x + w + y,
   dgrad dy + w + dx, wgrad x + dy and dw in float32;
-- InstanceNorm bytes: forward x read and y written, backward x and dy read
-  and dx written, in the compute dtype;
+- norm bytes, of an InstanceNorm or a BatchNorm alike: forward x read and y
+  written, backward x and dy read and dx written, in the compute dtype;
 - the roofline bound of each conv pass, max(FLOPs / peak FLOP/s, bytes /
   peak bytes/s), summed.
 """
@@ -39,28 +41,32 @@ class Work:
     def __init__(self):
         self.conv_flops = 0.0
         self.conv_bound_s = 0.0
-        self.in_bytes = 0.0
+        self.norm_bytes = 0.0
 
     def scaled(self, n: float) -> "Work":
         w = Work()
-        w.conv_flops, w.conv_bound_s, w.in_bytes = (n * self.conv_flops, n * self.conv_bound_s,
-                                                    n * self.in_bytes)
+        w.conv_flops, w.conv_bound_s, w.norm_bytes = (n * self.conv_flops,
+                                                      n * self.conv_bound_s,
+                                                      n * self.norm_bytes)
         return w
 
     @property
-    def in_bound_s(self) -> float:
-        return self.in_bytes / peaks()["hbm_bytes_per_s"]
+    def norm_bound_s(self) -> float:
+        return self.norm_bytes / peaks()["hbm_bytes_per_s"]
 
 
 def bound_s(flops: float, nbytes: float) -> float:
     return max(flops / peaks()["bf16_flops_per_s"], nbytes / peaks()["hbm_bytes_per_s"])
 
 
-def conv_passes(x_shape, w_shape, y_shape, needs_dx: bool, needs_dw: bool, act_bytes: int):
-    """[(pass, FLOPs, bytes)] of one conv: the forward, and dgrad / wgrad
-    where a gradient is needed."""
+def conv_passes(x_shape, w_shape, y_shape, needs_dx: bool, needs_dw: bool, act_bytes: int,
+                transposed: bool = False):
+    """[(pass, FLOPs, bytes)] of one conv (``transposed``: a transposed conv,
+    its weight (Ci, Co, k, k, k)): the forward, and dgrad / wgrad where a
+    gradient is needed."""
     x, w, y = (math.prod(s) for s in (x_shape, w_shape, y_shape))
-    flops = 2.0 * y * math.prod(w_shape[1:])  # 2 B Co out_vox Ci k^3
+    # 2 B Co out_vox Ci k^3; transposed, 2 B Ci in_vox Co k^3
+    flops = 2.0 * (x if transposed else y) * math.prod(w_shape[1:])
     out = [("fwd", flops, (x + w + y) * act_bytes)]
     if needs_dx:
         out.append(("dgrad", flops, (y + w + x) * act_bytes))
@@ -75,19 +81,21 @@ def instnorm_bytes(shape, needs_dx: bool, act_bytes: int) -> float:
 
 
 def tally(records: Iterable, act_bytes: int, backward: bool = True) -> Work:
-    """The ``Work`` of a record of conv and InstanceNorm calls; without
-    ``backward`` only forwards count."""
+    """The ``Work`` of a record of conv ("conv", "conv_transpose") and norm
+    ("in", "bn") calls; without ``backward`` only forwards count."""
     w = Work()
     for rec in records:
-        if rec[0] == "conv":
-            _, xs, ws, ys, dx, dw = rec
+        if rec[0] in ("conv", "conv_transpose"):
+            kind, xs, ws, ys, dx, dw = rec
             for _, flops, nbytes in conv_passes(xs, ws, ys, dx and backward, dw and backward,
-                                                act_bytes):
+                                                act_bytes, kind == "conv_transpose"):
                 w.conv_flops += flops
                 w.conv_bound_s += bound_s(flops, nbytes)
-        else:
+        elif rec[0] in ("in", "bn"):
             _, shape, dx = rec
-            w.in_bytes += instnorm_bytes(shape, dx and backward, act_bytes)
+            w.norm_bytes += instnorm_bytes(shape, dx and backward, act_bytes)
+        else:
+            raise ValueError(f"no work count for a {rec[0]!r} record")
     return w
 
 
