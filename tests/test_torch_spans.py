@@ -153,3 +153,36 @@ def test_profile_dir_traces_hold_the_span_names(tmp_path, what):
         names = {e.get("name") for e in json.load(f)["traceEvents"]}
     assert want <= names
     assert profiling.span("a") is profiling.span("b")  # off again after the trace
+
+
+def test_an_s2i_block_a_deconv_and_a_max_pool_record_their_spans_in_order():
+    """The V-Net's library layers: each BatchNorm of a block opens
+    ``batchnorm.forward``, the transposed conv ``deconv.forward`` and the
+    max-pool ``maxpool.forward``, each under no span of its own."""
+    from vangan_torch.models.vnet import VNetConvBlock
+
+    block = VNetConvBlock(1, 2, use_batch_norm=True, dropout=0.0)
+    deconv = layers.ConvTranspose(2, 2, 2, 2)
+    x = torch.randn(2, 1, 6, 6, 6)
+    with profiling.recording() as spans:
+        y = layers.max_pool_2x(deconv(block(x, train=True)))
+        y.sum().backward()
+    names = [s.name for s in spans if not s.name.startswith("conv.")]
+    assert names == ["batchnorm.forward", "batchnorm.forward", "deconv.forward",
+                     "maxpool.forward"]
+    assert all(s.parent == -1 for s in spans)
+    assert y.shape == (2, 2, 6, 6, 6)
+
+
+def test_outside_a_recording_the_v_net_layers_call_no_profiler(monkeypatch):
+    def refuse(*args, **kwargs):
+        raise AssertionError("a profiler API was called")
+
+    monkeypatch.setattr(profiling, "_record_function", refuse)
+    monkeypatch.setattr(profiling.time, "time_ns", refuse)
+    assert profiling.span("batchnorm.forward") is profiling.span("deconv.forward")
+    bn = layers.BatchNorm(2)
+    x = torch.randn(2, 2, 4, 4, 4)
+    y = layers.max_pool_2x(layers.ConvTranspose(2, 2, 2, 2)(bn(x, train=True)))
+    assert y.shape == (2, 2, 4, 4, 4)
+    assert bn.mean.abs().sum() > 0  # the training call moved the running statistics

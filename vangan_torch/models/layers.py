@@ -341,8 +341,10 @@ def head_activation(name: Optional[str]) -> Callable[[torch.Tensor], torch.Tenso
 def max_pool_2x(x: torch.Tensor, dims: int = 3) -> torch.Tensor:
     """MaxPooling3D(2) on (B, C, X, Y, Z) (vnet.py:35-42, VALID windows), in
     2-D MaxPooling2D(2) on depth-1 volumes. A tied window sends its gradient
-    to its first element in X, Y, Z order, as ``reduce_window``'s does."""
-    return F.max_pool3d(x, spatial(2, dims))
+    to its first element in X, Y, Z order, as ``reduce_window``'s does. In
+    the span ``maxpool.forward``."""
+    with span("maxpool.forward"):
+        return F.max_pool3d(x, spatial(2, dims))
 
 
 class _CrossRankBatchNorm(torch.autograd.Function):
@@ -407,7 +409,7 @@ class BatchNorm(nn.Module):
     data mesh: the statistics, and so the buffers, run over every rank's
     shard (``_CrossRankBatchNorm``), and the buffers stay equal on every
     rank. ``torch.nn.SyncBatchNorm`` would move them by the unbiased
-    variance.
+    variance. Either path runs in the span ``batchnorm.forward``.
     """
 
     def __init__(self, channels: int, epsilon: float = 1e-3, momentum: float = 0.99):
@@ -421,6 +423,10 @@ class BatchNorm(nn.Module):
         self.group = None
 
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        with span("batchnorm.forward"):
+            return self._forward(x, train)
+
+    def _forward(self, x: torch.Tensor, train: bool) -> torch.Tensor:
         # float32 parameters and statistics, float64 for a float64 input
         p = functools.partial(torch.Tensor.to, dtype=torch.promote_types(x.dtype, torch.float32))
         if not train:
@@ -447,7 +453,8 @@ class ConvTranspose(nn.Module):
     (kx, ky, kz, Ci, Co) flipped on its three spatial axes (flax does not
     flip; ``weights.py`` maps it), and ``bias``; in 2-D (Ci, Co, 1, kh, kw)
     and stride (1, s, s). ``kernel_init``:
-    ``"lecun_normal"`` (flax's default) or ``"he_normal"``, fan_in Ci * taps."""
+    ``"lecun_normal"`` (flax's default) or ``"he_normal"``, fan_in Ci * taps. The
+    forward runs in the span ``deconv.forward``."""
 
     def __init__(self, in_channels: int, features: int, kernel_size: int = 2,
                  strides: int = 2, kernel_init: str = "lecun_normal",
@@ -467,8 +474,9 @@ class ConvTranspose(nn.Module):
         self.bias = nn.Parameter(torch.zeros(features))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.conv_transpose3d(x, self.weight.to(x.dtype), self.bias.to(x.dtype),
-                                  stride=self.strides)
+        with span("deconv.forward"):
+            return F.conv_transpose3d(x, self.weight.to(x.dtype), self.bias.to(x.dtype),
+                                      stride=self.strides)
 
 
 class AttentionGate(nn.Module):
